@@ -1,0 +1,103 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into its own shared library under
+``build/`` beside this file, at first use.  The library name carries a
+hash of the source and flags, so an edited source is rebuilt and a
+stale library is never loaded.  :func:`build` starts one ``nvcc`` per
+source, all at once, and waits for them; :func:`load` returns the
+``ctypes`` handle.  A missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+_SRC_DIR = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("csr_spmm", "block_spmm")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc was not found (looked in $CUDA_HOME/bin, /usr/local/cuda/"
+            "bin and PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (_SRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return _BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the last build of ``name`` (register and
+    shared-memory use from ``-Xptxas -v``), or "" if it was not built
+    in this checkout."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every library of ``names`` that is not built yet, with
+    one ``nvcc`` process per source running in parallel."""
+    paths = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = nvcc_path()
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC_DIR / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failures = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        out = todo[name]
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failures))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
+    if rc != 0:
+        msg = lib.kernel_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")

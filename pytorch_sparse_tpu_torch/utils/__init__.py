@@ -1,0 +1,5 @@
+from .convert import INDEX_DTYPE, ind2ptr, ptr2ind  # noqa
+from .host_sort import lexsort2, lexsort2_decode, stable_argsort  # noqa
+
+__all__ = ["INDEX_DTYPE", "ind2ptr", "ptr2ind", "lexsort2",
+           "lexsort2_decode", "stable_argsort"]

@@ -1,0 +1,133 @@
+"""Package-level contract of the PyTorch port: what it may import, where
+its entry points run, what raises, and how its kernels are built."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import pytorch_sparse_tpu as jts
+import pytorch_sparse_tpu_torch as pts
+from pytorch_sparse_tpu_torch import _build
+from pytorch_sparse_tpu_torch.models import GCN
+from pytorch_sparse_tpu_torch.ops.matmul import spmm
+from pytorch_sparse_tpu_torch.testing import community_graph
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "pytorch_sparse_tpu_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "pytorch_sparse_tpu"), (
+            f"{path.name} imports {mod}")
+    text = path.read_text()
+    assert "libsparse_tpu_native" not in text
+    assert "import_module(\"jax" not in text
+
+
+def test_port_exports_the_jax_names():
+    for name in pts.__all__:
+        assert hasattr(pts, name)
+        if name not in ("DenseFormat", "build_dense", "dense_spmm",
+                        "build_hybrid", "__version__"):
+            assert hasattr(jts, name), name
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pts.SparseTensor(row=[0, 1], col=[1, 0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GCN(4, 4, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        community_graph(50, 200, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pts.SparseTensor.from_dense(torch.eye(3))
+    A = pts.SparseTensor(row=[0, 1], col=[1, 0], device="cpu")
+    assert A.device().type == "cpu"
+
+
+def test_spmm_refuses_grad_inputs():
+    A = pts.SparseTensor(row=[0, 1, 1], col=[1, 0, 1],
+                         value=torch.ones(3, requires_grad=True),
+                         device="cpu")
+    x = torch.randn(2, 4, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        pts.spmm_sum(A, x.detach())  # value requires grad
+    B = A.set_value(torch.ones(3), layout="coo")
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        pts.spmm_mean(B, x)
+    with torch.no_grad():
+        assert pts.spmm_sum(A, x).shape == (2, 4)
+
+
+@pytest.mark.parametrize("reduce", ["min", "max"])
+def test_minmax_and_spspmm_not_ported_yet(reduce):
+    A = pts.SparseTensor(row=[0, 1], col=[1, 0], device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        spmm(A, torch.randn(2, 3), reduce)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        A @ A
+
+
+def test_operand_checks():
+    A = pts.SparseTensor(row=[0, 1], col=[1, 2], sparse_sizes=(2, 3),
+                         device="cpu")
+    with pytest.raises(ValueError):
+        pts.spmm_sum(A, torch.randn(2, 4))  # wrong row count
+    with pytest.raises(ValueError):
+        pts.spmm_sum(A, torch.randn(3))     # 1-D operand
+    assert torch.equal(A @ torch.eye(3), A.to_dense())
+
+
+def test_kernel_sources_carry_their_notes():
+    for name in _build.SOURCES:
+        src = (PORT / "csrc" / f"{name}.cu").read_text()
+        assert "pytorch_sparse_tpu/ops/kernels/" in src  # what it replaces
+        assert "bounds it on an H100" in src
+        assert "extern \"C\"" in src and "cudaGetLastError" in src
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc_path()
+
+
+def test_library_name_tracks_the_source():
+    paths = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert len(set(paths.values())) == len(paths)
+    for name, path in paths.items():
+        assert path.name.startswith(name + "-") and path.suffix == ".so"
+        assert path.parent.name == "build"
+
+
+def test_build_log_is_empty_before_a_build(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path)
+    assert _build.build_log("csr_spmm") == ""
+
+
+def test_storage_device_and_repr():
+    A = pts.SparseTensor(row=np.array([2, 0]), col=np.array([1, 1]),
+                         value=np.array([1.0, 2.0], np.float32), device="cpu")
+    assert A.sparse_sizes() == (3, 2)
+    assert "device=cpu" in repr(A) and "nnz=2" in repr(A.storage)
+    np.testing.assert_array_equal(A.storage.value().numpy(), [2.0, 1.0])
