@@ -13,12 +13,15 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 3. Kernels against their plain PyTorch versions on the card:
    ``csr_spmm`` on the ogbn-arxiv-scale uniform graph (M=169,343,
    E=1,166,243) at K=128, 256 and 40, with values and implicit ones, and
-   on a matrix with empty rows; ``block_spmm`` on the community hybrid
-   graph with f32 and bf16 stores.  Each is timed with CUDA events
-   beside its plain version, a PyTorch library yardstick that the port
-   never calls, and its bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s
-   FP32 outside the tensor cores for f32 inputs, 989 TFLOP/s dense bf16
-   tensor cores for a bf16 store times the split f32 operand).
+   on a matrix with empty rows; ``block_spmm`` and ``block_spmm_t`` on
+   the community hybrid graph with f32 and bf16 stores; ``edge_dot`` on
+   the uniform graph at K=128, 256 and 40, on the empty-rows matrix, and
+   at K=128 on the community hybrid and Reddit-10% graphs of phase 4b.
+   Each is timed with CUDA events beside its plain version, a PyTorch
+   library yardstick that the port never calls, and its bound on an H100
+   SXM (3.35 TB/s; 67 TFLOP/s FP32 outside the tensor cores for f32
+   inputs, 989 TFLOP/s dense bf16 tensor cores for a bf16 store times
+   the split f32 operand).
 4. The main path: routed ``spmm_sum`` through the public API, one leg per
    route, each held against a host CSR-walk oracle (head + tail + 512
    random rows): the uniform graph (CSR kernel), a Reddit-10%-density
@@ -26,15 +29,34 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    0 and bf16 store at 2e-3), and a Reddit-node-count community graph at
    a tenth of Reddit's edges (hybrid route: block kernel + CSR
    remainder).
+4b. Backward legs: on the uniform (CSR), Reddit-10% (dense f32) and
+   community hybrid (hybrid f32) graphs, ``spmm_sum(A.set_value(v), x)``
+   with ``v`` and ``x`` requiring grad, backpropagated from a seeded
+   ``gout``.  ``grad_x`` is held against a float64 host CSC walk (head +
+   tail + 512 random columns), ``grad_v`` against a float64 host dot over
+   4096 random edges.
 5. GCN inference at the width of OGB's ogbn-arxiv GCN (3 layers,
    128 -> 256 -> 256 -> 40) on the normalized uniform graph, held
    against the same weights run layer by layer through the plain CSR
    version.
+6. GCN training, same model, graph and seed as phase 5, with seeded
+   labels and ``torch.optim.Adam(lr=1e-2)``: one step at dropout 0 whose
+   loss and every parameter gradient are held against the same step
+   through torch autograd on the plain CSR version (with the kernel
+   run's ReLU decisions; the entries where the plain run's own decisions
+   differ are counted, and may be at most 1e-5 of the hidden entries),
+   then three steps at
+   dropout 0.5 from a seeded CUDA generator, whose loss must stay finite
+   and fall.  The step needs no value gradient, so it must not launch
+   ``edge_dot``.
 
-Launch counts are zeroed before the main path (phases 4 and 5, one call
-each) and read right after it; every kernel must have launched.  The
-script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and as
-its last line ``{"ok": true, "device": {...}}``.
+The main path is phases 4, 4b, 5 and 6, each driven once with every
+launch count set to 0 just before it and read just after it.  Each phase
+must launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
+those and ``block_spmm_t`` and ``edge_dot``; 5 and 6: ``csr_spmm``), and
+the ``kernels`` line reports each kernel's launches summed over them.
+The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
+as its last line ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -56,6 +78,7 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 KERNEL_GATE = 1e-5             # kernel vs plain version, relative to max |ref|
 GATE_F32 = 1e-5                # route legs vs host oracle, f32 stores
 GATE_BF16 = 2e-3               # bf16 dense store at store budget 2e-3
+RELU_FLIP_SHARE = 1e-5         # ReLU decisions the GCN reference may differ on
 
 UNIFORM = (169_343, 1_166_243)             # ogbn-arxiv nodes and edges
 REDDIT10 = (23_296, 16_000_000, 30)        # nodes, draws, communities
@@ -150,22 +173,42 @@ def csr_bounds(M, E, K_, ncols, has_value):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
-def block_bounds(torch, h, K_, ncolblocks, split_parts):
-    """The block pass's bound.  f32 blocks price the products at the FP32
-    rate; bf16 blocks at the bf16 tensor-core rate, times the bf16 terms
-    an f32 operand splits into for the same accuracy (``split_parts``,
-    as the bf16 dense store runs)."""
-    B, nb, R = h.B, h.nb, h.rb_ptr.shape[0] - 1
-    elem = h.blocks.element_size()
-    nbytes = nb * B * B * elem + 4 * K_ * B * ncolblocks + 4 * (nb + R + 1) \
-        + 4 * R * B * K_
+def block_bounds(torch, blocks, nb, nout, nsrc, n_index, K_, split_parts):
+    """A block pass's bound: ``nb`` blocks of ``blocks``' size and dtype,
+    ``nsrc`` source blocks of the operand read and ``nout`` output blocks
+    written (``K_`` wide), and ``n_index`` int32 schedule entries.  f32
+    blocks price the products at the FP32 rate; bf16 blocks at the bf16
+    tensor-core rate, times the bf16 terms an f32 operand splits into
+    for the same accuracy (``split_parts``, as the bf16 dense store
+    runs)."""
+    B = blocks.shape[1]
+    elem = blocks.element_size()
+    nbytes = nb * B * B * elem + 4 * K_ * B * nsrc + 4 * n_index \
+        + 4 * nout * B * K_
     flops = 2 * nb * B * B * K_
-    if h.blocks.dtype == torch.bfloat16:
+    if blocks.dtype == torch.bfloat16:
         t_f = split_parts * flops / BF16_FLOPS_PER_S
     else:
         t_f = flops / FP32_FLOPS_PER_S
     t_b = nbytes / HBM_BYTES_PER_S
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def forward_block_bounds(torch, h, blocks, K_, split_parts):
+    """``block_bounds`` of the forward pass over ``h``'s slots."""
+    R = h.rb_ptr.shape[0] - 1
+    ncb = int(torch.unique(h.slot_col).numel())
+    return block_bounds(torch, blocks, h.nb, R, ncb, h.nb + R + 1, K_,
+                        split_parts)
+
+
+def transpose_block_bounds(torch, h, blocks, K_, split_parts):
+    """``block_bounds`` of the transpose pass: rows and columns swap,
+    and ``order_t`` joins the schedule."""
+    C = h.cb_ptr.shape[0] - 1
+    nrb = int(torch.unique(h.slot_row).numel())
+    return block_bounds(torch, blocks, h.nb, C, nrb, 2 * h.nb + C + 1, K_,
+                        split_parts)
 
 
 def route_bound_ms(torch, A, h, K_, split_parts):
@@ -186,23 +229,133 @@ def route_bound_ms(torch, A, h, K_, split_parts):
         else:
             t_f = 2 * M * N * K_ / FP32_FLOPS_PER_S
         return max(nbytes / HBM_BYTES_PER_S, t_f) * 1e3
-    ms = block_bounds(torch, h, K_, int(torch.unique(h.slot_col).numel()),
-                      split_parts)[0]
+    ms = forward_block_bounds(torch, h, h.blocks, K_, split_parts)[0]
     if h.rest is not None:
         ms += csr_of(h.M, h.rest[1].cpu().numpy(), True)
     return ms
 
 
-def gcn_plain(torch, csr_spmm_plain, model, adj, x):
+def gcn_plain(torch, csr_spmm_plain, model, adj, x, masks=None):
     """The GCN forward with the same weights, written out layer by layer
-    on the plain CSR version: the reference of the kernel run."""
+    on the plain CSR version: the reference of the kernel run.  With
+    ``masks`` (one boolean tensor per hidden layer) each ReLU keeps
+    exactly the entries its mask marks, so that the reference takes
+    another run's ReLU decisions."""
     rowptr, col, value = adj.csr()
     n = len(model.weights)
     for i, (w, b) in enumerate(zip(model.weights, model.biases)):
         x = csr_spmm_plain(rowptr, col, value, x @ w) + b
         if i < n - 1:
-            x = torch.relu(x)
+            x = torch.relu(x) if masks is None else x * masks[i]
     return x
+
+
+def plain_loss(torch, csr_spmm_plain, model, adj, x, labels, masks=None):
+    """Mean negative log-likelihood of the ``gcn_plain`` logits."""
+    logp = torch.log_softmax(
+        gcn_plain(torch, csr_spmm_plain, model, adj, x, masks), dim=-1)
+    return -logp.gather(-1, labels[:, None])[:, 0].mean()
+
+
+def relu_masks(torch, spmm, model, adj, x):
+    """The ReLU decisions (pre-activation > 0) of each hidden layer of a
+    GCN forward whose aggregation is ``spmm(adj, h)``."""
+    masks = []
+    with torch.no_grad():
+        for w, b in list(zip(model.weights, model.biases))[:-1]:
+            x = spmm(adj, x @ w) + b
+            masks.append(x > 0)
+            x = torch.relu(x)
+    return masks
+
+
+def _segment_sums(contrib, lens):
+    """Row sums of ``contrib`` over consecutive segments of ``lens``
+    rows (empty segments give zero rows), in float64."""
+    out = np.zeros((lens.size,) + contrib.shape[1:], np.float64)
+    nz = lens > 0
+    if contrib.shape[0]:
+        starts = np.cumsum(lens) - lens
+        out[nz] = np.add.reduceat(contrib, starts[nz], axis=0)
+    return out
+
+
+def grad_x_oracle_check(A, gout, grad_x, gate, seed=9, n_random=512):
+    """``grad_x = A^T gout`` against a float64 host CSC walk over head +
+    tail + random columns.  Returns (ok, max_rel_err)."""
+    N = A.sparse_size(1)
+    rng = np.random.RandomState(seed)
+    cols = np.unique(np.concatenate([
+        np.arange(min(256, N)), np.arange(max(0, N - 256), N),
+        rng.randint(0, N, n_random)]))
+    cp = A.storage.numpy_view("colptr")
+    perm = A.storage.numpy_view("csr2csc")
+    row = A.storage.numpy_view("row")
+    value = A.storage.value()
+    starts, lens = cp[cols], cp[cols + 1] - cp[cols]
+    cix = np.repeat(np.arange(cols.size), lens)
+    p = np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens, lens) \
+        + starts[cix]
+    e = perm[p]
+    gout_np = gout.detach().float().cpu().numpy()
+    contrib = gout_np[row[e]].astype(np.float64)
+    if value is not None:
+        contrib *= value.detach().float().cpu().numpy()[e, None]
+    ref = _segment_sums(contrib, lens)
+    got = grad_x.detach().float().cpu().numpy()[cols]
+    err = float(np.abs(got - ref).max() / (np.abs(ref).max() + 1e-6))
+    return err <= gate, err
+
+
+def grad_v_oracle_check(A, x, gout, grad_v, gate, seed=10, n_edges=4096):
+    """``grad_v[e] = <x[col e], gout[row e]>`` against a float64 host dot
+    over random edges.  Returns (ok, max_rel_err)."""
+    rng = np.random.RandomState(seed)
+    e = rng.randint(0, A.nnz(), n_edges)
+    row = A.storage.numpy_view("row")[e]
+    col = A.storage.numpy_view("col")[e]
+    x_np = x.detach().double().cpu().numpy()
+    g_np = gout.detach().double().cpu().numpy()
+    ref = (x_np[col] * g_np[row]).sum(-1)
+    got = grad_v.detach().double().cpu().numpy()[e]
+    err = float(np.abs(got - ref).max() / (np.abs(ref).max() + 1e-6))
+    return err <= gate, err
+
+
+def seeded_labels(torch, x, n_classes, seed, device):
+    """Class labels the features predict: the arg-max of a seeded random
+    projection of ``x``, so that training has a signal to fit."""
+    proj = operand(torch, x.shape[1], n_classes, seed, device)
+    return (x @ proj).argmax(-1)
+
+
+def kernel_case(torch, label, got, ref, failures, name, **timing):
+    """One compared case of a kernel: its errors against the plain
+    version and, for the timed case, its times and bound."""
+    abs_e, rel_e = errors(got, ref)
+    ok = rel_e <= KERNEL_GATE
+    if not ok:
+        failures.append(f"{name} {label}: rel err {rel_e:.3g}")
+    return {"case": label, "max_abs_err": abs_e, "max_rel_err": rel_e,
+            "ok": ok, **timing}
+
+
+def kernel_entry(name, source, replaces, cases, library, shape):
+    """The ``kernels`` line entry of a kernel: the first case's times,
+    the largest error over all cases.  ``launches`` is filled in from
+    the main path's run."""
+    head = cases[0]
+    return {
+        "name": name, "route": "cuda",
+        "source": f"pytorch_sparse_tpu_torch/csrc/{source}",
+        "replaces": f"pytorch_sparse_tpu/{replaces}", "launches": None,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_rel_err": max(c["max_rel_err"] for c in cases),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "library": library,
+        "shape": shape, "cases": cases,
+    }
 
 
 def main(argv=None) -> int:
@@ -220,7 +373,8 @@ def main(argv=None) -> int:
     from pytorch_sparse_tpu_torch import _build
     from pytorch_sparse_tpu_torch.models import GCN, gcn_norm
     from pytorch_sparse_tpu_torch.ops.kernels import (
-        block_spmm, block_spmm_plain, csr_spmm, csr_spmm_plain)
+        block_spmm, block_spmm_plain, block_spmm_t, block_spmm_t_plain,
+        csr_spmm, csr_spmm_plain, edge_dot, edge_dot_plain)
     from pytorch_sparse_tpu_torch.ops.kernels.hybrid import (
         _PRECISION_PARTS, HybridFormat, get_block_precision,
         set_store_budget)
@@ -230,6 +384,8 @@ def main(argv=None) -> int:
     split_parts = _PRECISION_PARTS[get_block_precision()]
     failures = []
     results = {"phases": {}}
+    counted = {"csr_spmm": csr_spmm, "block_spmm": block_spmm,
+               "block_spmm_t": block_spmm_t, "edge_dot": edge_dot}
 
     def record(phase, **kw):
         results["phases"].setdefault(phase, []).append(kw)
@@ -277,6 +433,7 @@ def main(argv=None) -> int:
            hybrid_nnz=A_h.nnz(), hybrid=repr(h32))
 
     # ---- 3. kernels against their plain versions -------------------------
+    t0 = time.time()
     kernels = []
     try:
         rowptr, col, val = A_u.csr()
@@ -301,109 +458,164 @@ def main(argv=None) -> int:
             got = csr_spmm(rp, cl, vv, x)
             ref = csr_spmm_plain(rp, cl, vv, x)
             sync()
-            abs_e, rel_e = errors(got, ref)
-            ok = rel_e <= KERNEL_GATE
-            case = {"case": label, "max_abs_err": abs_e, "max_rel_err": rel_e,
-                    "ok": ok}
+            timing = {}
             if label == "values K=128":
                 csr_t = torch.sparse_csr_tensor(rp, cl, vv, (Mu, Mu))
-                case["ms"] = timer(lambda: csr_spmm(rp, cl, vv, x))
-                case["plain_ms"] = timer(lambda: csr_spmm_plain(rp, cl, vv, x))
-                case["library_ms"] = timer(lambda: csr_t @ x)
-                case["bound_ms"], case["bound_by"] = csr_bounds(
+                timing = {
+                    "ms": timer(lambda: csr_spmm(rp, cl, vv, x)),
+                    "plain_ms": timer(lambda: csr_spmm_plain(rp, cl, vv, x)),
+                    "library_ms": timer(lambda: csr_t @ x)}
+                timing["bound_ms"], timing["bound_by"] = csr_bounds(
                     Mu, Eu, k, ncols, True)
-            cases.append(case)
-            if not ok:
-                failures.append(f"csr_spmm {label}: rel err {rel_e:.3g}")
-        head = cases[0]
-        kernels.append({
-            "name": "csr_spmm", "route": "cuda",
-            "source": "pytorch_sparse_tpu_torch/csrc/csr_spmm.cu",
-            "replaces": "pytorch_sparse_tpu/ops/kernels/ell.py:309",
-            "launches": None,
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "max_rel_err": max(c["max_rel_err"] for c in cases),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"],
-            "library": "torch.sparse_csr_tensor(...) @ x",
-            "shape": f"M={Mu} E={Eu} K=128 f32 values", "cases": cases,
-        })
+            cases.append(kernel_case(torch, label, got, ref, failures,
+                                     "csr_spmm", **timing))
+        kernels.append(kernel_entry(
+            "csr_spmm", "csr_spmm.cu", "ops/kernels/ell.py:309", cases,
+            "torch.sparse_csr_tensor(...) @ x",
+            f"M={Mu} E={Eu} K=128 f32 values"))
+
+        # edge_dot: the grad_value pass, <x[col e], g[row e]> per edge.
+        # Besides the uniform graph (about 7 edges a row), the two
+        # community graphs whose value gradients phase 4b takes: rows of
+        # about 67 and 494 edges run the kernel's 32-edge loop many times.
+        cases = []
+        for label, A_, k in [
+            ("K=128", A_u, 128),
+            ("K=256", A_u, 256),
+            ("K=40", A_u, 40),
+            ("empty rows K=40", A_e, 40),
+            ("community hybrid K=128", A_h, 128),
+            ("community Reddit-10% K=128", A_r, 128),
+        ]:
+            rp, cl = A_.csr()[:2]
+            n_ = A_.sparse_size(0)
+            x = operand(torch, n_, k, 2, device)
+            g = operand(torch, n_, k, 4, device)
+            got = edge_dot(rp, cl, x, g)
+            ref = edge_dot_plain(rp, cl, x, g)
+            sync()
+            timing = {}
+            if label not in ("K=256", "empty rows K=40"):
+                # K=40 is the known weak spot.
+                timing = {
+                    "ms": timer(lambda: edge_dot(rp, cl, x, g)),
+                    "plain_ms": timer(lambda: edge_dot_plain(rp, cl, x, g)),
+                    "library_ms": None}
+                # The SpMM's bytes and flops: the (E,) output takes the
+                # place of the values, the (M, K) g that of the output.
+                timing["bound_ms"], timing["bound_by"] = csr_bounds(
+                    n_, A_.nnz(), k,
+                    int(np.unique(A_.storage.numpy_view("col")).size), True)
+            if label == "K=128":
+                # cuSPARSE's SDDMM: (g @ x^T) sampled at the pattern.
+                try:
+                    pattern = torch.sparse_csr_tensor(
+                        rp, cl, torch.zeros_like(val), (Mu, Mu))
+                    xt = x.t().contiguous()
+                    lib_out = torch.sparse.sampled_addmm(
+                        pattern, g, xt, beta=0.0).values()
+                    timing["library_max_abs_err"] = errors(lib_out, ref)[0]
+                    timing["library_ms"] = timer(
+                        lambda: torch.sparse.sampled_addmm(
+                            pattern, g, xt, beta=0.0))
+                except (AttributeError, RuntimeError) as exc:
+                    timing["library_missing"] = repr(exc)
+            cases.append(kernel_case(torch, label, got, ref, failures,
+                                     "edge_dot", **timing))
+            del got, ref, x, g
+        kernels.append(kernel_entry(
+            "edge_dot", "edge_dot.cu", "ops/kernels/ell.py:353", cases,
+            "torch.sparse.sampled_addmm(csr pattern, g, x^T, beta=0) "
+            "(cuSPARSE SDDMM)", f"M={Mu} E={Eu} K=128 f32"))
         del A_e
 
         B = h32.B
         C = -(-Mh // B)
+        R = h32.rb_ptr.shape[0] - 1
         xh = operand(torch, Mh, K, 3, device)
         xb = torch.cat([xh, xh.new_zeros((C * B - Mh, K))])
-        ncb = int(torch.unique(h32.slot_col).numel())
+        gh = operand(torch, Mh, K, 4, device)
+        gb = torch.cat([gh, gh.new_zeros((R * B - Mh, K))])
         nb = h32.nb
         slot_row = h32.slot_row.long()
-        cases = []
+        order_t = h32.order_t.long()
+        col_t = h32.slot_col.long()[order_t]
+        row_t = slot_row[order_t]
+        fwd_cases, t_cases = [], []
         for label, blocks in [("f32 store K=128", h32.blocks),
                               ("bf16 store K=128",
                                h32.blocks.to(torch.bfloat16))]:
-            got = block_spmm(blocks, h32.slot_col, h32.rb_ptr, xb)
-            ref = block_spmm_plain(blocks, h32.slot_col, h32.rb_ptr, xb)
+            fwd = (blocks, h32.slot_col, h32.rb_ptr, xb)
+            got = block_spmm(*fwd)
+            ref = block_spmm_plain(*fwd)
             sync()
-            abs_e, rel_e = errors(got, ref)
-            ok = rel_e <= KERNEL_GATE
-            del got, ref
 
             def library():
                 tmp = torch.bmm(blocks[:nb].float(),
                                 xb.view(C, B, K)[h32.slot_col.long()])
-                out = torch.zeros((h32.rb_ptr.shape[0] - 1, B, K),
-                                  device=device)
+                out = torch.zeros((R, B, K), device=device)
                 return out.index_add_(0, slot_row, tmp)
 
-            view = HybridFormat(blocks, h32.slot_row, h32.slot_col, h32.rb_ptr,
-                                None, h32.M, h32.N, B, h32.dense_nnz)
-            bound_ms, bound_by = block_bounds(torch, view, K, ncb, split_parts)
-            case = {
-                "case": label, "max_abs_err": abs_e, "max_rel_err": rel_e,
-                "ok": ok,
-                "ms": timer(lambda: block_spmm(blocks, h32.slot_col,
-                                               h32.rb_ptr, xb)),
-                "plain_ms": timer(lambda: block_spmm_plain(
-                    blocks, h32.slot_col, h32.rb_ptr, xb)),
-                "library_ms": timer(library),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-            }
-            cases.append(case)
-            if not ok:
-                failures.append(f"block_spmm {label}: rel err {rel_e:.3g}")
-            del blocks, view
-        head = cases[0]
-        kernels.append({
-            "name": "block_spmm", "route": "cuda",
-            "source": "pytorch_sparse_tpu_torch/csrc/block_spmm.cu",
-            "replaces": "pytorch_sparse_tpu/ops/kernels/hybrid.py:553",
-            "launches": None,
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "max_rel_err": max(c["max_rel_err"] for c in cases),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"],
-            "library": "torch.bmm of the gathered blocks + index_add_",
-            "shape": f"M={Mh} nb={nb} B={B} K={K} f32 store",
-            "cases": cases,
-        })
-        del xb
+            bound_ms, bound_by = forward_block_bounds(torch, h32, blocks, K,
+                                                      split_parts)
+            fwd_cases.append(kernel_case(
+                torch, label, got, ref, failures, "block_spmm",
+                ms=timer(lambda: block_spmm(*fwd)),
+                plain_ms=timer(lambda: block_spmm_plain(*fwd)),
+                library_ms=timer(library), bound_ms=bound_ms,
+                bound_by=bound_by))
+            del got, ref
+
+            tr = (blocks, h32.slot_row, h32.order_t, h32.cb_ptr, gb)
+            got = block_spmm_t(*tr)
+            ref = block_spmm_t_plain(*tr)
+            sync()
+
+            def library_t():
+                tmp = torch.bmm(blocks[order_t].float().transpose(1, 2),
+                                gb.view(R, B, K)[row_t])
+                out = torch.zeros((C, B, K), device=device)
+                return out.index_add_(0, col_t, tmp)
+
+            bound_ms, bound_by = transpose_block_bounds(torch, h32, blocks,
+                                                        K, split_parts)
+            t_cases.append(kernel_case(
+                torch, label, got, ref, failures, "block_spmm_t",
+                ms=timer(lambda: block_spmm_t(*tr)),
+                plain_ms=timer(lambda: block_spmm_t_plain(*tr)),
+                library_ms=timer(library_t), bound_ms=bound_ms,
+                bound_by=bound_by))
+            del got, ref, blocks, fwd, tr
+        shape = f"M={Mh} nb={nb} B={B} K={K} f32 store"
+        kernels.append(kernel_entry(
+            "block_spmm", "block_spmm.cu", "ops/kernels/hybrid.py:553",
+            fwd_cases, "torch.bmm of the gathered blocks + index_add_",
+            shape))
+        kernels.append(kernel_entry(
+            "block_spmm_t", "block_spmm.cu", "ops/kernels/hybrid.py:763",
+            t_cases, "torch.bmm of the gathered transposed blocks + "
+            "index_add_", shape))
+        del xb, gb
     except Exception:
         failures.append("phase 3 (kernels): " + traceback.format_exc())
+    record("kernel_phase", seconds=round(time.time() - t0, 2))
 
-    # ---- 4 + 5. the main path, with launch counts ------------------------
-    legs = []
+    # ---- 4, 4b, 5 and 6: the main path, with launch counts ---------------
+    t0 = time.time()
     x_u = operand(torch, Mu, K, 2, device)
     x_r = operand(torch, Mr, K, 2, device)
     x_h = operand(torch, Mh, K, 2, device)
     A_r2 = A_r.set_value(A_r.storage.value(), layout="coo")  # no cached view
     A_g = gcn_norm(A_u1)
     in_dim, hid, out_dim, nlayers = GCN_WIDTHS
-    model = GCN(in_dim, hid, out_dim, num_layers=nlayers,
-                generator=torch.Generator().manual_seed(0), device=device)
     x_g = operand(torch, Mu, in_dim, 5, device)
+    labels = seeded_labels(torch, x_g, out_dim, 6, device)
 
+    def make_gcn():
+        return GCN(in_dim, hid, out_dim, num_layers=nlayers,
+                   generator=torch.Generator().manual_seed(0), device=device)
+
+    model = make_gcn()
     leg_specs = [
         ("uniform (ogbn-arxiv scale)", A_u, x_u, 0.0, GATE_F32, "csr"),
         ("community Reddit-10%, store budget 0", A_r, x_r, 0.0, GATE_F32,
@@ -413,43 +625,125 @@ def main(argv=None) -> int:
         ("community hybrid (Reddit nodes, 1/10 edges), store budget 0", A_h,
          x_h, 0.0, GATE_F32, "hybrid[torch.float32]"),
     ]
-    csr_spmm.launches = 0
-    block_spmm.launches = 0
-    outs = []
-    with torch.inference_mode():
-        for label, A, x, budget, gate, want in leg_specs:
-            set_store_budget(budget)
-            try:
-                outs.append(ts.spmm_sum(A, x))
-            except Exception:
-                failures.append(f"leg {label}: " + traceback.format_exc())
-                outs.append(None)
-        set_store_budget(0.0)
+    # Backward legs: a fresh leaf value per graph, so that the router
+    # builds the view of a value that requires grad.
+    bwd_specs = []
+    for label, A, x, want in [
+            ("uniform (ogbn-arxiv scale)", A_u, x_u, "csr"),
+            ("community Reddit-10%, store budget 0", A_r, x_r,
+             "dense[torch.float32]"),
+            ("community hybrid (Reddit nodes, 1/10 edges), store budget 0",
+             A_h, x_h, "hybrid[torch.float32]")]:
+        v = A.storage.value().detach().clone().requires_grad_(True)
+        bwd_specs.append((label, A.set_value(v, layout="coo"), v,
+                          x.detach().clone().requires_grad_(True),
+                          operand(torch, A.sparse_size(0), K, 8, device),
+                          want))
+
+    # Each phase of the main path runs with every launch count set to 0
+    # just before it and read just after it, and must launch the kernels
+    # listed here.  The train steps need no value gradient, so phase 6
+    # must launch no edge dot.
+    must_launch = {
+        "4 forward legs": ("csr_spmm", "block_spmm"),
+        "4b backward legs": ("csr_spmm", "block_spmm", "block_spmm_t",
+                             "edge_dot"),
+        "5 GCN inference": ("csr_spmm",),
+        "6 GCN training": ("csr_spmm",),
+    }
+    phase_launches = {}
+
+    def drive(phase, fn):
+        for f in counted.values():
+            f.launches = 0
         try:
-            logits = model(A_g, x_g)
+            out = fn()
             sync()
         except Exception:
-            failures.append("phase 5 (GCN): " + traceback.format_exc())
-            logits = None
-    launches = {"csr_spmm": csr_spmm.launches,
-                "block_spmm": block_spmm.launches}
+            failures.append(f"phase {phase}: " + traceback.format_exc())
+            out = None
+        phase_launches[phase] = {n: f.launches for n, f in counted.items()}
+        return out
+
+    def forward_legs():
+        outs = []
+        with torch.inference_mode():
+            for label, A, x, budget, gate, want in leg_specs:
+                set_store_budget(budget)
+                try:
+                    outs.append(ts.spmm_sum(A, x))
+                except Exception:
+                    failures.append(f"leg {label}: " + traceback.format_exc())
+                    outs.append(None)
+            set_store_budget(0.0)
+        return outs
+
+    def backward_legs():
+        grads = []
+        for label, A, v, x, gout, want in bwd_specs:
+            try:
+                grads.append(torch.autograd.grad(ts.spmm_sum(A, x), (v, x),
+                                                 gout))
+            except Exception:
+                failures.append(f"backward leg {label}: "
+                                + traceback.format_exc())
+                grads.append(None)
+        return grads
+
+    def gcn_inference():
+        with torch.inference_mode():
+            return model(A_g, x_g)
+
+    def gcn_training():
+        tmodel = make_gcn()
+        opt = torch.optim.Adam(tmodel.parameters(), lr=1e-2)
+        opt.zero_grad()
+        loss0 = tmodel.loss(A_g, x_g, labels)
+        loss0.backward()
+        grads0 = [p.grad.detach().clone() for p in tmodel.parameters()]
+        opt.step()
+        gen = torch.Generator(device=device).manual_seed(0)
+        losses = []
+        for _ in range(3):
+            opt.zero_grad()
+            loss = tmodel.loss(A_g, x_g, labels, dropout_rate=0.5,
+                               generator=gen)
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        return loss0.item(), grads0, losses, opt, tmodel, gen
+
+    outs = drive("4 forward legs", forward_legs) or []
+    bwd_grads = drive("4b backward legs", backward_legs) or []
+    logits = drive("5 GCN inference", gcn_inference)
+    train = drive("6 GCN training", gcn_training)
+    launches = {n: sum(c[n] for c in phase_launches.values())
+                for n in counted}
+    record("main_path", seconds=round(time.time() - t0, 2),
+           launches=launches, launches_by_phase=phase_launches)
     for k_ in kernels:
         k_["launches"] = launches[k_["name"]]
-    for name, n in launches.items():
-        if n == 0:
-            failures.append(f"{name} was not launched on the main path")
+    for phase, names in must_launch.items():
+        for name in names:
+            if phase_launches[phase][name] == 0:
+                failures.append(f"{name} was not launched in phase {phase}")
+    if phase_launches["6 GCN training"]["edge_dot"]:
+        failures.append("the GCN train steps launched edge_dot (no value "
+                        "gradient is needed)")
+
+    def route_of(A):
+        h = A.storage.hybrid(auto=False)
+        if h is None:
+            return "csr", h
+        store = getattr(h, "blocks", getattr(h, "dense", None))
+        return (f"{type(h).__name__.replace('Format', '').lower()}"
+                f"[{store.dtype}]"), h
 
     with torch.inference_mode():
         for (label, A, x, budget, gate, want), out in zip(leg_specs, outs):
             if out is None:
                 continue
-            h = A.storage.hybrid(auto=False)
-            if h is None:
-                route = "csr"
-            else:
-                store = getattr(h, "blocks", getattr(h, "dense", None))
-                route = (f"{type(h).__name__.replace('Format', '').lower()}"
-                         f"[{store.dtype}]")
+            route, h = route_of(A)
             ok, err = oracle_check(A, x, out, gate)
             finite = bool(torch.isfinite(out).all())
             set_store_budget(budget)
@@ -458,20 +752,42 @@ def main(argv=None) -> int:
             # The CSR kernel on the same graph: the route the router
             # declined (its constants were priced for a TPU).
             csr_ms = timer(lambda: csr_spmm(*A.csr(), x))
-            bound = route_bound_ms(torch, A, h, K,
-                                   _PRECISION_PARTS[get_block_precision()])
+            bound = route_bound_ms(torch, A, h, K, split_parts)
             leg = {"leg": label, "route": route, "expected_route": want,
                    "nnz": A.nnz(), "oracle_rel_err": err, "gate": gate,
                    "ms": ms, "nnz_per_s": A.nnz() / (ms * 1e-3),
                    "bound_ms": bound, "csr_kernel_ms": csr_ms,
                    "card": card}
             record("route", **leg)
-            legs.append(leg)
             if not (ok and finite and route == want):
                 failures.append(f"leg {label}: route {route} (want {want}), "
                                 f"oracle err {err:.3g} (gate {gate})")
         del outs
 
+    # ---- 4b. backward legs: checks and times -----------------------------
+    for (label, A, v, x, gout, want), grads in zip(bwd_specs, bwd_grads):
+        if grads is None:
+            continue
+        gv, gx = grads
+        route, _ = route_of(A)
+        ok_x, err_x = grad_x_oracle_check(A, gout, gx, GATE_F32)
+        ok_v, err_v = grad_v_oracle_check(A, x, gout, gv, GATE_F32)
+        finite = bool(torch.isfinite(gx).all() and torch.isfinite(gv).all())
+        ms = timer(lambda: torch.autograd.grad(ts.spmm_sum(A, x), (v, x),
+                                               gout))
+        fwd_ms = timer(lambda: ts.spmm_sum(A, x.detach()))
+        record("backward", leg=label, route=route, expected_route=want,
+               nnz=A.nnz(), grad_x_rel_err=err_x, grad_v_rel_err=err_v,
+               gate=GATE_F32, ms_forward_backward=ms, ms_forward=fwd_ms,
+               card=card)
+        if not (ok_x and ok_v and finite and route == want):
+            failures.append(f"backward leg {label}: route {route} (want "
+                            f"{want}), grad_x err {err_x:.3g}, grad_v err "
+                            f"{err_v:.3g} (gate {GATE_F32}), finite {finite}")
+    del bwd_specs, bwd_grads
+
+    # ---- 5. GCN inference: checks and times ------------------------------
+    with torch.inference_mode():
         if logits is not None:
             # The plain reference is written for the CSR route only.
             csr_route = A_g.storage.hybrid(auto=False) is None
@@ -494,6 +810,61 @@ def main(argv=None) -> int:
                 failures.append(f"GCN: csr route={csr_route} finite={finite} "
                                 f"shape={logits.shape} "
                                 f"rel err vs plain {rel_e:.3g}")
+
+    # ---- 6. GCN training: checks and times -------------------------------
+    if train is not None:
+        loss0, grads0, losses, opt, tmodel, gen = train
+        # The same first step through torch autograd on the plain CSR
+        # version (index_select + index_add_, no custom backward).  A
+        # ReLU input within rounding of 0 can fall on either side in the
+        # two runs, whose sums run in different orders, and its gradient
+        # term is then kept in one and dropped in the other.  So the
+        # reference takes the kernel run's ReLU decisions, and the
+        # entries where the plain run's own decisions differ are counted.
+        rmodel = make_gcn()
+        kmasks = relu_masks(torch, ts.spmm_sum, rmodel, A_g, x_g)
+        pmasks = relu_masks(
+            torch, lambda a, h: csr_spmm_plain(*a.csr(), h), rmodel, A_g,
+            x_g)
+        flips = sum(int((k_ != p_).sum()) for k_, p_ in zip(kmasks, pmasks))
+        ref_loss = plain_loss(torch, csr_spmm_plain, rmodel, A_g, x_g, labels,
+                              kmasks)
+        ref_loss.backward()
+        del kmasks, pmasks
+        grad_errs = [errors(g, p.grad)[1]
+                     for g, p in zip(grads0, rmodel.parameters())]
+        loss_err = abs(loss0 - ref_loss.item()) / abs(ref_loss.item())
+
+        def step(m, o, lossfn):
+            o.zero_grad()
+            lossfn(m).backward()
+            o.step()
+
+        ms = timer(lambda: step(tmodel, opt, lambda m: m.loss(
+            A_g, x_g, labels, dropout_rate=0.5, generator=gen)))
+        ms_nodrop = timer(lambda: step(tmodel, opt, lambda m: m.loss(
+            A_g, x_g, labels)))
+        ropt = torch.optim.Adam(rmodel.parameters(), lr=1e-2)
+        plain_ms = timer(lambda: step(rmodel, ropt, lambda m: plain_loss(
+            torch, csr_spmm_plain, m, A_g, x_g, labels)))
+        falls = all(np.isfinite(losses)) and losses[2] < losses[0]
+        # The masks may absorb ties only: more flips than a small share
+        # of the hidden entries is a fault of the kernel run.
+        max_flips = int(RELU_FLIP_SHARE * Mu * hid * (nlayers - 1))
+        record("gcn_train", layers=nlayers, nodes=Mu, nnz=A_g.nnz(),
+               loss_step1=loss0, loss_rel_err_vs_plain=loss_err,
+               grad_rel_errs_vs_plain=grad_errs, relu_flips=flips,
+               max_relu_flips=max_flips, gate=KERNEL_GATE,
+               dropout_losses=losses, ms_per_step=ms,
+               ms_per_step_no_dropout=ms_nodrop,
+               plain_ms_per_step_no_dropout=plain_ms, card=card)
+        if not (np.isfinite(loss0) and loss_err <= KERNEL_GATE
+                and max(grad_errs) <= KERNEL_GATE and falls
+                and flips <= max_flips):
+            failures.append(f"GCN training: loss err {loss_err:.3g}, grad "
+                            f"errs {max(grad_errs):.3g} (gate "
+                            f"{KERNEL_GATE}), ReLU flips {flips} (at most "
+                            f"{max_flips}), dropout losses {losses}")
 
     results.update(kernels=kernels, launches=launches, failures=failures,
                    card=card)

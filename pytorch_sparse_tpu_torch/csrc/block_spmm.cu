@@ -1,13 +1,21 @@
-// Block-dense SpMM pass: out[r*B + i, k] = sum over slots s of row-block r,
-//                        sum_c blocks[s, i, c] * xb[slot_col[s]*B + c, k]
+// Block-dense SpMM passes over a slot list of dense (B, B) blocks.
 //
-// Replaces the JAX package's block-dense route in
+//   forward    out[r*B + i, k]  = sum over slots s of row-block r,
+//                                 sum_c blocks[s, i, c] * xb[slot_col[s]*B + c, k]
+//   transpose  out[cb*B + c, k] = sum over slots s of column-block cb,
+//                                 sum_i blocks[s, i, c] * gb[slot_row[s]*B + i, k]
+//
+// The forward replaces the JAX package's block-dense route in
 // pytorch_sparse_tpu/ops/kernels/hybrid.py: _block_pass (:553),
 // _scan_block_pass (:518) and the forward equation "sbc,sck->sbk" of
-// _mxu_einsum_impl (:594) with its bf16 splits (_split_bf16, :570).
-// There, the slot list ran in chunks under one lax.scan, each chunk a
-// batched MXU matmul followed by a segment-sum into the row blocks, with
-// f32 products emulated by three bf16 passes.
+// _mxu_einsum_impl (:594) with its bf16 splits (_split_bf16, :570).  The
+// transpose (A_blocks^T @ g, the grad_mat pass of the hybrid route)
+// replaces the block pass of hybrid_spmm_t (:763, :787-799), which is
+// _scan_block_pass with the equation "sbc,sbk->sck" over the slot order
+// order_t, and the d_vb contraction of _mxu_einsum_bwd (:696).  There,
+// the slot list ran in chunks under one lax.scan, each chunk a batched
+// MXU matmul followed by a segment-sum into the output blocks, with f32
+// products emulated by bf16 passes.
 //
 // What bounds it on an H100: operations.  A slot costs 2*B*B*K flops
 // against B*B*elem bytes of block, so at B=512 and K=128 a block does
@@ -17,20 +25,27 @@
 // units: it computes in full fp32, which equals JAX's HIGH (bf16x3)
 // result to fp32 rounding.  wgmma and TMA are later work.
 //
-// Design: one thread block per (128-row tile of a row-block, row-block,
-// 128-column tile of K).  Slots are sorted by row-block, so a row-block's
-// slots are the contiguous range [rb_ptr[r], rb_ptr[r+1]) and each thread
-// block owns its outputs outright: no atomics, and one fixed summation
-// order (slots in slot order, then columns c ascending).  The thread
-// block walks its slots in steps of 8 columns c: each step stages a
-// 128x8 tile of the dense block (transposed) and an 8x128 tile of x in
-// shared memory, and each of its 256 threads accumulates an 8x8 output
-// tile in registers, reading 4 float4s from shared memory per 64 FMAs.
-// The next step's tiles are loaded into registers while this step
-// computes, and stored into the other half of a double buffer.  bf16
-// blocks are widened with __bfloat162float as they are staged.  Tiles
-// past B or K are masked with zeros.  Row-blocks with no slot write
-// zeros.  Block offsets are 64-bit.
+// Design: one thread block per (128-row tile of an output block, output
+// block, 128-column tile of K).  The slots of one output block are a
+// contiguous range of the schedule: [rb_ptr[r], rb_ptr[r+1]) of the
+// row-block-sorted slot list in the forward, [cb_ptr[cb], cb_ptr[cb+1])
+// of order_t (a stable sort of the slots by column block) in the
+// transpose.  So each thread block owns its outputs outright: no
+// atomics, and one fixed summation order (slots in schedule order, then
+// the reduction index ascending).  The thread block walks its slots in
+// steps of 8 reduction indices: each step stages a 128x8 tile of the
+// dense block and an 8x128 tile of the operand in shared memory, and
+// each of its 256 threads accumulates an 8x8 output tile in registers,
+// reading 4 float4s from shared memory per 64 FMAs.  The block tile is
+// kept as As[c][m] (reduction index c, output row m).  The forward reads
+// it from block rows m (8 consecutive columns per row) and stores it
+// transposed; the transpose pass reads As[c][m] = blk[(kk+c)*B + m0+m]
+// along block rows, so its staging loads are coalesced too.  The next
+// step's tiles are loaded into registers while this step computes, and
+// stored into the other half of a double buffer.  bf16 blocks are
+// widened with __bfloat162float as they are staged.  Tiles past B or K
+// are masked with zeros.  Output blocks with no slot write zeros.  Block
+// offsets are 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,14 +65,21 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T>
+// TRANSPOSE == false: the forward pass.  seg_ptr is rb_ptr, the slots of
+// output block r are seg_ptr[r]..seg_ptr[r+1] themselves (order unused),
+// src_blk is slot_col, and src is xb.
+// TRANSPOSE == true: the transpose pass.  seg_ptr is cb_ptr, the slots
+// of output block cb are order[seg_ptr[cb]..seg_ptr[cb+1]], src_blk is
+// slot_row, src is gb, and each block enters transposed.
+template <typename T, bool TRANSPOSE>
 __global__ void __launch_bounds__(kThreads, 2)
-block_spmm_kernel(const T* __restrict__ blocks, const int* __restrict__ slot_col,
-                  const int* __restrict__ rb_ptr, const float* __restrict__ xb,
+block_spmm_kernel(const T* __restrict__ blocks, const int* __restrict__ order,
+                  const int* __restrict__ src_blk,
+                  const int* __restrict__ seg_ptr, const float* __restrict__ src,
                   float* __restrict__ out, int B, int K) {
-  // As holds the block tile transposed (As[c][row]); the +4 padding
-  // keeps the transposed stores free of bank conflicts and the float4
-  // reads aligned.
+  // As holds the block tile as As[c][row] (c the reduction index); the
+  // +4 padding keeps the forward's transposed stores free of bank
+  // conflicts and the float4 reads aligned.
   __shared__ __align__(16) float As[2][TK][TM + 4];
   __shared__ __align__(16) float Bs[2][TK][TN];
 
@@ -65,11 +87,11 @@ block_spmm_kernel(const T* __restrict__ blocks, const int* __restrict__ slot_col
   const int tx = tid % 16;  // columns tx*4.. and 64+tx*4..
   const int ty = tid / 16;  // rows ty*4.. and 64+ty*4..
   const int m0 = blockIdx.x * TM;
-  const int r = blockIdx.y;
+  const int r = blockIdx.y;  // output block
   const int n0 = blockIdx.z * TN;
-  const int s_begin = rb_ptr[r];
+  const int s_begin = seg_ptr[r];
   const int steps_per_slot = (B + TK - 1) / TK;
-  const int nsteps = (rb_ptr[r + 1] - s_begin) * steps_per_slot;
+  const int nsteps = (seg_ptr[r + 1] - s_begin) * steps_per_slot;
 
   float acc[8][8];
 #pragma unroll
@@ -82,17 +104,21 @@ block_spmm_kernel(const T* __restrict__ blocks, const int* __restrict__ slot_col
 
   // Global -> registers for step t.
   auto load = [&](int t) {
-    const int s = s_begin + t / steps_per_slot;
+    const int p = s_begin + t / steps_per_slot;
+    const int s = TRANSPOSE ? order[p] : p;
     const int kk = (t % steps_per_slot) * TK;
     const T* __restrict__ blk = blocks + (int64_t)s * B * B;
-    const float* __restrict__ xs = xb + (int64_t)slot_col[s] * B * K;
+    const float* __restrict__ xs = src + (int64_t)src_blk[s] * B * K;
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
       const int idx = tid + i * kThreads;
-      const int gr = m0 + idx / TK;
-      const int gc = kk + idx % TK;
-      a_reg[i] = (gr < B && gc < B) ? to_float(blk[(int64_t)gr * B + gc])
-                                    : 0.f;
+      // Output row m and reduction index c of this element of the tile:
+      // the forward reads blk[m][c] along c, the transpose blk[c][m]
+      // along m; either way neighbouring threads read neighbouring words.
+      const int m = m0 + (TRANSPOSE ? idx % TM : idx / TK);
+      const int c = kk + (TRANSPOSE ? idx / TM : idx % TK);
+      const int64_t off = TRANSPOSE ? (int64_t)c * B + m : (int64_t)m * B + c;
+      a_reg[i] = (m < B && c < B) ? to_float(blk[off]) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
@@ -107,7 +133,11 @@ block_spmm_kernel(const T* __restrict__ blocks, const int* __restrict__ slot_col
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
       const int idx = tid + i * kThreads;
-      As[buf][idx % TK][idx / TK] = a_reg[i];
+      if (TRANSPOSE) {
+        As[buf][idx / TM][idx % TM] = a_reg[i];
+      } else {
+        As[buf][idx % TK][idx / TK] = a_reg[i];
+      }
       Bs[buf][idx / TN][idx % TN] = b_reg[i];
     }
   };
@@ -152,6 +182,31 @@ block_spmm_kernel(const T* __restrict__ blocks, const int* __restrict__ slot_col
   }
 }
 
+template <bool TRANSPOSE>
+int launch(int device, int dtype, const void* blocks, const int* order,
+           const int* src_blk, const int* seg_ptr, const void* src, void* out,
+           int nseg, int B, int K, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (nseg <= 0 || B <= 0 || K <= 0) return 0;
+  dim3 grid((B + TM - 1) / TM, nseg, (K + TN - 1) / TN);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* x = static_cast<const float*>(src);
+  float* o = static_cast<float*>(out);
+  if (dtype == 0) {
+    block_spmm_kernel<float, TRANSPOSE><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(blocks), order, src_blk, seg_ptr, x, o, B, K);
+  } else if (dtype == 1) {
+    block_spmm_kernel<__nv_bfloat16, TRANSPOSE><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(blocks), order, src_blk, seg_ptr, x,
+        o, B, K);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -162,26 +217,24 @@ extern "C" {
 int block_spmm(int device, int dtype, const void* blocks, const void* slot_col,
                const void* rb_ptr, const void* xb, void* out, int R, int B,
                int K, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (R <= 0 || B <= 0 || K <= 0) return 0;
-  dim3 grid((B + TM - 1) / TM, R, (K + TN - 1) / TN);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sc = static_cast<const int*>(slot_col);
-  const int* rp = static_cast<const int*>(rb_ptr);
-  const float* x = static_cast<const float*>(xb);
-  float* o = static_cast<float*>(out);
-  if (dtype == 0) {
-    block_spmm_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(blocks), sc, rp, x, o, B, K);
-  } else if (dtype == 1) {
-    block_spmm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(blocks), sc, rp, x, o, B, K);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(device, dtype, blocks, nullptr,
+                       static_cast<const int*>(slot_col),
+                       static_cast<const int*>(rb_ptr), xb, out, R, B, K,
+                       stream);
+}
+
+// The transpose pass.  blocks as above; slot_row (nb) int32; order_t (nb)
+// int32, the slots stably sorted by column block; cb_ptr (C+1) int32 over
+// slot_col[order_t]; gb (R*B, K) float32 row-major; out (C*B, K) float32.
+int block_spmm_t(int device, int dtype, const void* blocks,
+                 const void* slot_row, const void* order_t, const void* cb_ptr,
+                 const void* gb, void* out, int C, int B, int K,
+                 void* stream) {
+  return launch<true>(device, dtype, blocks,
+                      static_cast<const int*>(order_t),
+                      static_cast<const int*>(slot_row),
+                      static_cast<const int*>(cb_ptr), gb, out, C, B, K,
+                      stream);
 }
 
 const char* kernel_error_string(int code) {

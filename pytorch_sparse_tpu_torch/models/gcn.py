@@ -1,11 +1,12 @@
-"""Graph Convolutional Network inference on top of the SpMM stack
-(counterpart of ``pytorch_sparse_tpu/models/gcn.py``).
+"""Graph Convolutional Network on top of the SpMM stack (counterpart of
+``pytorch_sparse_tpu/models/gcn.py``).
 
 Each layer projects first and then aggregates, ``x = A_hat @ (x W) + b``,
-so the SpMM runs at the layer's output width.  ReLU follows every layer
-but the last.  Dropout is a training device and is off here: this slice
-serves inference, and ``spmm`` has no backward yet, so run the forward
-under ``torch.no_grad()`` or ``torch.inference_mode()``.
+so the SpMM runs at the layer's output width.  ReLU, then dropout when
+asked for, follow every layer but the last.  :meth:`GCN.loss` is the
+masked mean negative log-likelihood; a train step is ``loss.backward()``
+and an optimizer step (``torch.optim.Adam(lr=1e-2)`` in the JAX
+package's example).
 """
 
 from __future__ import annotations
@@ -90,10 +91,36 @@ class GCN(nn.Module):
                 model.biases[i].copy_(torch.from_numpy(np.array(layer["b"])))
         return model
 
-    def forward(self, adj: SparseTensor, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, adj: SparseTensor, x: torch.Tensor,
+                dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits ``(M, out_dim)``.  With ``dropout_rate > 0`` each hidden
+        activation is kept with probability ``1 - dropout_rate`` and
+        scaled by ``1 / (1 - dropout_rate)``; the mask is drawn from
+        ``generator``, a ``torch.Generator`` on ``x``'s device (the
+        device's default generator when None)."""
         n = len(self.weights)
         for i, (w, b) in enumerate(zip(self.weights, self.biases)):
             x = spmm(adj, x @ w, reduce="sum") + b
             if i < n - 1:
                 x = torch.relu(x)
+                if dropout_rate > 0.0:
+                    keep = torch.rand(x.shape, generator=generator,
+                                      device=x.device) >= dropout_rate
+                    x = torch.where(keep, x / (1.0 - dropout_rate), 0.0)
         return x
+
+    def loss(self, adj: SparseTensor, x: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Mean negative log-likelihood of ``labels`` under the
+        log-softmax of the logits; with ``mask`` (one weight per node,
+        e.g. the training split as 0/1) the masked mean
+        ``sum(nll * mask) / max(sum(mask), 1)``."""
+        logits = self(adj, x, dropout_rate, generator)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
+        if mask is None:
+            return nll.mean()
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -1,6 +1,9 @@
-from .block_spmm import block_spmm, block_spmm_plain  # noqa
+from .block_spmm import (  # noqa
+    block_spmm, block_spmm_plain, block_spmm_t, block_spmm_t_plain,
+)
 from .csr_spmm import csr_spmm, csr_spmm_plain  # noqa
+from .edge_dot import edge_dot, edge_dot_plain  # noqa
 from .hybrid import (  # noqa
     DenseFormat, HybridFormat, build_dense, build_hybrid, dense_spmm,
-    hybrid_spmm,
+    dense_spmm_t, hybrid_spmm, hybrid_spmm_t,
 )

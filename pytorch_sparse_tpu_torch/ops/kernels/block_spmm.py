@@ -1,18 +1,23 @@
-"""Block-dense SpMM pass over a row-block-sorted slot list:
-``out[slot_row[s]] += blocks[s] @ xb[slot_col[s]]`` for every slot ``s``.
+"""Block-dense SpMM passes over a slot list of dense (B, B) blocks.
 
-Replaces the forward of the JAX package's block-dense route
+* :func:`block_spmm`, the forward over the row-block-sorted slots:
+  ``out[slot_row[s]] += blocks[s] @ xb[slot_col[s]]`` for every slot.
+* :func:`block_spmm_t`, the transpose over the column-block schedule
+  ``order_t``: ``out[slot_col[s]] += blocks[s]^T @ gb[slot_row[s]]``.
+
+They replace the JAX package's block-dense route
 (``pytorch_sparse_tpu/ops/kernels/hybrid.py``: ``_block_pass``,
-``_scan_block_pass`` and the ``"sbc,sck->sbk"`` equation of
-``_mxu_einsum_impl``).  The CUDA kernel (``csrc/block_spmm.cu``) gives
-each row-block's output to one set of thread blocks, which walk that
-row-block's slots in order and accumulate in fp32 registers; there is
-no segment-sum and no atomic.
+``_scan_block_pass`` with the ``"sbc,sck->sbk"`` and ``"sbc,sbk->sck"``
+equations of ``_mxu_einsum_impl``, and the block pass of
+``hybrid_spmm_t``).  One CUDA kernel (``csrc/block_spmm.cu``) serves
+both: it gives each output block to one set of thread blocks, which
+walk that block's slots in schedule order and accumulate in fp32
+registers; there is no segment-sum and no atomic.
 
-:func:`block_spmm` launches the kernel for CUDA tensors and runs
-:func:`block_spmm_plain`, the plain PyTorch version of the same
-function, for CPU tensors.  Other devices raise.
-``block_spmm.launches`` counts kernel launches.
+Each wrapper launches the kernel for CUDA tensors and runs its plain
+PyTorch version (:func:`block_spmm_plain`, :func:`block_spmm_t_plain`)
+for CPU tensors.  Other devices raise.  ``block_spmm.launches`` and
+``block_spmm_t.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -40,6 +45,13 @@ def _kernel_lib():
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.block_spmm.restype = ctypes.c_int
+        lib.block_spmm_t.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.block_spmm_t.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -117,3 +129,88 @@ def block_spmm(blocks: torch.Tensor, slot_col: torch.Tensor,
 
 
 block_spmm.launches = 0
+
+
+def _check_args_t(blocks, slot_row, order_t, cb_ptr, gb) -> None:
+    if blocks.dim() != 3 or blocks.shape[1] != blocks.shape[2]:
+        raise ValueError("blocks must be (nb+1, B, B)")
+    if any(t.dtype != INDEX_DTYPE for t in (slot_row, order_t, cb_ptr)):
+        raise TypeError("slot_row, order_t and cb_ptr must be int32")
+    B = blocks.shape[1]
+    if gb.dim() != 2 or gb.shape[0] % B:
+        raise ValueError("gb must be (R*B, K)")
+    if (slot_row.shape != order_t.shape
+            or order_t.shape[0] >= blocks.shape[0]):
+        raise ValueError("blocks must hold one block per slot plus one, "
+                         "and order_t one entry per slot")
+    devs = {t.device for t in (blocks, slot_row, order_t, cb_ptr, gb)}
+    if len(devs) != 1:
+        raise ValueError("block_spmm_t operands lie on different devices")
+
+
+def block_spmm_t_plain(blocks: torch.Tensor, slot_row: torch.Tensor,
+                       order_t: torch.Tensor, cb_ptr: torch.Tensor,
+                       gb: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the transpose pass: in ``order_t``
+    order, gather each slot's row block of ``gb``, multiply with
+    ``torch.bmm`` by the transposed blocks in the accumulation dtype, and
+    ``index_add_`` the products into their column blocks, in chunks of
+    slots."""
+    _check_args_t(blocks, slot_row, order_t, cb_ptr, gb)
+    B = blocks.shape[1]
+    K = gb.shape[1]
+    C = cb_ptr.shape[0] - 1
+    nb = order_t.shape[0]
+    acc = torch.promote_types(gb.dtype, torch.float32)
+    slot_col = ptr2ind(cb_ptr, nb)  # column block of each scheduled slot
+    gv = gb.reshape(-1, B, K).to(acc)
+    out = torch.zeros((C, B, K), dtype=acc, device=gb.device)
+    step = max(1, _PLAIN_CHUNK_BYTES // max(B * max(B, K) * 4, 1))
+    for p in range(0, nb, step):
+        e = min(p + step, nb)
+        slots = order_t[p:e].long()
+        tmp = torch.bmm(blocks[slots].to(acc).transpose(1, 2),
+                        gv[slot_row[slots].long()])
+        out.index_add_(0, slot_col[p:e], tmp)
+    return out.reshape(C * B, K)
+
+
+def block_spmm_t(blocks: torch.Tensor, slot_row: torch.Tensor,
+                 order_t: torch.Tensor, cb_ptr: torch.Tensor,
+                 gb: torch.Tensor) -> torch.Tensor:
+    """``(C*B, K)`` float32 transpose block pass, ``A_blocks^T @ g``.
+    ``blocks`` ``(nb+1, B, B)`` float32 or bfloat16, ``slot_row`` ``(nb,)``
+    int32, ``order_t`` ``(nb,)`` int32 (the slots stably sorted by column
+    block), ``cb_ptr`` ``(C+1,)`` int32 pointer over ``slot_col[order_t]``,
+    ``gb`` ``(R*B, K)`` float32, the operand padded to whole row blocks.
+
+    CUDA tensors run the hand-written kernel; CPU tensors run
+    :func:`block_spmm_t_plain`."""
+    _check_args_t(blocks, slot_row, order_t, cb_ptr, gb)
+    dev = gb.device
+    if dev.type == "cpu":
+        return block_spmm_t_plain(blocks, slot_row, order_t, cb_ptr, gb)
+    if dev.type != "cuda":
+        raise NotImplementedError(
+            f"block_spmm_t has no kernel for {dev.type}")
+    if blocks.dtype not in _STORE_CODES or gb.dtype != torch.float32:
+        raise TypeError("the block_spmm_t kernel takes float32 or bfloat16 "
+                        "blocks and a float32 operand")
+    for t in (blocks, slot_row, order_t, cb_ptr, gb):
+        if not t.is_contiguous():
+            raise ValueError("block_spmm_t operands must be contiguous")
+    B, K = blocks.shape[1], gb.shape[1]
+    C = cb_ptr.shape[0] - 1
+    out = torch.empty((C * B, K), dtype=torch.float32, device=dev)
+    lib = _kernel_lib()
+    rc = lib.block_spmm_t(
+        dev.index, _STORE_CODES[blocks.dtype], blocks.data_ptr(),
+        slot_row.data_ptr(), order_t.data_ptr(), cb_ptr.data_ptr(),
+        gb.data_ptr(), out.data_ptr(), C, B, K,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "block_spmm_t launch")
+    block_spmm_t.launches += 1
+    return out
+
+
+block_spmm_t.launches = 0

@@ -15,16 +15,25 @@ Format (built host-side, then uploaded):
 * ``slot_row`` / ``slot_col`` (nb,) int32 block coordinates of each
   slot, sorted by row-block; ``rb_ptr`` (R+1,) int32 points into them
   per row-block.
+* ``order_t`` (nb,) int32, the transpose schedule: the slots stably
+  sorted by column block, as the JAX format's ``order_t``; ``cb_ptr``
+  (C+1,) int32 points into it per column block.
 * ``rest`` — the edges outside dense blocks as a CSR
-  ``(rowptr, col, value)`` in CSR edge order, or None.
+  ``(rowptr, col, value)`` in CSR edge order, or None; ``rest_t`` the
+  same edges as a CSC ``(colptr, row, value)`` sorted by (col, row), or
+  None.
 
-Forward (:func:`hybrid_spmm`)::
+Forward (:func:`hybrid_spmm`) and transpose (:func:`hybrid_spmm_t`, the
+``grad_mat`` pass)::
 
     out = block_spmm(blocks, slot_col, rb_ptr, pad(x))[:M]
     out = out + csr_spmm(rest, x)          # remainder added after
+    out_t = block_spmm_t(blocks, slot_row, order_t, cb_ptr, pad(g))[:N]
+    out_t = out_t + csr_spmm(rest_t, g)
 
 The block and dense stores bake the build-time values; the storage
-layer drops the view on ``set_value``.
+layer drops the view on ``set_value`` and when the values are written
+in place.
 
 The densify break-even (:func:`block_break_even`) and the router that
 uses it keep the JAX package's rule and constants, which were priced
@@ -40,8 +49,8 @@ import numpy as np
 import torch
 
 from ...typing import DeviceLike, resolve_device
-from ...utils.host_sort import stable_argsort
-from .block_spmm import block_spmm
+from ...utils.host_sort import lexsort2, stable_argsort
+from .block_spmm import block_spmm, block_spmm_t
 from .csr_spmm import csr_spmm
 
 # ----------------------------------------------------------------------
@@ -127,16 +136,21 @@ def block_break_even(B: int, K_hint: int = 128, elem: int = 4,
     return min(edges / (B * B), 1.0)
 
 
+_Csr = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
 class HybridFormat:
-    def __init__(self, blocks, slot_row, slot_col, rb_ptr,
-                 rest: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                      torch.Tensor]],
-                 M: int, N: int, B: int, dense_nnz: int):
+    def __init__(self, blocks, slot_row, slot_col, rb_ptr, order_t, cb_ptr,
+                 rest: _Csr, rest_t: _Csr, M: int, N: int, B: int,
+                 dense_nnz: int):
         self.blocks = blocks
         self.slot_row = slot_row
         self.slot_col = slot_col
         self.rb_ptr = rb_ptr
+        self.order_t = order_t
+        self.cb_ptr = cb_ptr
         self.rest = rest
+        self.rest_t = rest_t
         self.M, self.N, self.B = M, N, B
         self.dense_nnz = dense_nnz
 
@@ -280,28 +294,44 @@ def build_hybrid(
     slot_row = dense_keys // C
     slot_col = dense_keys % C
     rb_ptr = np.searchsorted(slot_row, np.arange(R + 1))
-
-    rest = None
-    rest_ids = np.flatnonzero(~dense_sel)
-    if rest_ids.size:
-        rr = rest_ids[stable_argsort(row[rest_ids])]
-        rptr = np.searchsorted(row[rr], np.arange(M + 1))
-        rest = (
-            torch.from_numpy(rptr.astype(np.int32)).to(dev),
-            torch.from_numpy(col[rr].astype(np.int32)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(val[rr])).to(dev),
-        )
+    order_t = stable_argsort(slot_col)  # transpose schedule
+    cb_ptr = np.searchsorted(slot_col[order_t], np.arange(C + 1))
 
     def _idx(a):
         return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+    def _csr(ptr, idx, v):
+        return _idx(ptr), _idx(idx), torch.from_numpy(
+            np.ascontiguousarray(v)).to(dev)
+
+    rest = rest_t = None
+    rest_ids = np.flatnonzero(~dense_sel)
+    if rest_ids.size:
+        rr = rest_ids[stable_argsort(row[rest_ids])]
+        rows_r, cols_r, vals_r = row[rr], col[rr], val[rr]
+        rest = _csr(np.searchsorted(rows_r, np.arange(M + 1)), cols_r,
+                    vals_r)
+        # The remainder's CSC, in (col, row) order as the JAX format's
+        # ell_t: the grad_mat pass runs the CSR kernel over it.
+        perm = lexsort2(cols_r, rows_r, M)
+        rest_t = _csr(np.searchsorted(cols_r[perm], np.arange(N + 1)),
+                      rows_r[perm], vals_r[perm])
 
     store = block_dtype
     if store is None:
         store = torch.float64 if blk_dt == np.float64 else torch.float32
     return HybridFormat(
         _upload(blocks, dev, store), _idx(slot_row), _idx(slot_col),
-        _idx(rb_ptr), rest, M, N, B, int(dsel.size),
+        _idx(rb_ptr), _idx(order_t), _idx(cb_ptr), rest, rest_t, M, N, B,
+        int(dsel.size),
     )
+
+
+def _pad_to_blocks(a: torch.Tensor, B: int) -> torch.Tensor:
+    """``a`` with zero rows appended up to a whole number of ``B``-row
+    blocks, the operand layout of the block passes."""
+    pad = -a.shape[0] % B
+    return torch.cat([a, a.new_zeros((pad, a.shape[1]))]) if pad else a
 
 
 def hybrid_spmm(h, x: torch.Tensor) -> torch.Tensor:
@@ -310,17 +340,30 @@ def hybrid_spmm(h, x: torch.Tensor) -> torch.Tensor:
     precision operands compute in float32."""
     if isinstance(h, DenseFormat):
         return dense_spmm(h, x)
-    B, M, N = h.B, h.M, h.N
-    K = x.shape[1]
-    C = -(-N // B)
     xa = x.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
-    xb = xa
-    if C * B != N:
-        xb = torch.cat([xa, xa.new_zeros((C * B - N, K))])
-    out = block_spmm(h.blocks, h.slot_col, h.rb_ptr, xb)[:M].to(x.dtype)
+    xb = _pad_to_blocks(xa, h.B)
+    out = block_spmm(h.blocks, h.slot_col, h.rb_ptr, xb)[:h.M].to(x.dtype)
     if h.rest is not None:
         rowptr, col, val = h.rest
         out = out + csr_spmm(rowptr, col, val.to(xa.dtype), xa).to(x.dtype)
+    return out
+
+
+def hybrid_spmm_t(h, g: torch.Tensor) -> torch.Tensor:
+    """``out = A^T @ g`` through a :class:`HybridFormat` (the transpose
+    schedule ``order_t`` and the remainder's CSC) or a
+    :class:`DenseFormat`; (M, K) -> (N, K) in ``g``'s dtype.  It backs
+    ``grad_mat`` of the routed SpMM.  Half precision operands compute in
+    float32."""
+    if isinstance(h, DenseFormat):
+        return dense_spmm_t(h, g)
+    ga = g.to(torch.promote_types(g.dtype, torch.float32)).contiguous()
+    gb = _pad_to_blocks(ga, h.B)
+    out = block_spmm_t(h.blocks, h.slot_row, h.order_t, h.cb_ptr,
+                       gb)[:h.N].to(g.dtype)
+    if h.rest_t is not None:
+        colptr, row, val = h.rest_t
+        out = out + csr_spmm(colptr, row, val.to(ga.dtype), ga).to(g.dtype)
     return out
 
 
@@ -367,3 +410,9 @@ def _dense_matmul(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def dense_spmm(d: DenseFormat, x: torch.Tensor) -> torch.Tensor:
     return _dense_matmul(d.dense, x).to(x.dtype)
+
+
+def dense_spmm_t(d: DenseFormat, g: torch.Tensor) -> torch.Tensor:
+    """``d^T @ g``: the transpose product of the dense route, with the
+    same store-dtype rules as :func:`dense_spmm`."""
+    return _dense_matmul(d.dense.t(), g).to(g.dtype)

@@ -1,4 +1,4 @@
-"""Sparse x dense matmul (SpMM), forward only.
+"""Sparse x dense matmul (SpMM) with autograd.
 
 Counterpart of the SpMM half of ``pytorch_sparse_tpu/ops/matmul.py``
 (``spmm_sum``, ``spmm_mean``, ``spmm`` and ``matmul`` over dense
@@ -10,18 +10,30 @@ Half-precision operands (float16, bfloat16) compute in float32 and
 return their own dtype.  3-D operands ``(batch, N, K)`` take the CSR
 route, as in the JAX package.
 
-Gradients are not implemented yet: a call with autograd enabled on an
-operand or value that requires grad raises ``NotImplementedError``
-rather than return an output that carries no gradient.
+Gradients follow the JAX package's contract (after the reference's
+``csrc/spmm.cpp:88-112``): they flow to ``value`` and to the dense
+operand, never to the indices;
+``grad_value[e] = <mat[col e], grad[row e]>`` (the ``edge_dot`` kernel,
+over every edge, on every route: the output is linear in ``value``, so
+this is exact even where the block stores baked the values) and
+``grad_mat = A^T @ grad`` (the CSR kernel over the cached CSC view, or
+the transpose block pass of the hybrid and dense routes).  ``mean``
+divides by the row degree outside the autograd functions, so autograd
+folds ``1/deg`` into both gradients.  A backward computes only the
+gradients asked for, and is not itself differentiable (the kernels have
+no backward of their own).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
+from ..storage import SparseStorage
 from ..tensor import SparseTensor
 from .kernels.csr_spmm import csr_spmm
-from .kernels.hybrid import hybrid_spmm
+from .kernels.edge_dot import edge_dot
+from .kernels.hybrid import hybrid_spmm, hybrid_spmm_t
 
 _HALF = (torch.float16, torch.bfloat16)
 
@@ -38,14 +50,67 @@ def _check_operands(src: SparseTensor, other: torch.Tensor) -> None:
     if other.device != src.device():
         raise ValueError(f"operand lies on {other.device}, the sparse "
                          f"matrix on {src.device()}")
-    value = src.storage.value()
-    if torch.is_grad_enabled() and (
-            other.requires_grad
-            or (value is not None and value.requires_grad)):
-        raise NotImplementedError(
-            "spmm has no backward yet (backward lands in slice 2); call "
-            "it under torch.no_grad() or on inputs that do not require "
-            "grad")
+
+
+def _grad_value(st: SparseStorage, mat: torch.Tensor, grad: torch.Tensor,
+                value: torch.Tensor) -> torch.Tensor:
+    """``grad_value[e] = <mat[col e], grad[row e]>`` over every edge."""
+    return edge_dot(st.rowptr(), st.col(), mat, grad).to(value.dtype)
+
+
+class _CsrSum(torch.autograd.Function):
+    """``A @ mat`` on the CSR route (kernel ``csr_spmm``).  Backward:
+    ``grad_mat`` runs ``csr_spmm`` over the cached CSC view (``colptr``,
+    ``row[csr2csc]``, ``value[csr2csc]``), as the JAX package runs its
+    gather kernel over the transpose ELL.  ``mat`` is kept for backward
+    only when ``value`` needs its gradient."""
+
+    @staticmethod
+    def forward(ctx, st: SparseStorage, value, mat):
+        ctx.st = st
+        ctx.save_for_backward(value,
+                              mat if ctx.needs_input_grad[1] else None)
+        return csr_spmm(st.rowptr(), st.col(), value, mat)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        value, mat = ctx.saved_tensors
+        st = ctx.st
+        grad = grad.contiguous()  # autograd gives it the output's dtype
+        grad_value = grad_mat = None
+        if ctx.needs_input_grad[1]:
+            grad_value = _grad_value(st, mat, grad, value)
+        if ctx.needs_input_grad[2]:
+            value_t = None if value is None else value[st.csr2csc()]
+            grad_mat = csr_spmm(st.colptr(), st.csc_row(), value_t, grad)
+        return None, grad_value, grad_mat
+
+
+class _RoutedSum(torch.autograd.Function):
+    """``A @ mat`` on the hybrid or dense route.  ``value`` enters only
+    so that autograd can give it its gradient: the block and dense
+    stores baked the same values at build time.  Backward: ``grad_mat``
+    is :func:`hybrid_spmm_t`."""
+
+    @staticmethod
+    def forward(ctx, st: SparseStorage, h, value, mat):
+        ctx.st, ctx.h = st, h
+        ctx.save_for_backward(value,
+                              mat if ctx.needs_input_grad[2] else None)
+        return hybrid_spmm(h, mat)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        value, mat = ctx.saved_tensors
+        grad = grad.contiguous()  # autograd gives it the output's dtype
+        grad_value = grad_mat = None
+        if ctx.needs_input_grad[2]:
+            grad_value = _grad_value(ctx.st, mat, grad, value)
+        if ctx.needs_input_grad[3]:
+            grad_mat = hybrid_spmm_t(ctx.h, grad)
+        return None, None, grad_value, grad_mat
 
 
 def _hybrid_view(src: SparseTensor, other: torch.Tensor):
@@ -55,29 +120,26 @@ def _hybrid_view(src: SparseTensor, other: torch.Tensor):
     return src.storage.hybrid(K_hint=int(other.shape[-1]))
 
 
-def _csr_sum(src: SparseTensor, other: torch.Tensor) -> torch.Tensor:
-    rowptr, col, value = src.csr()
+def spmm_sum(src: SparseTensor, other: torch.Tensor) -> torch.Tensor:
+    _check_operands(src, other)
+    st = src.storage
     x = other.float() if other.dtype in _HALF else other
+    value = st.value()
     if value is not None:
         value = value.to(x.dtype)
-    if other.dim() == 3:
+    hyb = _hybrid_view(src, other)
+    if hyb is not None:
+        out = _RoutedSum.apply(st, hyb, value, x.contiguous())
+    elif other.dim() == 3:
         # (batch, N, K) -> (N, batch*K): one pass over the edges, the
         # same per-element sum order as a loop over the batch.
         bt, n, k = x.shape
         x2 = x.permute(1, 0, 2).reshape(n, bt * k)
-        out = csr_spmm(rowptr, col, value, x2.contiguous())
+        out = _CsrSum.apply(st, value, x2.contiguous())
         out = out.reshape(-1, bt, k).permute(1, 0, 2)
     else:
-        out = csr_spmm(rowptr, col, value, x.contiguous())
+        out = _CsrSum.apply(st, value, x.contiguous())
     return out.to(other.dtype)
-
-
-def spmm_sum(src: SparseTensor, other: torch.Tensor) -> torch.Tensor:
-    _check_operands(src, other)
-    hyb = _hybrid_view(src, other)
-    if hyb is not None:
-        return hybrid_spmm(hyb, other)
-    return _csr_sum(src, other)
 
 
 def spmm_add(src: SparseTensor, other: torch.Tensor) -> torch.Tensor:

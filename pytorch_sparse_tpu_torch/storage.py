@@ -195,7 +195,7 @@ class SparseStorage:
 
     def _init(self, row, rowptr, col, value, sparse_sizes, rowcount=None,
               colptr=None, colcount=None, csr2csc=None, csc2csr=None,
-              np_cache=None) -> None:
+              np_cache=None, csc_row=None) -> None:
         self._row = row
         self._rowptr = rowptr
         self._col = col
@@ -206,8 +206,10 @@ class SparseStorage:
         self._colcount = colcount
         self._csr2csc = csr2csc
         self._csc2csr = csc2csr
+        self._csc_row = csc_row
         self._hybrid = None
         self._hybrid_skip = None
+        self._hybrid_stamp = None
         self._np_cache = {} if np_cache is None else dict(np_cache)
 
     @classmethod
@@ -294,7 +296,7 @@ class SparseStorage:
             sparse_sizes=self._sparse_sizes, rowcount=self._rowcount,
             colptr=self._colptr, colcount=self._colcount,
             csr2csc=self._csr2csc, csc2csr=self._csc2csr,
-            np_cache=self._np_cache,
+            np_cache=self._np_cache, csc_row=self._csc_row,
         )
 
     set_value_ = set_value
@@ -367,19 +369,44 @@ class SparseStorage:
             self._csc2csr = self._upload("csc2csr", inv)
         return self._csc2csr
 
+    def csc_row(self) -> torch.Tensor:
+        """``row[csr2csc]``, int32: the column indices of the transpose's
+        CSR, which the ``grad_mat`` pass of the CSR route reads."""
+        if self._csc_row is None:
+            self._csc_row = self.row()[self.csr2csc()]
+        return self._csc_row
+
     # ------------------------------------------------------------------
     # Hybrid block-dense + CSR view (ops/kernels/hybrid.py).  Built
     # eagerly on the first request when the block-density statistics
     # predict that densifying pays; uniform and sparse graphs record a
     # skip marker and stay on the CSR kernel.
+    #
+    # The block and dense stores bake the values they were built from,
+    # so a view holds only while the value tensor is the same and has
+    # not been written in place (an optimizer step on a trainable
+    # value): ``hybrid`` then drops it and routes afresh.  Writes through
+    # ``.data`` bump no version counter and are not seen.
     # ------------------------------------------------------------------
+    def _value_stamp(self):
+        v = self._value
+        if v is None:
+            return None
+        # Inference tensors keep no version counter.
+        return v.data_ptr(), None if v.is_inference() else v._version
+
+    def _keep_hybrid(self, h):
+        self._hybrid = h
+        self._hybrid_stamp = self._value_stamp()
+        return h
+
     def has_hybrid(self) -> bool:
         return self._hybrid is not None
 
     def set_hybrid_(self, h) -> "SparseStorage":
         """Install a pre-built :class:`HybridFormat` or
-        :class:`DenseFormat`."""
-        self._hybrid = h
+        :class:`DenseFormat` of the current values."""
+        self._keep_hybrid(h)
         self._hybrid_skip = None
         return self
 
@@ -392,11 +419,15 @@ class SparseStorage:
         the block cost (which grows with K) against the per-edge cost.
         The view is priced at the first call's K and cached; a prior
         skip is re-evaluated when a narrower K arrives.  The decision
-        rule and its constants are the JAX package's, unchanged.
+        rule and its constants are the JAX package's, unchanged.  A view
+        whose values changed in place since it was built is dropped
+        first, so the router decides (and builds) again.
         """
         K = int(K_hint) if K_hint else 128
         if self._hybrid is not None:
-            return self._hybrid
+            if self._hybrid_stamp == self._value_stamp():
+                return self._hybrid
+            self._hybrid = self._hybrid_skip = None
         skip_K = self._hybrid_skip
         if not auto or (skip_K is not None and K >= skip_K):
             return None
@@ -429,10 +460,8 @@ class SparseStorage:
         store_dtype = torch.bfloat16 if store_bf16 else None
         if (E / (M * N) >= be
                 and M * N * s_elem <= self._DENSE_MAX_BYTES):
-            self._hybrid = build_dense(row, col, val, M, N,
-                                       dtype=store_dtype,
-                                       device=self.device)
-            return self._hybrid
+            return self._keep_hybrid(build_dense(
+                row, col, val, M, N, dtype=store_dtype, device=self.device))
         frac, nb = dense_fraction(row, col, M, N, B=B, min_density=be)
         if frac < self._HYBRID_MIN_FRACTION:
             self._hybrid_skip = K  # re-evaluate only for narrower K
@@ -445,10 +474,9 @@ class SparseStorage:
             else:
                 self._hybrid_skip = 0
                 return None
-        self._hybrid = build_hybrid(row, col, val, M, N, B=B,
-                                    min_density=be, block_dtype=store_dtype,
-                                    device=self.device)
-        return self._hybrid
+        return self._keep_hybrid(build_hybrid(
+            row, col, val, M, N, B=B, min_density=be,
+            block_dtype=store_dtype, device=self.device))
 
     # ------------------------------------------------------------------
     # Coalescing: dedupe sorted (row, col) pairs on the host.
@@ -517,6 +545,7 @@ class SparseStorage:
     def clear_cache_(self) -> "SparseStorage":
         for key in _CACHE_KEYS:
             setattr(self, f"_{key}", None)
+        self._csc_row = None
         self._hybrid = None
         self._hybrid_skip = None
         return self
@@ -535,9 +564,11 @@ class SparseStorage:
             rowcount=self._rowcount, colptr=self._colptr,
             colcount=self._colcount, csr2csc=self._csr2csc,
             csc2csr=self._csc2csr, np_cache=self._np_cache,
+            csc_row=self._csc_row,
         )
         out._hybrid = self._hybrid
         out._hybrid_skip = self._hybrid_skip
+        out._hybrid_stamp = self._hybrid_stamp
         return out
 
     clone = copy

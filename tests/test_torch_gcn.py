@@ -79,8 +79,15 @@ def test_gcn_init_is_seeded_and_glorot_bounded():
 
 
 def test_gcn_forward_with_grad_raises():
-    _, B = _adj(4, 30, 120, values=False)
-    model = GCN(8, 8, 3, device="cpu")
-    x = torch.randn(30, 8)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        model(gcn_norm(B), x)
+    """A forward under autograd no longer raises: it gives every
+    parameter the gradient ``jax.grad`` gives the JAX model."""
+    A, B = _adj(4, 30, 120, values=False)
+    params, np_params = _jax_params(5, 8, 8, 3, 2)
+    x = np.random.RandomState(6).randn(30, 8).astype(np.float32)
+    ref = jax.grad(lambda p: JGCN.apply(p, jgcn_norm(A),
+                                        jnp.asarray(x)).sum())(params)
+    model = GCN.from_jax_params(np_params, device="cpu")
+    model(gcn_norm(B), torch.from_numpy(x)).sum().backward()
+    for i, layer in enumerate(ref["layers"]):
+        assert rel_err(model.weights[i].grad, np.asarray(layer["w"])) <= 1e-5
+        assert rel_err(model.biases[i].grad, np.asarray(layer["b"])) <= 1e-5

@@ -65,15 +65,30 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_spmm_refuses_grad_inputs():
+    """Inputs that require grad are taken, not refused: the value and
+    the operand get the JAX package's gradients."""
+    import jax
+    import jax.numpy as jnp
+
+    from pytorch_sparse_tpu.ops.matmul import spmm as jspmm
+
+    x_np = np.random.RandomState(0).randn(2, 4).astype(np.float32)
     A = pts.SparseTensor(row=[0, 1, 1], col=[1, 0, 1],
                          value=torch.ones(3, requires_grad=True),
                          device="cpu")
-    x = torch.randn(2, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        pts.spmm_sum(A, x.detach())  # value requires grad
+    x = torch.from_numpy(x_np).requires_grad_(True)
+    pts.spmm_sum(A, x.detach()).sum().backward()  # value requires grad
     B = A.set_value(torch.ones(3), layout="coo")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        pts.spmm_mean(B, x)
+    pts.spmm_mean(B, x).sum().backward()
+    Aj = jts.SparseTensor(row=np.array([0, 1, 1]), col=np.array([1, 0, 1]))
+    gv = jax.grad(lambda v: jspmm(Aj.set_value(v, layout="coo"),
+                                  jnp.asarray(x_np), "sum").sum())(
+        jnp.ones(3))
+    gx = jax.grad(lambda xx: jspmm(Aj.set_value(jnp.ones(3), layout="coo"),
+                                   xx, "mean").sum())(jnp.asarray(x_np))
+    np.testing.assert_allclose(A.storage.value().grad.numpy(),
+                               np.asarray(gv), rtol=1e-6)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(gx), rtol=1e-6)
     with torch.no_grad():
         assert pts.spmm_sum(A, x).shape == (2, 4)
 

@@ -95,7 +95,7 @@ def test_half_operands_compute_in_f32(dtype):
     assert rel_err(out_p, exact) <= 1e-2
 
 
-def _hybrid_pair(store, B_blk, reduce, x_seed):
+def _hybrid_pair(store, B_blk):
     rng = np.random.RandomState(8)
     M, N, E = 120, 100, 3000
     row = rng.randint(0, M, E)
@@ -123,7 +123,7 @@ def _hybrid_pair(store, B_blk, reduce, x_seed):
 @pytest.mark.parametrize("store,tol", [("float32", 1e-5),
                                        ("bfloat16", 1e-4)])
 def test_hybrid_route_matches_jax(store, tol, B_blk, reduce):
-    A, B, hj, hp = _hybrid_pair(store, B_blk, reduce, 9)
+    A, B, hj, hp = _hybrid_pair(store, B_blk)
     assert 0 < hp.dense_nnz < B.nnz() and hp.rest is not None
     assert hp.dense_nnz == hj.dense_nnz and hp.nb == hj.nb
     np.testing.assert_array_equal(hp.slot_row.numpy(),
