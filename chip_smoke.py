@@ -17,8 +17,17 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    the community hybrid graph with f32 and bf16 stores; ``edge_dot`` on
    the uniform graph at K=128, 256 and 40, on the empty-rows matrix, and
    at K=128 on the community hybrid and Reddit-10% graphs of phase 4b.
+   ``csr_spmm_minmax`` (min and max; ``out`` and ``arg`` must equal the
+   plain version's exactly) on the uniform graph at K=128, 256 and 40
+   with values and implicit ones, on the empty-rows matrix, on a
+   tie-heavy integer operand, with a bf16 operand, and at K=128 on the
+   community hybrid and Reddit-10% graphs; ``minmax_edge_dot`` and
+   ``minmax_spmm_t`` on the max argout of each f32 case;
+   ``edge_softmax`` at 8 heads and 1 on the uniform graph with
+   self-loops and on the community hybrid graph.
    Each is timed with CUDA events beside its plain version, a PyTorch
-   library yardstick that the port never calls, and its bound on an H100
+   library yardstick that the port never calls (none computes an
+   argout), and its bound on an H100
    SXM (3.35 TB/s; 67 TFLOP/s FP32 outside the tensor cores for f32
    inputs, 989 TFLOP/s dense bf16 tensor cores for a bf16 store times
    the split f32 operand).
@@ -35,6 +44,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ``gout``.  ``grad_x`` is held against a float64 host CSC walk (head +
    tail + 512 random columns), ``grad_v`` against a float64 host dot over
    4096 random edges.
+4c. Min/max legs: ``spmm_max`` and ``spmm_min`` through the public API
+   on the uniform graph and the community hybrid graph (K=128, f32,
+   N(0,1) values), with both gradients from a seeded ``gout``.  ``out``
+   and ``arg`` are held against a host row walk (head + tail + 512
+   random rows; ``arg`` exactly), ``grad_x`` against a float64 host CSC
+   walk through the argout and ``grad_v`` against a float64 host dot on
+   4096 edges.
 5. GCN inference at the width of OGB's ogbn-arxiv GCN (3 layers,
    128 -> 256 -> 256 -> 40) on the normalized uniform graph, held
    against the same weights run layer by layer through the plain CSR
@@ -49,12 +65,20 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    dropout 0.5 from a seeded CUDA generator, whose loss must stay finite
    and fall.  The step needs no value gradient, so it must not launch
    ``edge_dot``.
+7. GAT inference at the GAT paper's transductive architecture
+   (Velickovic et al., ICLR 2018, section 3.3: 8 heads x 8 features,
+   ELU, one output head) at ogbn-arxiv width, 128 -> 8x8 -> 40, on the
+   uniform graph with self-loops, held against the same weights run
+   through the plain edge-softmax and CSR versions.
 
-The main path is phases 4, 4b, 5 and 6, each driven once with every
-launch count set to 0 just before it and read just after it.  Each phase
-must launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
-those and ``block_spmm_t`` and ``edge_dot``; 5 and 6: ``csr_spmm``), and
-the ``kernels`` line reports each kernel's launches summed over them.
+The main path is phases 4, 4b, 4c, 5, 6 and 7, each driven once with
+every launch count set to 0 just before it and read just after it.  Each
+phase must launch the kernels it runs (4: ``csr_spmm`` and
+``block_spmm``; 4b: those and ``block_spmm_t`` and ``edge_dot``; 4c:
+``csr_spmm_minmax``, ``minmax_edge_dot`` and ``minmax_spmm_t``, and no
+block kernel; 5 and 6: ``csr_spmm``; 7: ``edge_softmax`` twice and
+``csr_spmm`` once per head plus once), and the ``kernels`` line reports
+each kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
 """
@@ -84,7 +108,9 @@ UNIFORM = (169_343, 1_166_243)             # ogbn-arxiv nodes and edges
 REDDIT10 = (23_296, 16_000_000, 30)        # nodes, draws, communities
 HYBRID = (232_965, 16_000_000, 200)
 GCN_WIDTHS = (128, 256, 40, 3)             # in, hidden, out, layers
+GAT_WIDTHS = (128, 8, 8, 40)               # in, heads, per-head, out
 REPS = 20
+PLAIN_REPS = 5                 # the slower plain versions of slice 3
 
 
 class Failure(Exception):
@@ -121,22 +147,29 @@ def errors(got, ref):
     return diff, (diff / scale if scale > 0 else diff)
 
 
-def oracle_check(A, mat, out, gate, seed=7, n_random=512):
-    """Host CSR-walk oracle over head + tail + random rows (the rule of
-    the JAX package's ``bench.py``).  Returns (ok, max_rel_err)."""
+def walk_rows(A, n_random, seed):
+    """Head + tail + random rows, and for each edge of them: its row's
+    position in that list, its edge id."""
     M = A.sparse_size(0)
     rng = np.random.RandomState(seed)
     rows = np.unique(np.concatenate([
         np.arange(min(256, M)), np.arange(max(0, M - 256), M),
         rng.randint(0, M, n_random)]))
     rp = A.storage.numpy_view("rowptr")
-    col = A.storage.numpy_view("col")
-    value = A.storage.value()
-    mat_np = mat.detach().float().cpu().numpy()
     starts, lens = rp[rows], rp[rows + 1] - rp[rows]
     rix = np.repeat(np.arange(rows.size), lens)
     e = np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens, lens) \
         + starts[rix]
+    return rows, rix, e
+
+
+def oracle_check(A, mat, out, gate, seed=7, n_random=512):
+    """Host CSR-walk oracle over head + tail + random rows (the rule of
+    the JAX package's ``bench.py``).  Returns (ok, max_rel_err)."""
+    rows, rix, e = walk_rows(A, n_random, seed)
+    col = A.storage.numpy_view("col")
+    value = A.storage.value()
+    mat_np = mat.detach().float().cpu().numpy()
     contrib = mat_np[col[e]].astype(np.float64)
     if value is not None:
         contrib = contrib * value.detach().float().cpu().numpy()[e, None]
@@ -280,9 +313,12 @@ def _segment_sums(contrib, lens):
     return out
 
 
-def grad_x_oracle_check(A, gout, grad_x, gate, seed=9, n_random=512):
+def grad_x_oracle_check(A, gout, grad_x, gate, arg=None, seed=9,
+                        n_random=512):
     """``grad_x = A^T gout`` against a float64 host CSC walk over head +
-    tail + random columns.  Returns (ok, max_rel_err)."""
+    tail + random columns; given the argout ``arg`` of a min/max SpMM,
+    only the ``(row, k)`` each edge won count.  Returns (ok,
+    max_rel_err)."""
     N = A.sparse_size(1)
     rng = np.random.RandomState(seed)
     cols = np.unique(np.concatenate([
@@ -299,6 +335,8 @@ def grad_x_oracle_check(A, gout, grad_x, gate, seed=9, n_random=512):
     e = perm[p]
     gout_np = gout.detach().float().cpu().numpy()
     contrib = gout_np[row[e]].astype(np.float64)
+    if arg is not None:
+        contrib[arg.cpu().numpy()[row[e]] != e[:, None]] = 0.0
     if value is not None:
         contrib *= value.detach().float().cpu().numpy()[e, None]
     ref = _segment_sums(contrib, lens)
@@ -307,19 +345,118 @@ def grad_x_oracle_check(A, gout, grad_x, gate, seed=9, n_random=512):
     return err <= gate, err
 
 
-def grad_v_oracle_check(A, x, gout, grad_v, gate, seed=10, n_edges=4096):
+def grad_v_oracle_check(A, x, gout, grad_v, gate, arg=None, seed=10,
+                        n_edges=4096):
     """``grad_v[e] = <x[col e], gout[row e]>`` against a float64 host dot
-    over random edges.  Returns (ok, max_rel_err)."""
+    over random edges; given the argout ``arg`` of a min/max SpMM, only
+    the ``k`` each edge won count.  Returns (ok, max_rel_err)."""
     rng = np.random.RandomState(seed)
     e = rng.randint(0, A.nnz(), n_edges)
     row = A.storage.numpy_view("row")[e]
     col = A.storage.numpy_view("col")[e]
     x_np = x.detach().double().cpu().numpy()
     g_np = gout.detach().double().cpu().numpy()
-    ref = (x_np[col] * g_np[row]).sum(-1)
+    prod = x_np[col] * g_np[row]
+    if arg is not None:
+        prod[arg.cpu().numpy()[row] != e[:, None]] = 0.0
+    ref = prod.sum(-1)
     got = grad_v.detach().double().cpu().numpy()[e]
     err = float(np.abs(got - ref).max() / (np.abs(ref).max() + 1e-6))
     return err <= gate, err
+
+
+def minmax_bounds(M, E, K_, ncols, has_value, elem=4):
+    """K6's bound: K1's bytes at the operand's element size, plus the
+    (M, K) int32 argout."""
+    nbytes = 4 * (M + 1) + 4 * E + (elem * E if has_value else 0) \
+        + elem * K_ * ncols + elem * M * K_ + 4 * M * K_
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, 2 * E * K_ / FP32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def minmax_bwd_bounds(torch, col, arg, N, has_value):
+    """The bounds of K7a and K7b on this argout: each reads arg and the
+    structure once; K7a reads only the x entries whose (row, k) some
+    edge won (distinct (col, k) pairs) and writes (E,), K7b reads only
+    the won g entries and writes (N, K).  Both are bytes-bound (2 flops
+    per won entry)."""
+    M, K_ = arg.shape
+    E = col.shape[0]
+    won = arg < E
+    n_won = int(won.sum())
+    k_idx = torch.arange(K_, device=arg.device).expand(M, K_)[won]
+    pairs = col.long()[arg[won].long()] * K_ + k_idx
+    n_x = int(torch.unique(pairs).numel())
+    common = 4 * M * K_ + 4 * E
+    b7a = 4 * (M + 1) + common + 4 * M * K_ + 4 * n_x + 4 * E
+    b7b = 4 * (N + 1) + common + 4 * E + (4 * E if has_value else 0) \
+        + 4 * n_won + 4 * N * K_
+    t_f = 2 * n_won / FP32_FLOPS_PER_S
+    out = []
+    for nbytes in (b7a, b7b):
+        t_b = nbytes / HBM_BYTES_PER_S
+        out.append((max(t_b, t_f) * 1e3,
+                    "bytes" if t_b >= t_f else "operations"))
+    return out
+
+
+def minmax_oracle_check(A, mat, out, arg, is_min, gate, seed=11,
+                        n_random=512):
+    """``out`` and ``arg`` of ``spmm_min``/``spmm_max`` against a host row
+    walk (head + tail + random rows): each product rounded to float32
+    as the contract rounds it to the operand's dtype, compared in
+    float64, the first edge kept on ties, the sentinel on empty rows.
+    Returns (ok, out_rel_err, arg_mismatches)."""
+    rows, rix, e = walk_rows(A, n_random, seed)
+    col = A.storage.numpy_view("col")
+    E = A.nnz()
+    mat_np = mat.detach().float().cpu().numpy()
+    h = mat_np[col[e]]
+    value = A.storage.value()
+    if value is not None:
+        h = h * value.detach().float().cpu().numpy()[e, None]  # f32 product
+    h = h.astype(np.float64)
+    ref = np.zeros((rows.size, mat_np.shape[1]), np.float64)
+    ref_arg = np.full(ref.shape, E, np.int64)
+    seen = np.zeros(rows.size, bool)
+    for i in range(h.shape[0]):          # edges in CSR order
+        r = rix[i]
+        if not seen[r]:
+            ref[r], ref_arg[r], seen[r] = h[i], e[i], True
+            continue
+        better = h[i] < ref[r] if is_min else h[i] > ref[r]
+        ref[r] = np.where(better, h[i], ref[r])
+        ref_arg[r] = np.where(better, e[i], ref_arg[r])
+    got = out.detach().double().cpu().numpy()[rows]
+    mism = int((arg.cpu().numpy()[rows] != ref_arg).sum())
+    err = float(np.abs(got - ref).max() / (np.abs(ref).max() + 1e-6))
+    return err <= gate and mism == 0, err, mism
+
+
+def gat_plain(torch, model, adj, x, edge_softmax_plain, csr_spmm_plain):
+    """The GAT forward with the same weights, written out layer by layer
+    on the plain edge-softmax and CSR versions: the reference of the
+    kernel run."""
+    F = torch.nn.functional
+    rowptr, col = adj.storage.rowptr(), adj.storage.col()
+    row, coll = adj.storage.row().long(), col.long()
+
+    def layer(h, a_src, a_dst):
+        logits = F.leaky_relu((h * a_src).sum(-1)[row]
+                              + (h * a_dst).sum(-1)[coll], 0.2)
+        att = edge_softmax_plain(rowptr, logits)
+        return torch.stack([
+            csr_spmm_plain(rowptr, col, att[:, i].contiguous(),
+                           h[:, i].contiguous())
+            for i in range(h.shape[1])], dim=1)
+
+    H, D = model.a1_src.shape
+    h = layer((x @ model.w1).reshape(-1, H, D), model.a1_src, model.a1_dst)
+    h = F.elu(h).reshape(-1, H * D)
+    out_dim = model.w2.shape[1]
+    h = layer((h @ model.w2).reshape(-1, 1, out_dim), model.a2_src,
+              model.a2_dst)
+    return h[:, 0]
 
 
 def seeded_labels(torch, x, n_classes, seed, device):
@@ -371,10 +508,13 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     import pytorch_sparse_tpu_torch as ts
     from pytorch_sparse_tpu_torch import _build
-    from pytorch_sparse_tpu_torch.models import GCN, gcn_norm
+    from pytorch_sparse_tpu_torch.models import GAT, GCN, gcn_norm
     from pytorch_sparse_tpu_torch.ops.kernels import (
         block_spmm, block_spmm_plain, block_spmm_t, block_spmm_t_plain,
-        csr_spmm, csr_spmm_plain, edge_dot, edge_dot_plain)
+        csr_spmm, csr_spmm_minmax, csr_spmm_minmax_plain, csr_spmm_plain,
+        edge_dot, edge_dot_plain, edge_softmax, edge_softmax_plain,
+        minmax_edge_dot, minmax_edge_dot_plain, minmax_spmm_t,
+        minmax_spmm_t_plain)
     from pytorch_sparse_tpu_torch.ops.kernels.hybrid import (
         _PRECISION_PARTS, HybridFormat, get_block_precision,
         set_store_budget)
@@ -385,7 +525,10 @@ def main(argv=None) -> int:
     failures = []
     results = {"phases": {}}
     counted = {"csr_spmm": csr_spmm, "block_spmm": block_spmm,
-               "block_spmm_t": block_spmm_t, "edge_dot": edge_dot}
+               "block_spmm_t": block_spmm_t, "edge_dot": edge_dot,
+               "csr_spmm_minmax": csr_spmm_minmax,
+               "minmax_edge_dot": minmax_edge_dot,
+               "minmax_spmm_t": minmax_spmm_t, "edge_softmax": edge_softmax}
 
     def record(phase, **kw):
         results["phases"].setdefault(phase, []).append(kw)
@@ -393,6 +536,9 @@ def main(argv=None) -> int:
 
     def timer(fn):
         return time_ms(torch, fn)
+
+    def plain_timer(fn):
+        return time_ms(torch, fn, reps=PLAIN_REPS)
 
     sync = torch.cuda.synchronize
 
@@ -428,9 +574,15 @@ def main(argv=None) -> int:
     h32 = A_h.storage.hybrid(K_hint=K)
     if not isinstance(h32, HybridFormat):
         raise Failure(f"community hybrid graph routed to {h32!r}")
+    # The uniform graph with self-loops and GCN weights: GCN's adjacency,
+    # and GAT's (which reads only its structure).
+    A_g = gcn_norm(A_u1)
+    for A_ in (A_u, A_u1, A_h, A_r):  # the CSC views of min/max backward
+        A_.storage.csc_row()
+        A_.storage.colptr()
     record("setup", seconds=round(time.time() - t0, 2),
            uniform_nnz=A_u.nnz(), reddit10_nnz=A_r.nnz(),
-           hybrid_nnz=A_h.nnz(), hybrid=repr(h32))
+           hybrid_nnz=A_h.nnz(), hybrid=repr(h32), gcn_gat_nnz=A_g.nnz())
 
     # ---- 3. kernels against their plain versions -------------------------
     t0 = time.time()
@@ -527,7 +679,6 @@ def main(argv=None) -> int:
             "edge_dot", "edge_dot.cu", "ops/kernels/ell.py:353", cases,
             "torch.sparse.sampled_addmm(csr pattern, g, x^T, beta=0) "
             "(cuSPARSE SDDMM)", f"M={Mu} E={Eu} K=128 f32"))
-        del A_e
 
         B = h32.B
         C = -(-Mh // B)
@@ -598,6 +749,146 @@ def main(argv=None) -> int:
         del xb, gb
     except Exception:
         failures.append("phase 3 (kernels): " + traceback.format_exc())
+
+    # csr_spmm_minmax (K6, min and max) and its backward halves (K7a
+    # minmax_edge_dot and K7b minmax_spmm_t, on the max argout).  K6's
+    # out and arg must equal the plain version's exactly; K7a and K7b
+    # sum in another order (KERNEL_GATE).  No single PyTorch call
+    # computes an argout, so these have no library time.
+    no_library = "none: no single PyTorch call computes the argout"
+    try:
+        int_x = torch.from_numpy(np.random.RandomState(14).randint(
+            -2, 3, (Mu, K)).astype(np.float32)).to(device)
+        k6_cases, k7a_cases, k7b_cases = [], [], []
+        for label, A_, k, x_, dtype in [
+            ("values K=128", A_u, 128, None, torch.float32),
+            ("values K=256", A_u, 256, None, torch.float32),
+            ("values K=40", A_u, 40, None, torch.float32),
+            ("ones K=128", A_u1, 128, None, torch.float32),
+            ("ones K=256", A_u1, 256, None, torch.float32),
+            ("ones K=40", A_u1, 40, None, torch.float32),
+            ("empty rows K=40", A_e, 40, None, torch.float32),
+            ("ties: integer operand, ones K=128", A_u1, 128, int_x,
+             torch.float32),
+            ("values K=128 bf16", A_u, 128, None, torch.bfloat16),
+            ("community hybrid K=128", A_h, 128, None, torch.float32),
+            ("community Reddit-10% K=128", A_r, 128, None, torch.float32),
+        ]:
+            st_ = A_.storage
+            rp, cl, vv = A_.csr()
+            m_, n_ = A_.sparse_sizes()
+            x = operand(torch, n_, k, 2, device) if x_ is None else x_
+            x = x.to(dtype)
+            ncols = int(np.unique(st_.numpy_view("col")).size)
+            bound_ms, bound_by = minmax_bounds(m_, A_.nnz(), k, ncols,
+                                               vv is not None,
+                                               x.element_size())
+            arg_by_min = {}
+            for is_min in (False, True):
+                name = f"{'min' if is_min else 'max'} {label}"
+                got, arg = csr_spmm_minmax(rp, cl, vv, x, is_min)
+                ref, ref_arg = csr_spmm_minmax_plain(rp, cl, vv, x, is_min)
+                sync()
+                abs_e, rel_e = errors(got, ref)
+                mism = int((arg != ref_arg).sum())
+                ok = mism == 0 and abs_e == 0.0
+                if not ok:
+                    failures.append(f"csr_spmm_minmax {name}: {mism} arg "
+                                    f"mismatches, out abs err {abs_e:.3g}")
+                k6_cases.append({
+                    "case": name, "max_abs_err": abs_e, "max_rel_err": rel_e,
+                    "arg_mismatches": mism, "ok": ok,
+                    "ms": timer(lambda: csr_spmm_minmax(rp, cl, vv, x,
+                                                        is_min)),
+                    "plain_ms": plain_timer(lambda: csr_spmm_minmax_plain(
+                        rp, cl, vv, x, is_min)),
+                    "library_ms": None, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+                arg_by_min[is_min] = arg
+                del got, ref, ref_arg
+            if dtype != torch.float32:
+                continue  # the backward kernels take f32
+            arg = arg_by_min[False]
+            g = operand(torch, m_, k, 4, device)
+            (b7a, by7a), (b7b, by7b) = minmax_bwd_bounds(
+                torch, cl, arg, n_, vv is not None)
+            got = minmax_edge_dot(rp, cl, x, g, arg)
+            ref = minmax_edge_dot_plain(rp, cl, x, g, arg)
+            sync()
+            k7a_cases.append(kernel_case(
+                torch, label, got, ref, failures, "minmax_edge_dot",
+                ms=timer(lambda: minmax_edge_dot(rp, cl, x, g, arg)),
+                plain_ms=plain_timer(
+                    lambda: minmax_edge_dot_plain(rp, cl, x, g, arg)),
+                library_ms=None, bound_ms=b7a, bound_by=by7a))
+            t_args = (st_.colptr(), st_.csc_row(), st_.csr2csc(), vv, g, arg)
+            got = minmax_spmm_t(*t_args)
+            ref = minmax_spmm_t_plain(*t_args)
+            sync()
+            k7b_cases.append(kernel_case(
+                torch, label, got, ref, failures, "minmax_spmm_t",
+                ms=timer(lambda: minmax_spmm_t(*t_args)),
+                plain_ms=plain_timer(lambda: minmax_spmm_t_plain(*t_args)),
+                library_ms=None, bound_ms=b7b, bound_by=by7b))
+            del got, ref, arg_by_min, arg, g, x, t_args
+        shape = f"M={Mu} E={Eu} K=128 f32 values, max"
+        kernels.append(kernel_entry(
+            "csr_spmm_minmax", "spmm_minmax.cu", "ops/kernels/ell.py:496",
+            k6_cases, no_library, shape))
+        kernels.append(kernel_entry(
+            "minmax_edge_dot", "spmm_minmax.cu", "ops/kernels/ell.py:383",
+            k7a_cases, no_library, shape))
+        kernels.append(kernel_entry(
+            "minmax_spmm_t", "spmm_minmax.cu", "ops/kernels/ell.py:383",
+            k7b_cases, no_library, shape))
+        del A_e, int_x
+
+        # edge_softmax (K8) on GAT's graph (the uniform graph with
+        # self-loops) and the community hybrid graph, at 8 heads and 1;
+        # the library yardstick is torch.sparse.softmax over the (M, N, H)
+        # hybrid COO tensor.
+        sm_cases = []
+        for label, A_, H in [("uniform + self-loops H=8", A_g, 8),
+                             ("uniform + self-loops H=1", A_g, 1),
+                             ("community hybrid H=8", A_h, 8),
+                             ("community hybrid H=1", A_h, 1)]:
+            rp = A_.storage.rowptr()
+            m_, n_ = A_.sparse_sizes()
+            logits = operand(torch, A_.nnz(), H, 15, device) * 2.0
+            got = edge_softmax(rp, logits)
+            ref = edge_softmax_plain(rp, logits)
+            sync()
+            nbytes = 4 * (m_ + 1) + 8 * A_.nnz() * H
+            timing = {"ms": timer(lambda: edge_softmax(rp, logits)),
+                      "plain_ms": plain_timer(
+                          lambda: edge_softmax_plain(rp, logits)),
+                      "library_ms": None,
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "bound_by": "bytes"}
+            try:
+                S = torch.sparse_coo_tensor(
+                    torch.stack([A_.storage.row().long(),
+                                 A_.storage.col().long()]),
+                    logits, (m_, n_, H)).coalesce()
+                lib_out = torch.sparse.softmax(S, 1)
+                if S._nnz() == A_.nnz():  # same edges in the same order
+                    timing["library_max_abs_err"] = errors(
+                        lib_out.values(), ref)[0]
+                timing["library_ms"] = timer(
+                    lambda: torch.sparse.softmax(S, 1))
+                del S, lib_out
+            except (RuntimeError, NotImplementedError) as exc:
+                timing["library_missing"] = repr(exc)
+            sm_cases.append(kernel_case(torch, label, got, ref, failures,
+                                        "edge_softmax", **timing))
+            del got, ref, logits
+        kernels.append(kernel_entry(
+            "edge_softmax", "edge_softmax.cu", "ops/kernels/ell.py:462",
+            sm_cases, "torch.sparse.softmax over the (M, N, H) hybrid COO "
+            "tensor", f"M={Mu} E={A_g.nnz()} H=8 f32"))
+    except Exception:
+        failures.append("phase 3 (min/max and softmax kernels): "
+                        + traceback.format_exc())
     record("kernel_phase", seconds=round(time.time() - t0, 2))
 
     # ---- 4, 4b, 5 and 6: the main path, with launch counts ---------------
@@ -606,7 +897,6 @@ def main(argv=None) -> int:
     x_r = operand(torch, Mr, K, 2, device)
     x_h = operand(torch, Mh, K, 2, device)
     A_r2 = A_r.set_value(A_r.storage.value(), layout="coo")  # no cached view
-    A_g = gcn_norm(A_u1)
     in_dim, hid, out_dim, nlayers = GCN_WIDTHS
     x_g = operand(torch, Mu, in_dim, 5, device)
     labels = seeded_labels(torch, x_g, out_dim, 6, device)
@@ -639,17 +929,34 @@ def main(argv=None) -> int:
                           x.detach().clone().requires_grad_(True),
                           operand(torch, A.sparse_size(0), K, 8, device),
                           want))
+    # Min/max legs: the same kind of leaf value, on the uniform graph and
+    # the community hybrid graph (whose hybrid view min/max bypasses).
+    mm_specs = []
+    for label, A, x in [
+            ("uniform (ogbn-arxiv scale)", A_u, x_u),
+            ("community hybrid (Reddit nodes, 1/10 edges)", A_h, x_h)]:
+        v = A.storage.value().detach().clone().requires_grad_(True)
+        mm_specs.append((label, A.set_value(v, layout="coo"), v,
+                         x.detach().clone().requires_grad_(True),
+                         operand(torch, A.sparse_size(0), K, 16, device)))
+    gat_in, gat_heads, gat_hid, gat_out = GAT_WIDTHS
+    gat_model = GAT(gat_in, gat_hid, gat_out, heads=gat_heads,
+                    generator=torch.Generator().manual_seed(0), device=device)
 
     # Each phase of the main path runs with every launch count set to 0
     # just before it and read just after it, and must launch the kernels
     # listed here.  The train steps need no value gradient, so phase 6
-    # must launch no edge dot.
+    # must launch no edge dot; min/max bypasses the router, so phase 4c
+    # must launch no block kernel.
     must_launch = {
         "4 forward legs": ("csr_spmm", "block_spmm"),
         "4b backward legs": ("csr_spmm", "block_spmm", "block_spmm_t",
                              "edge_dot"),
+        "4c min/max legs": ("csr_spmm_minmax", "minmax_edge_dot",
+                            "minmax_spmm_t"),
         "5 GCN inference": ("csr_spmm",),
         "6 GCN training": ("csr_spmm",),
+        "7 GAT inference": ("edge_softmax", "csr_spmm"),
     }
     phase_launches = {}
 
@@ -690,6 +997,24 @@ def main(argv=None) -> int:
                 grads.append(None)
         return grads
 
+    def minmax_legs():
+        res = []
+        for label, A, v, x, gout in mm_specs:
+            for reduce in ("max", "min"):
+                fn = ts.spmm_max if reduce == "max" else ts.spmm_min
+                try:
+                    out, arg = fn(A, x)
+                    gv, gx = torch.autograd.grad(out, (v, x), gout)
+                    res.append((label, reduce, out.detach(), arg, gv, gx))
+                except Exception:
+                    failures.append(f"min/max leg {label} {reduce}: "
+                                    + traceback.format_exc())
+        return res
+
+    def gat_inference():
+        with torch.inference_mode():
+            return gat_model(A_g, x_g)
+
     def gcn_inference():
         with torch.inference_mode():
             return model(A_g, x_g)
@@ -715,8 +1040,10 @@ def main(argv=None) -> int:
 
     outs = drive("4 forward legs", forward_legs) or []
     bwd_grads = drive("4b backward legs", backward_legs) or []
+    mm_res = drive("4c min/max legs", minmax_legs) or []
     logits = drive("5 GCN inference", gcn_inference)
     train = drive("6 GCN training", gcn_training)
+    gat_logits = drive("7 GAT inference", gat_inference)
     launches = {n: sum(c[n] for c in phase_launches.values())
                 for n in counted}
     record("main_path", seconds=round(time.time() - t0, 2),
@@ -730,6 +1057,14 @@ def main(argv=None) -> int:
     if phase_launches["6 GCN training"]["edge_dot"]:
         failures.append("the GCN train steps launched edge_dot (no value "
                         "gradient is needed)")
+    if (phase_launches["4c min/max legs"]["block_spmm"]
+            or phase_launches["4c min/max legs"]["block_spmm_t"]):
+        failures.append("the min/max legs launched a block kernel")
+    gat_counts = {n: phase_launches["7 GAT inference"][n]
+                  for n in ("edge_softmax", "csr_spmm")}
+    if gat_counts != {"edge_softmax": 2, "csr_spmm": gat_heads + 1}:
+        failures.append(f"GAT launched {gat_counts} (want edge_softmax 2, "
+                        f"csr_spmm {gat_heads + 1})")
 
     def route_of(A):
         h = A.storage.hybrid(auto=False)
@@ -785,6 +1120,32 @@ def main(argv=None) -> int:
                             f"{want}), grad_x err {err_x:.3g}, grad_v err "
                             f"{err_v:.3g} (gate {GATE_F32}), finite {finite}")
     del bwd_specs, bwd_grads
+
+    # ---- 4c. min/max legs: checks and times ------------------------------
+    specs_by_label = {sp[0]: sp for sp in mm_specs}
+    for label, reduce, out, arg, gv, gx in mm_res:
+        _, A, v, x, gout = specs_by_label[label]
+        is_min = reduce == "min"
+        fn = ts.spmm_min if is_min else ts.spmm_max
+        ok_o, err_o, mism = minmax_oracle_check(A, x, out, arg, is_min,
+                                                GATE_F32)
+        ok_x, err_x = grad_x_oracle_check(A, gout, gx, GATE_F32, arg=arg)
+        ok_v, err_v = grad_v_oracle_check(A, x, gout, gv, GATE_F32, arg=arg)
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(gx).all()
+                      and torch.isfinite(gv).all())
+        shape_ok = tuple(out.shape) == (A.sparse_size(0), K)
+        ms = timer(lambda: fn(A, x.detach()))
+        ms_fb = timer(lambda: torch.autograd.grad(fn(A, x)[0], (v, x), gout))
+        record("minmax", leg=label, reduce=reduce, nnz=A.nnz(),
+               out_rel_err=err_o, arg_mismatches=mism, grad_x_rel_err=err_x,
+               grad_v_rel_err=err_v, gate=GATE_F32, ms_forward=ms,
+               ms_forward_backward=ms_fb, card=card)
+        if not (ok_o and ok_x and ok_v and finite and shape_ok):
+            failures.append(f"min/max leg {label} {reduce}: out err "
+                            f"{err_o:.3g}, {mism} arg mismatches, grad_x err "
+                            f"{err_x:.3g}, grad_v err {err_v:.3g} (gate "
+                            f"{GATE_F32}), finite {finite}")
+    del mm_specs, mm_res
 
     # ---- 5. GCN inference: checks and times ------------------------------
     with torch.inference_mode():
@@ -865,6 +1226,29 @@ def main(argv=None) -> int:
                             f"errs {max(grad_errs):.3g} (gate "
                             f"{KERNEL_GATE}), ReLU flips {flips} (at most "
                             f"{max_flips}), dropout losses {losses}")
+
+    # ---- 7. GAT inference: checks and times ------------------------------
+    with torch.inference_mode():
+        if gat_logits is not None:
+            ref = gat_plain(torch, gat_model, A_g, x_g, edge_softmax_plain,
+                            csr_spmm_plain)
+            sync()
+            _, rel_e = errors(gat_logits, ref)
+            finite = bool(torch.isfinite(gat_logits).all())
+            shape_ok = tuple(gat_logits.shape) == (Mu, gat_out)
+            ms = timer(lambda: gat_model(A_g, x_g))
+            plain_ms = timer(lambda: gat_plain(
+                torch, gat_model, A_g, x_g, edge_softmax_plain,
+                csr_spmm_plain))
+            record("gat", widths=[gat_in, f"{gat_heads}x{gat_hid}", gat_out],
+                   nodes=Mu, nnz=A_g.nnz(), launches=gat_counts,
+                   rel_err_vs_plain=rel_e, gate=KERNEL_GATE,
+                   ms_per_forward=ms, plain_ms_per_forward=plain_ms,
+                   card=card)
+            if not (finite and shape_ok and rel_e <= KERNEL_GATE):
+                failures.append(f"GAT: finite={finite} shape="
+                                f"{gat_logits.shape} rel err vs plain "
+                                f"{rel_e:.3g}")
 
     results.update(kernels=kernels, launches=launches, failures=failures,
                    card=card)

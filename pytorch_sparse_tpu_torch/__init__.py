@@ -1,12 +1,14 @@
 """pytorch_sparse_tpu_torch — the PyTorch and CUDA port of
 ``pytorch_sparse_tpu``, for NVIDIA Hopper GPUs.
 
-This slice carries the serving path: ``SparseStorage``/``SparseTensor``
-with their caches, the routed SpMM forward (a hand-written CSR row
-kernel, a hand-written block-dense kernel, and the whole-matrix dense
-route) and GCN inference.  Names follow the JAX package.  Entry points
-run on ``cuda`` unless given ``device="cpu"``; the CPU runs each
-kernel's plain PyTorch version.
+It carries ``SparseStorage``/``SparseTensor`` with their caches; the
+routed SpMM (a hand-written CSR row kernel, a hand-written block-dense
+kernel, and the whole-matrix dense route) forward and backward; SpMM
+min/max with its argout, forward and backward; GCN inference and
+training; and GAT inference with a hand-written edge-softmax kernel.
+Names follow the JAX package.  Entry points run on ``cuda`` unless
+given ``device="cpu"``; the CPU runs each kernel's plain PyTorch
+version.
 """
 
 __version__ = "0.1.0"

@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 
 _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("csr_spmm", "block_spmm", "edge_dot")
+SOURCES = ("csr_spmm", "block_spmm", "edge_dot", "spmm_minmax",
+           "edge_softmax")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

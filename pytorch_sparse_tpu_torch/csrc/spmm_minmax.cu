@@ -1,0 +1,478 @@
+// SpMM min/max with argout, and the two halves of its backward.
+//
+//   csr_minmax:       out[r, k] = ext_{e in row r} h[e, k],  h[e, k] = val[e] * x[col e, k]
+//                     arg[r, k] = the edge that gave out[r, k]
+//   minmax_edge_dot:  grad_val[e] = sum_k [arg[row e, k] == e] * g[row e, k] * x[col e, k]
+//   minmax_spmm_t:    grad_x[c, k] = sum_{e in column c, CSC order} [arg[row e, k] == e] * val[e] * g[row e, k]
+//
+// csr_minmax replaces the JAX package's pytorch_sparse_tpu/ops/kernels/ell.py:
+// ell_spmm_minmax (:496); the two backward kernels replace ell_minmax_bwd
+// (:383), which computes both halves as gathers over the ELL view and its
+// transpose because XLA on the TPU has no fast scatter.  A GPU reads CSR
+// and the cached CSC view directly, so no ELL padding remains.
+//
+// The argout contract (the reference's csrc/spmm.cpp:204-303 as the JAX
+// ELL path computes it; every rule below is tested against it):
+//   - the comparison is strict, so ties keep the FIRST CSR edge;
+//   - the running best starts from the row's first edge, not from +-inf:
+//     a row whose candidates are all -inf (max) gives -inf and the first
+//     edge, not the sentinel;
+//   - a NaN candidate wins over a non-NaN best, and the first NaN wins
+//     among NaNs (jnp.argmax/argmin return the first NaN);
+//   - an empty row gives out = 0 and arg = E (the sentinel);
+//   - float16/bfloat16 operands compute in their own type, as JAX does:
+//     the wrapper rounds val to x's type, and each product is rounded to
+//     that type before it is compared, so near-ties resolve alike.  The
+//     product of two half values is exact in float32, so rounding it once
+//     gives the half multiply's result.
+// The backward kernels mask before they multiply: an edge that did not
+// win (r, k) contributes exactly 0, even where x or val is not finite
+// (JAX multiplies the mask by x and turns such an entry into NaN).
+//
+// What bounds it on an H100, for all three: device-memory bytes.
+// csr_minmax reads what csr_spmm reads (one K-wide x row per edge, its
+// index and value) and writes arg beside out; a compare per element is
+// far below the card's rate.  minmax_edge_dot reads g[row] and arg[row]
+// once per row and only the x entries whose (row, k) the edge won (a load
+// predicated on a register compare), so each row needs about 1/deg of
+// the x bytes that edge_dot reads.  minmax_spmm_t reads an arg row per
+// edge and only the g entries that edge won (a load predicated on the
+// arg load, so each edge waits two memory round trips; issuing the whole
+// g row beside the arg row instead was measured faster on a uniform
+// graph and slower on community graphs, PERF.md).
+//
+// Design, after csr_spmm.cu and edge_dot.cu: one warp per row (per column
+// for minmax_spmm_t).  Lanes own columns k = lane + 32*j (KPL per lane,
+// K masked, wide K in column tiles on gridDim.y).  Each lane loads one
+// edge's (col, val) -- or, over the CSC view, (row, edge id, val) -- so
+// the index reads are coalesced, and __shfl_sync broadcasts them in edge
+// order.  csr_minmax keeps the running best and its edge id in registers.
+// minmax_edge_dot keeps g[row] and arg[row] in registers, reduces each
+// edge's dot across the warp with __shfl_xor_sync only when some lane's
+// (row, k) was won by that edge, and writes 32 edges' results with one
+// coalesced store.  minmax_spmm_t sums each output element in one thread
+// in CSC order: no float atomics, deterministic.  (An atomic scatter over
+// (row, k) through arg would read fewer bytes; it is not this design.)
+//
+// The interface is plain C, bound from Python with ctypes: pointers come
+// in as void*, the launch goes on the caller's stream, and the return
+// value is cudaGetLastError() after the launch.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarpsPerBlock = 8;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Element access in the operand's type: load as float, round a float
+// product to the type, store from float.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float load(const float* p) { return *p; }
+  static __device__ __forceinline__ float round(float v) { return v; }
+  static __device__ __forceinline__ float store(float v) { return v; }
+};
+
+template <>
+struct Elem<__half> {
+  static __device__ __forceinline__ float load(const __half* p) {
+    return __half2float(*p);
+  }
+  static __device__ __forceinline__ float round(float v) {
+    return __half2float(__float2half_rn(v));
+  }
+  static __device__ __forceinline__ __half store(float v) {
+    return __float2half_rn(v);
+  }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ float round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
+  return v;
+}
+
+template <typename T, int KPL, bool HAS_VAL, bool IS_MIN>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_minmax_kernel(const int* __restrict__ rowptr, const int* __restrict__ col,
+                  const T* __restrict__ val, const T* __restrict__ x,
+                  T* __restrict__ out, int* __restrict__ arg, int M, int K,
+                  int E) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= M) return;  // uniform across the warp
+  const int k0 = blockIdx.y * (32 * KPL) + lane;
+
+  // An empty row keeps (0, E).
+  float best[KPL];
+  int best_e[KPL];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    best[j] = 0.f;
+    best_e[j] = E;
+  }
+
+  const int start = rowptr[row];
+  const int end = rowptr[row + 1];
+  for (int base = start; base < end; base += 32) {
+    const int n = min(32, end - base);
+    int my_c = 0;
+    float my_v = 1.f;
+    if (lane < n) {
+      my_c = col[base + lane];
+      if (HAS_VAL) my_v = Elem<T>::load(val + base + lane);
+    }
+    for (int t = 0; t < n; ++t) {
+      const int c = __shfl_sync(kFullMask, my_c, t);
+      const float v = __shfl_sync(kFullMask, my_v, t);
+      const int e = base + t;
+      const T* __restrict__ xr = x + (int64_t)c * K;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const int k = k0 + 32 * j;
+        if (k < K) {
+          float h = Elem<T>::load(xr + k);
+          if (HAS_VAL) h = Elem<T>::round(v * h);
+          const bool better = IS_MIN ? (h < best[j]) : (h > best[j]);
+          const bool nan_wins = h != h && best[j] == best[j];
+          if (e == start || better || nan_wins) {
+            best[j] = h;
+            best_e[j] = e;
+          }
+        }
+      }
+    }
+  }
+
+  T* __restrict__ orow = out + (int64_t)row * K;
+  int* __restrict__ arow = arg + (int64_t)row * K;
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int k = k0 + 32 * j;
+    if (k < K) {
+      orow[k] = Elem<T>::store(best[j]);
+      arow[k] = best_e[j];
+    }
+  }
+}
+
+// KPL > 0: g[row] and arg[row] live in KPL registers per lane (K <= 32 * KPL).
+// KPL == 0: any K, both read from global memory.
+template <int KPL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+minmax_edge_dot_kernel(const int* __restrict__ rowptr,
+                       const int* __restrict__ col,
+                       const float* __restrict__ x,
+                       const float* __restrict__ g,
+                       const int* __restrict__ arg, float* __restrict__ out,
+                       int M, int K) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= M) return;  // uniform across the warp
+  const float* __restrict__ grow = g + (int64_t)row * K;
+  const int* __restrict__ arow = arg + (int64_t)row * K;
+
+  float g_reg[KPL > 0 ? KPL : 1];
+  int a_reg[KPL > 0 ? KPL : 1];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int k = lane + 32 * j;
+    g_reg[j] = k < K ? grow[k] : 0.f;
+    a_reg[j] = k < K ? arow[k] : -1;  // -1 matches no edge
+  }
+
+  const int start = rowptr[row];
+  const int end = rowptr[row + 1];
+  for (int base = start; base < end; base += 32) {
+    const int n = min(32, end - base);
+    const int my_c = lane < n ? col[base + lane] : 0;
+    float mine = 0.f;
+    for (int t = 0; t < n; ++t) {
+      const int c = __shfl_sync(kFullMask, my_c, t);
+      const int e = base + t;
+      const float* __restrict__ xr = x + (int64_t)c * K;
+      float part = 0.f;
+      bool hit = false;
+      if (KPL > 0) {
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          if (a_reg[j] == e) {
+            part = fmaf(__ldg(xr + lane + 32 * j), g_reg[j], part);
+            hit = true;
+          }
+        }
+      } else {
+        for (int k = lane; k < K; k += 32) {
+          if (__ldg(arow + k) == e) {
+            part = fmaf(__ldg(xr + k), __ldg(grow + k), part);
+            hit = true;
+          }
+        }
+      }
+      const float dot = __any_sync(kFullMask, hit) ? warp_sum(part) : 0.f;
+      if (lane == t) mine = dot;
+    }
+    if (lane < n) out[base + lane] = mine;
+  }
+}
+
+template <int KPL, bool HAS_VAL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+minmax_spmm_t_kernel(const int* __restrict__ colptr,
+                     const int* __restrict__ csc_row,
+                     const int* __restrict__ csr2csc,
+                     const float* __restrict__ val,
+                     const float* __restrict__ g,
+                     const int* __restrict__ arg, float* __restrict__ out,
+                     int N, int K) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (c >= N) return;  // uniform across the warp
+  const int k0 = blockIdx.y * (32 * KPL) + lane;
+
+  float acc[KPL];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) acc[j] = 0.f;
+
+  const int start = colptr[c];
+  const int end = colptr[c + 1];
+  for (int base = start; base < end; base += 32) {
+    const int n = min(32, end - base);
+    int my_r = 0, my_e = -1;
+    float my_v = 1.f;
+    if (lane < n) {
+      my_r = csc_row[base + lane];
+      my_e = csr2csc[base + lane];
+      if (HAS_VAL) my_v = val[my_e];
+    }
+    for (int t = 0; t < n; ++t) {
+      const int r = __shfl_sync(kFullMask, my_r, t);
+      const int e = __shfl_sync(kFullMask, my_e, t);
+      const float v = __shfl_sync(kFullMask, my_v, t);
+      const int* __restrict__ ar = arg + (int64_t)r * K;
+      const float* __restrict__ gr = g + (int64_t)r * K;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const int k = k0 + 32 * j;
+        if (k < K && __ldg(ar + k) == e) {
+          acc[j] = fmaf(v, __ldg(gr + k), acc[j]);
+        }
+      }
+    }
+  }
+
+  float* __restrict__ orow = out + (int64_t)c * K;
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int k = k0 + 32 * j;
+    if (k < K) orow[k] = acc[j];
+  }
+}
+
+int kpl_for(int K) { return K <= 32 ? 1 : K <= 64 ? 2 : K <= 128 ? 4 : 8; }
+
+template <typename T, int KPL, bool HAS_VAL>
+void launch_minmax(bool is_min, const int* rowptr, const int* col,
+                   const void* val, const void* x, void* out, int* arg, int M,
+                   int K, int E, cudaStream_t stream) {
+  const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                  (K + 32 * KPL - 1) / (32 * KPL));
+  const T* v = static_cast<const T*>(val);
+  const T* xp = static_cast<const T*>(x);
+  T* op = static_cast<T*>(out);
+  if (is_min) {
+    csr_minmax_kernel<T, KPL, HAS_VAL, true>
+        <<<grid, kWarpsPerBlock * 32, 0, stream>>>(rowptr, col, v, xp, op,
+                                                    arg, M, K, E);
+  } else {
+    csr_minmax_kernel<T, KPL, HAS_VAL, false>
+        <<<grid, kWarpsPerBlock * 32, 0, stream>>>(rowptr, col, v, xp, op,
+                                                    arg, M, K, E);
+  }
+}
+
+template <typename T, int KPL>
+void launch_minmax_kpl(bool is_min, const int* rowptr, const int* col,
+                       const void* val, const void* x, void* out, int* arg,
+                       int M, int K, int E, cudaStream_t stream) {
+  if (val != nullptr) {
+    launch_minmax<T, KPL, true>(is_min, rowptr, col, val, x, out, arg, M, K,
+                                E, stream);
+  } else {
+    launch_minmax<T, KPL, false>(is_min, rowptr, col, val, x, out, arg, M, K,
+                                 E, stream);
+  }
+}
+
+template <typename T>
+void launch_minmax_type(bool is_min, const int* rowptr, const int* col,
+                        const void* val, const void* x, void* out, int* arg,
+                        int M, int K, int E, cudaStream_t stream) {
+  switch (kpl_for(K)) {
+    case 1:
+      launch_minmax_kpl<T, 1>(is_min, rowptr, col, val, x, out, arg, M, K, E,
+                              stream);
+      break;
+    case 2:
+      launch_minmax_kpl<T, 2>(is_min, rowptr, col, val, x, out, arg, M, K, E,
+                              stream);
+      break;
+    case 4:
+      launch_minmax_kpl<T, 4>(is_min, rowptr, col, val, x, out, arg, M, K, E,
+                              stream);
+      break;
+    default:
+      launch_minmax_kpl<T, 8>(is_min, rowptr, col, val, x, out, arg, M, K, E,
+                              stream);
+  }
+}
+
+template <int KPL>
+void launch_edge_dot(const int* rowptr, const int* col, const float* x,
+                     const float* g, const int* arg, float* out, int M, int K,
+                     cudaStream_t stream) {
+  const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  minmax_edge_dot_kernel<KPL><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      rowptr, col, x, g, arg, out, M, K);
+}
+
+template <int KPL>
+void launch_spmm_t(const int* colptr, const int* csc_row, const int* csr2csc,
+                   const float* val, const float* g, const int* arg,
+                   float* out, int N, int K, cudaStream_t stream) {
+  const dim3 grid((N + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                  (K + 32 * KPL - 1) / (32 * KPL));
+  if (val != nullptr) {
+    minmax_spmm_t_kernel<KPL, true><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+        colptr, csc_row, csr2csc, val, g, arg, out, N, K);
+  } else {
+    minmax_spmm_t_kernel<KPL, false><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+        colptr, csc_row, csr2csc, val, g, arg, out, N, K);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 float32, 1 float16, 2 bfloat16 (x, val and out share it).
+// rowptr (M+1) int32, col (E) int32, val (E) or NULL for implicit ones,
+// x (N, K) row-major, out (M, K) row-major, arg (M, K) int32 row-major.
+int csr_spmm_minmax(int device, int dtype, int is_min, const void* rowptr,
+                    const void* col, const void* val, const void* x,
+                    void* out, void* arg, int M, int K, int E, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (M <= 0 || K <= 0) return 0;
+  if ((K + 255) / 256 > 65535) return (int)cudaErrorInvalidValue;
+  const int* rp = static_cast<const int*>(rowptr);
+  const int* ci = static_cast<const int*>(col);
+  int* ap = static_cast<int*>(arg);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool mn = is_min != 0;
+  switch (dtype) {
+    case 0:
+      launch_minmax_type<float>(mn, rp, ci, val, x, out, ap, M, K, E, s);
+      break;
+    case 1:
+      launch_minmax_type<__half>(mn, rp, ci, val, x, out, ap, M, K, E, s);
+      break;
+    case 2:
+      launch_minmax_type<__nv_bfloat16>(mn, rp, ci, val, x, out, ap, M, K, E,
+                                        s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// rowptr (M+1) int32, col (E) int32, x (N, K) float32, g (M, K) float32,
+// arg (M, K) int32, out (E) float32; all row-major.
+int minmax_edge_dot_f32(int device, const void* rowptr, const void* col,
+                        const void* x, const void* g, const void* arg,
+                        void* out, int M, int K, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (M <= 0) return 0;
+  const int* rp = static_cast<const int*>(rowptr);
+  const int* ci = static_cast<const int*>(col);
+  const float* xp = static_cast<const float*>(x);
+  const float* gp = static_cast<const float*>(g);
+  const int* ap = static_cast<const int*>(arg);
+  float* op = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K <= 32) {
+    launch_edge_dot<1>(rp, ci, xp, gp, ap, op, M, K, s);
+  } else if (K <= 64) {
+    launch_edge_dot<2>(rp, ci, xp, gp, ap, op, M, K, s);
+  } else if (K <= 128) {
+    launch_edge_dot<4>(rp, ci, xp, gp, ap, op, M, K, s);
+  } else if (K <= 256) {
+    launch_edge_dot<8>(rp, ci, xp, gp, ap, op, M, K, s);
+  } else {
+    launch_edge_dot<0>(rp, ci, xp, gp, ap, op, M, K, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// colptr (N+1) int32, csc_row and csr2csc (E) int32 in CSC order, val (E)
+// float32 in CSR order or NULL for implicit ones, g (M, K) float32,
+// arg (M, K) int32, out (N, K) float32; all row-major.
+int minmax_spmm_t_f32(int device, const void* colptr, const void* csc_row,
+                      const void* csr2csc, const void* val, const void* g,
+                      const void* arg, void* out, int N, int K,
+                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (N <= 0 || K <= 0) return 0;
+  if ((K + 255) / 256 > 65535) return (int)cudaErrorInvalidValue;
+  const int* cp = static_cast<const int*>(colptr);
+  const int* cr = static_cast<const int*>(csc_row);
+  const int* pe = static_cast<const int*>(csr2csc);
+  const float* v = static_cast<const float*>(val);
+  const float* gp = static_cast<const float*>(g);
+  const int* ap = static_cast<const int*>(arg);
+  float* op = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kpl_for(K)) {
+    case 1:
+      launch_spmm_t<1>(cp, cr, pe, v, gp, ap, op, N, K, s);
+      break;
+    case 2:
+      launch_spmm_t<2>(cp, cr, pe, v, gp, ap, op, N, K, s);
+      break;
+    case 4:
+      launch_spmm_t<4>(cp, cr, pe, v, gp, ap, op, N, K, s);
+      break;
+    default:
+      launch_spmm_t<8>(cp, cr, pe, v, gp, ap, op, N, K, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+const char* kernel_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -3,7 +3,12 @@ from .block_spmm import (  # noqa
 )
 from .csr_spmm import csr_spmm, csr_spmm_plain  # noqa
 from .edge_dot import edge_dot, edge_dot_plain  # noqa
+from .edge_softmax import edge_softmax, edge_softmax_plain  # noqa
 from .hybrid import (  # noqa
     DenseFormat, HybridFormat, build_dense, build_hybrid, dense_spmm,
     dense_spmm_t, hybrid_spmm, hybrid_spmm_t,
+)
+from .spmm_minmax import (  # noqa
+    csr_spmm_minmax, csr_spmm_minmax_plain, minmax_edge_dot,
+    minmax_edge_dot_plain, minmax_spmm_t, minmax_spmm_t_plain,
 )

@@ -10,6 +10,15 @@ Half-precision operands (float16, bfloat16) compute in float32 and
 return their own dtype.  3-D operands ``(batch, N, K)`` take the CSR
 route, as in the JAX package.
 
+``min``/``max`` (:func:`spmm_min`, :func:`spmm_max`) bypass the router,
+as in the JAX package: they run the ``csr_spmm_minmax`` kernel and
+return ``(out, arg)`` with the argout contract of
+``ops/kernels/spmm_minmax.py`` (first CSR edge on ties, sentinel
+``arg == E`` on empty rows).  Half operands compare in their own dtype.
+Their gradients flow only through the argout: ``minmax_edge_dot`` for
+``value`` and ``minmax_spmm_t`` over the cached CSC view for the
+operand.
+
 Gradients follow the JAX package's contract (after the reference's
 ``csrc/spmm.cpp:88-112``): they flow to ``value`` and to the dense
 operand, never to the indices;
@@ -34,6 +43,9 @@ from ..tensor import SparseTensor
 from .kernels.csr_spmm import csr_spmm
 from .kernels.edge_dot import edge_dot
 from .kernels.hybrid import hybrid_spmm, hybrid_spmm_t
+from .kernels.spmm_minmax import (
+    csr_spmm_minmax, minmax_edge_dot, minmax_spmm_t,
+)
 
 _HALF = (torch.float16, torch.bfloat16)
 
@@ -155,13 +167,66 @@ def spmm_mean(src: SparseTensor, other: torch.Tensor) -> torch.Tensor:
     return out / deg[:, None]
 
 
-def _minmax_missing(*_):
-    raise NotImplementedError(
-        "spmm min/max are not ported yet (ROADMAP.md, kernel K6)")
+class _CsrMinMax(torch.autograd.Function):
+    """Min or max of ``A @ mat`` on the CSR route (kernel
+    ``csr_spmm_minmax``), with its argout.  Backward routes the gradient
+    through the argout: ``grad_value`` by ``minmax_edge_dot``,
+    ``grad_mat`` by ``minmax_spmm_t`` over the cached CSC view, each only
+    when asked for.  Both compute in float32 with ``value`` rounded to
+    ``mat``'s dtype, as the forward used it."""
+
+    @staticmethod
+    def forward(ctx, st: SparseStorage, value, mat, is_min: bool):
+        out, arg = csr_spmm_minmax(st.rowptr(), st.col(), value, mat, is_min)
+        ctx.mark_non_differentiable(arg)
+        ctx.st = st
+        ctx.value_dtype = None if value is None else value.dtype
+        ctx.save_for_backward(value if ctx.needs_input_grad[2] else None,
+                              mat if ctx.needs_input_grad[1] else None, arg)
+        return out, arg
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad, _grad_arg):
+        value, mat, arg = ctx.saved_tensors
+        st = ctx.st
+        g = grad.float().contiguous()
+        grad_value = grad_mat = None
+        if ctx.needs_input_grad[1]:
+            grad_value = minmax_edge_dot(
+                st.rowptr(), st.col(), mat.float().contiguous(), g,
+                arg).to(ctx.value_dtype)
+        if ctx.needs_input_grad[2]:
+            v = None if value is None else (
+                value.to(grad.dtype).float().contiguous())
+            grad_mat = minmax_spmm_t(st.colptr(), st.csc_row(), st.csr2csc(),
+                                     v, g, arg).to(grad.dtype)
+        return None, grad_value, grad_mat, None
 
 
-spmm_min = _minmax_missing
-spmm_max = _minmax_missing
+def _spmm_minmax(src: SparseTensor, other: torch.Tensor, is_min: bool):
+    _check_operands(src, other)
+    st = src.storage
+    if other.dim() == 3:
+        # (batch, N, K) -> (N, batch*K), as spmm_sum does.
+        bt, n, k = other.shape
+        x2 = other.permute(1, 0, 2).reshape(n, bt * k)
+        out, arg = _CsrMinMax.apply(st, st.value(), x2.contiguous(), is_min)
+        return (out.reshape(-1, bt, k).permute(1, 0, 2),
+                arg.reshape(-1, bt, k).permute(1, 0, 2))
+    return _CsrMinMax.apply(st, st.value(), other.contiguous(), is_min)
+
+
+def spmm_min(src: SparseTensor, other: torch.Tensor):
+    """``(out, arg)``: the row-wise minimum of ``value[e] * other[col e]``
+    and the first CSR edge that reaches it (``arg == E`` on empty
+    rows)."""
+    return _spmm_minmax(src, other, True)
+
+
+def spmm_max(src: SparseTensor, other: torch.Tensor):
+    """``(out, arg)``: the row-wise maximum, as :func:`spmm_min`."""
+    return _spmm_minmax(src, other, False)
 
 
 def spmm(src: SparseTensor, other: torch.Tensor, reduce: str = "sum"):
@@ -170,8 +235,10 @@ def spmm(src: SparseTensor, other: torch.Tensor, reduce: str = "sum"):
         return spmm_sum(src, other)
     if reduce == "mean":
         return spmm_mean(src, other)
-    if reduce in ("min", "max"):
-        _minmax_missing()
+    if reduce == "min":
+        return spmm_min(src, other)[0]
+    if reduce == "max":
+        return spmm_max(src, other)[0]
     raise ValueError(f"Unknown reduce mode: {reduce!r}")
 
 

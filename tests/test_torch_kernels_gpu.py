@@ -15,7 +15,9 @@ import torch
 import pytorch_sparse_tpu_torch as pts
 from pytorch_sparse_tpu_torch.ops.kernels import (
     block_spmm, block_spmm_plain, block_spmm_t, block_spmm_t_plain, csr_spmm,
-    csr_spmm_plain, edge_dot, edge_dot_plain)
+    csr_spmm_minmax, csr_spmm_minmax_plain, csr_spmm_plain, edge_dot,
+    edge_dot_plain, edge_softmax, edge_softmax_plain, minmax_edge_dot,
+    minmax_edge_dot_plain, minmax_spmm_t, minmax_spmm_t_plain)
 from pytorch_sparse_tpu_torch.ops.kernels import hybrid as phyb
 from pytorch_sparse_tpu_torch.testing import rel_err
 
@@ -146,4 +148,150 @@ def test_routed_spmm_matches_cpu(M, budget):
             assert A.storage.has_hybrid()
     finally:
         phyb.set_store_budget(0.0)
+    assert rel_err(outs[1], outs[0]) <= 1e-5
+
+
+def _minmax_case(case, M, N, K, seed):
+    """A CUDA matrix and operand for the min/max kernels: ``random``
+    (N(0, 1)), ``ties`` (small integers, so most extremes tie),
+    ``inf`` (a fifth of the operand -inf, some +inf), ``nan`` (2% NaN)
+    and ``empty`` (half the rows empty)."""
+    rng = np.random.RandomState(seed)
+    E = 8 * M
+    row = rng.randint(0, M // 2 if case == "empty" else M, E)
+    col = rng.randint(0, N, E)
+    x = rng.randn(N, K).astype(np.float32)
+    val = rng.randn(E).astype(np.float32)
+    if case == "ties":
+        x = rng.randint(-2, 3, (N, K)).astype(np.float32)
+        val = rng.randint(-2, 3, E).astype(np.float32)
+    elif case == "inf":
+        x[rng.rand(N, K) < 0.2] = -np.inf
+        x[rng.rand(N, K) < 0.02] = np.inf
+    elif case == "nan":
+        x[rng.rand(N, K) < 0.02] = np.nan
+    A = pts.SparseTensor(row=row, col=col, value=val, sparse_sizes=(M, N))
+    return A, torch.from_numpy(x).cuda()
+
+
+def _same(got, ref, rtol=0.0):
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=0.0 if rtol == 0
+                               else rtol * float(ref.nan_to_num(
+                                   0.0, 0.0, 0.0).abs().max()),
+                               equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "ties", "inf", "nan", "empty"])
+@pytest.mark.parametrize("K", [40, 128, 300])
+def test_minmax_kernels_match_plain_versions_on_gpu(case, K):
+    """K6 (out and arg exactly) and both backward kernels (to 1e-5 of
+    max |ref|, NaN where the plain version has NaN) against their plain
+    versions, with values and implicit ones, min and max."""
+    _need_gpu()
+    M, N = 2000, 1500
+    A, x = _minmax_case(case, M, N, K, 30)
+    rowptr, col, val = A.csr()
+    st = A.storage
+    g = torch.from_numpy(_x(31, M, K)).cuda()
+    for vv in (val, None):
+        for is_min in (True, False):
+            out, arg = csr_spmm_minmax(rowptr, col, vv, x, is_min)
+            ref_out, ref_arg = csr_spmm_minmax_plain(rowptr, col, vv, x,
+                                                     is_min)
+            assert torch.equal(arg, ref_arg)
+            _same(out, ref_out)
+            _same(minmax_edge_dot(rowptr, col, x, g, arg),
+                  minmax_edge_dot_plain(rowptr, col, x, g, arg), 1e-5)
+            t_args = (st.colptr(), st.csc_row(), st.csr2csc(), vv, g, arg)
+            _same(minmax_spmm_t(*t_args), minmax_spmm_t_plain(*t_args), 1e-5)
+    if case == "empty":
+        assert bool((arg[M // 2:] == A.nnz()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("case", ["random", "ties"])
+def test_minmax_kernel_half_operands_on_gpu(dtype, case):
+    """Half operands compare in their own dtype: out and arg equal the
+    plain version's exactly."""
+    _need_gpu()
+    A, x = _minmax_case(case, 1000, 800, 72, 32)
+    rowptr, col, val = A.csr()
+    xh = x.to(dtype)
+    for is_min in (True, False):
+        out, arg = csr_spmm_minmax(rowptr, col, val, xh, is_min)
+        ref_out, ref_arg = csr_spmm_minmax_plain(rowptr, col, val, xh, is_min)
+        assert out.dtype == dtype and torch.equal(arg, ref_arg)
+        assert torch.equal(out, ref_out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [1, 3, 8, 32, 40])
+def test_edge_softmax_matches_plain_on_gpu(H):
+    """K8 against its plain version (1e-5 of max |ref|; NaN on a row-head
+    whose logits are all -inf, in both), on a matrix with empty rows and
+    one row of 3,000 edges; a CUDA logits that requires grad raises."""
+    _need_gpu()
+    rng = np.random.RandomState(33)
+    M, E = 3000, 24_000
+    row = np.concatenate([rng.randint(0, M // 2, E), np.full(3000, 7)])
+    col = rng.randint(0, M, E + 3000)
+    A = pts.SparseTensor(row=row, col=col, sparse_sizes=(M, M))
+    rowptr = A.storage.rowptr()
+    logits = rng.randn(E + 3000, H).astype(np.float32) * 4
+    logits[rng.rand(E + 3000, H) < 0.1] = -np.inf
+    logits = torch.from_numpy(logits).cuda()
+    got = edge_softmax(rowptr, logits)
+    _same(got, edge_softmax_plain(rowptr, logits), 1e-5)
+    with pytest.raises(NotImplementedError, match="backward"):
+        edge_softmax(rowptr, logits.clone().requires_grad_(True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reduce", ["min", "max"])
+def test_minmax_api_matches_cpu(reduce):
+    """The public ``spmm_min``/``spmm_max`` and both gradients on the card
+    against the CPU's plain versions, for a 2-D and a 3-D operand."""
+    _need_gpu()
+    fn = pts.spmm_min if reduce == "min" else pts.spmm_max
+    for shape in ((1500, 48), (3, 1500, 20)):
+        res = []
+        for dev in ("cpu", "cuda"):
+            rng = np.random.RandomState(34)
+            A = pts.SparseTensor(row=rng.randint(0, 2000, 16_000),
+                                 col=rng.randint(0, 1500, 16_000),
+                                 value=rng.randn(16_000).astype(np.float32),
+                                 sparse_sizes=(2000, 1500), device=dev)
+            v = A.storage.value().clone().requires_grad_(True)
+            x = torch.from_numpy(_x(35, *shape)).to(dev).requires_grad_(True)
+            out, arg = fn(A.set_value(v, layout="coo"), x)
+            gout = torch.from_numpy(_x(36, *out.shape)).to(dev)
+            gv, gx = torch.autograd.grad(out, (v, x), gout)
+            res.append([t.detach().cpu() for t in (out, arg, gv, gx)])
+        (o0, a0, gv0, gx0), (o1, a1, gv1, gx1) = res
+        assert torch.equal(a1, a0) and torch.equal(o1, o0)
+        assert rel_err(gv1, gv0) <= 1e-5 and rel_err(gx1, gx0) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_gat_inference_matches_cpu():
+    """GAT inference on the card (edge_softmax twice, csr_spmm once per
+    head and once for the output layer) against the CPU."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.models import GAT
+
+    rng = np.random.RandomState(37)
+    row, col = rng.randint(0, 2500, 20_000), rng.randint(0, 2500, 20_000)
+    x = _x(38, 2500, 32)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        A = pts.SparseTensor(row=row, col=col, sparse_sizes=(2500, 2500),
+                             device=dev)
+        model = GAT(32, 8, 7, heads=8,
+                    generator=torch.Generator().manual_seed(1), device=dev)
+        edge_softmax.launches = csr_spmm.launches = 0
+        with torch.no_grad():
+            outs.append(model(A, torch.from_numpy(x).to(dev)).cpu())
+    assert (edge_softmax.launches, csr_spmm.launches) == (2, 9)
     assert rel_err(outs[1], outs[0]) <= 1e-5

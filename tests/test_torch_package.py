@@ -95,9 +95,12 @@ def test_spmm_refuses_grad_inputs():
 
 @pytest.mark.parametrize("reduce", ["min", "max"])
 def test_minmax_and_spspmm_not_ported_yet(reduce):
-    A = pts.SparseTensor(row=[0, 1], col=[1, 0], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spmm(A, torch.randn(2, 3), reduce)
+    """min/max now return the extreme (ported); SpSpMM still raises."""
+    A = pts.SparseTensor(row=[0, 1, 1], col=[1, 0, 1], device="cpu")
+    x = torch.tensor([[1.0, -2.0], [3.0, 4.0]])
+    want = {"min": [[3.0, 4.0], [1.0, -2.0]],
+            "max": [[3.0, 4.0], [3.0, 4.0]]}[reduce]
+    assert torch.equal(spmm(A, x, reduce), torch.tensor(want))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         A @ A
 
