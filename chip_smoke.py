@@ -24,7 +24,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    community hybrid and Reddit-10% graphs; ``minmax_edge_dot`` and
    ``minmax_spmm_t`` on the max argout of each f32 case;
    ``edge_softmax`` at 8 heads and 1 on the uniform graph with
-   self-loops and on the community hybrid graph.
+   self-loops and on the community hybrid graph.  ``plan_numeric`` on
+   the plan of ``A_g @ A_g`` (phase 5's normalised uniform graph times
+   itself) with f32 values, one side implicit ones and bf16 values, and
+   in both backward orderings; ``block_spgemm_window`` on the dense-block
+   x dense-block share (512x512 blocks of density 0.02, windows of 2048
+   output blocks) of the community hybrid graph (f32 and bf16 stores; 8
+   sampled output blocks also against float64 host products) and of the
+   Reddit-10% graph.
    Each is timed with CUDA events beside its plain version, a PyTorch
    library yardstick that the port never calls (none computes an
    argout), and its bound on an H100
@@ -70,14 +77,32 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ELU, one output head) at ogbn-arxiv width, 128 -> 8x8 -> 40, on the
    uniform graph with self-loops, held against the same weights run
    through the plain edge-softmax and CSR versions.
+8. SpSpMM and the Reddit pipeline.  8a: ``A_g @ A_g`` through the public
+   ``@``, its structure equal to scipy's product of the 0/1 patterns and
+   its values against scipy's float64 product; both value gradients from
+   a seeded ``grad_C`` against float64 host dots on 4096 random entries;
+   host structure seconds and device numeric ms reported apart.  8b: on
+   the Reddit-10% graph, ``t()``, ``A + A.t()``,
+   ``remove_diag().set_diag(ones)``, ``get_diag`` and ``spspmm_diag``
+   against scipy.  8c: ``spspmm_stream_device`` of a Reddit-10%-node
+   community graph at a tenth of the draws (1.5M nnz) with itself: the
+   float64 total of the pieces against ``colsum . rowsum`` (1e-6), head
+   + tail + 512 random rows against scipy's float64 product; then
+   ``block_spgemm_window`` on 8c's own windows and ``plan_numeric`` on
+   its own cross-term chunks against their plain versions (these cases
+   join the kernels' entries; their launches are not counted).  8c runs
+   at about 1/75 of Reddit's 115M nnz: the host structure pass of the
+   cross terms bounds it.
 
-The main path is phases 4, 4b, 4c, 5, 6 and 7, each driven once with
+The main path is phases 4, 4b, 4c, 5, 6, 7 and 8, each driven once with
 every launch count set to 0 just before it and read just after it.  Each
 phase must launch the kernels it runs (4: ``csr_spmm`` and
 ``block_spmm``; 4b: those and ``block_spmm_t`` and ``edge_dot``; 4c:
 ``csr_spmm_minmax``, ``minmax_edge_dot`` and ``minmax_spmm_t``, and no
 block kernel; 5 and 6: ``csr_spmm``; 7: ``edge_softmax`` twice and
-``csr_spmm`` once per head plus once), and the ``kernels`` line reports
+``csr_spmm`` once per head plus once; 8: ``plan_numeric`` three times in
+8a and in 8c's cross terms, ``block_spgemm_window`` in 8c and not in
+8a), and the ``kernels`` line reports
 each kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -109,6 +134,9 @@ REDDIT10 = (23_296, 16_000_000, 30)        # nodes, draws, communities
 HYBRID = (232_965, 16_000_000, 200)
 GCN_WIDTHS = (128, 256, 40, 3)             # in, hidden, out, layers
 GAT_WIDTHS = (128, 8, 8, 40)               # in, heads, per-head, out
+SPGEMM_SMALL = (23_296, 1_600_000, 30)     # nodes, draws, communities
+SPGEMM_BB, SPGEMM_DENSITY = 512, 0.02      # block split of the SpGEMM legs
+SPGEMM_WINDOW = 2048                       # output blocks per K10 window
 REPS = 20
 PLAIN_REPS = 5                 # the slower plain versions of slice 3
 
@@ -495,6 +523,172 @@ def kernel_entry(name, source, replaces, cases, library, shape):
     }
 
 
+def plan_numeric_bounds(n_x, n_y, T, n_out, elem, has_y):
+    """K9's bound: each input read once (the value arrays, the int32 term
+    indices and ``t_ptr``) and the output written once; a multiply and an
+    add a term (an add alone without ``y``)."""
+    nbytes = elem * n_x + 4 * T + 4 * (n_out + 1) + elem * n_out
+    if has_y:
+        nbytes += elem * n_y + 4 * T
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = (2 if has_y else 1) * T / FP32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def block_spgemm_bounds(torch, blocks, n_pairs, n_out):
+    """K10's bound over one block product of a store with itself: the
+    store read once, the pair schedule read and the ``(n_out, Bb, Bb)``
+    f32 output written once; ``2 Bb^3`` flops a pair at the FP32 rate for
+    f32 blocks, at the bf16 tensor-core rate for bf16 blocks (whose
+    products are exact in an f32 accumulator)."""
+    Bb = blocks.shape[1]
+    nbytes = blocks.numel() * blocks.element_size() \
+        + 4 * (2 * n_pairs + n_out + 1) + 4 * n_out * Bb * Bb
+    rate = (BF16_FLOPS_PER_S if blocks.dtype == torch.bfloat16
+            else FP32_FLOPS_PER_S)
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, 2 * Bb ** 3 * n_pairs / rate
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def entry_positions(rowC, colC, P, rows, cols):
+    """Positions of the ``(rows, cols)`` entries in a (row, col)-sorted
+    structure of ``P`` columns, -1 where absent."""
+    key = rowC.astype(np.int64) * P + colC
+    q = rows.astype(np.int64) * P + cols
+    pos = np.searchsorted(key, q)
+    pos_c = np.minimum(pos, max(key.size - 1, 0))
+    hit = (pos < key.size) & (key[pos_c] == q) if key.size else pos < 0
+    return np.where(hit, pos_c, -1)
+
+
+def _expand_runs(starts, lens):
+    """For runs ``[starts[i], starts[i] + lens[i])``: each element's run
+    index and position."""
+    ix = np.repeat(np.arange(lens.size), lens)
+    return ix, np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens,
+                                                 lens) + starts[ix]
+
+
+def spspmm_grad_oracle_check(A, B, C, gC, gA, gB, gate, seed=12,
+                             n_edges=4096):
+    """Both value gradients of ``C = A @ B`` against float64 host dots
+    over random entries: ``grad_valueA[e]`` sums ``gC[(i, j)] vB[(k, j)]``
+    over B's row ``k`` of ``e = (i, k)``, ``grad_valueB[b]`` sums
+    ``gC[(i, j)] vA[(i, k)]`` over A's column ``k`` of ``b = (k, j)``.
+    Returns (ok, err_a, err_b)."""
+    P = B.sparse_size(1)
+    rowC, colC = C.storage.numpy_view("row"), C.storage.numpy_view("col")
+    g = gC.detach().double().cpu().numpy()
+    vA = A.storage.value().detach().double().cpu().numpy()
+    vB = B.storage.value().detach().double().cpu().numpy()
+    rowA, colA = A.storage.numpy_view("row"), A.storage.numpy_view("col")
+    rowB, colB = B.storage.numpy_view("row"), B.storage.numpy_view("col")
+    rng = np.random.RandomState(seed)
+    e = rng.randint(0, A.nnz(), n_edges)
+    rpB = B.storage.numpy_view("rowptr")
+    ix, b = _expand_runs(rpB[colA[e]], rpB[colA[e] + 1] - rpB[colA[e]])
+    pos_a = entry_positions(rowC, colC, P, rowA[e][ix], colB[b])
+    ref_a = np.bincount(ix, weights=g[pos_a] * vB[b], minlength=n_edges)
+    bb = rng.randint(0, B.nnz(), n_edges)
+    cpA, perm = A.storage.numpy_view("colptr"), A.storage.numpy_view(
+        "csr2csc")
+    k = rowB[bb]
+    ix, p = _expand_runs(cpA[k], cpA[k + 1] - cpA[k])
+    a = perm[p]
+    pos_b = entry_positions(rowC, colC, P, rowA[a], colB[bb][ix])
+    ref_b = np.bincount(ix, weights=g[pos_b] * vA[a], minlength=n_edges)
+    if (pos_a < 0).any() or (pos_b < 0).any():
+        return False, float("inf"), float("inf")
+    errs = []
+    for got, idx, ref in ((gA, e, ref_a), (gB, bb, ref_b)):
+        got = got.detach().double().cpu().numpy()[idx]
+        errs.append(float(np.abs(got - ref).max() / (np.abs(ref).max()
+                                                     + 1e-6)))
+    return max(errs) <= gate, errs[0], errs[1]
+
+
+def scipy_csr(sp, A, values=True):
+    """``A`` as a float64 scipy CSR matrix (its values, or ones)."""
+    v = (A.storage.value().detach().double().cpu().numpy() if values
+         else np.ones(A.nnz()))
+    return sp.csr_matrix((v, (A.storage.numpy_view("row"),
+                              A.storage.numpy_view("col"))),
+                         shape=A.sparse_sizes())
+
+
+def csr_against(T, pattern, ref):
+    """``T``'s structure against the scipy matrix ``pattern`` (exactly)
+    and its values against ``ref`` looked up on that structure (absent
+    entries count 0; scipy drops exact zeros, the port keeps them).
+    Returns (same_structure, max_rel_err)."""
+    pattern = pattern.tocsr()
+    pattern.sort_indices()
+    rp, col = T.storage.numpy_view("rowptr"), T.storage.numpy_view("col")
+    same = (np.array_equal(rp, pattern.indptr)
+            and np.array_equal(col, pattern.indices))
+    if not same:
+        return False, float("inf")
+    ref = ref.tocsr()
+    ref.sort_indices()
+    want = np.zeros(col.size)
+    rows = np.repeat(np.arange(ref.shape[0]), np.diff(ref.indptr))
+    pos = entry_positions(T.storage.numpy_view("row"), col, T.sparse_size(1),
+                          rows, ref.indices)
+    if (pos < 0).any():
+        return False, float("inf")
+    want[pos] = ref.data
+    got = T.storage.value().detach().double().cpu().numpy()
+    return True, float(np.abs(got - want).max()
+                       / (np.abs(want).max() + 1e-30))
+
+
+def stream_pieces_check(torch, sp, A, pieces, Bb, seed=13, n_random=512):
+    """The pieces of ``spspmm_stream_device(A, A)`` summed: their float64
+    total against ``colsum(A) . rowsum(A)``, and head + tail + random
+    rows against scipy's float64 product.  Returns (checksum_rel_err,
+    rows_rel_err, n_block_pieces, n_coo_pieces)."""
+    M, P = A.sparse_size(0), A.sparse_size(1)
+    S = scipy_csr(sp, A)
+    rng = np.random.RandomState(seed)
+    rows = np.unique(np.concatenate([
+        np.arange(min(256, M)), np.arange(max(0, M - 256), M),
+        rng.randint(0, M, n_random)]))
+    where = np.full(M, -1)
+    where[rows] = np.arange(rows.size)
+    got = np.zeros((rows.size, P))
+    total = 0.0
+    n_blk = n_coo = 0
+    for piece in pieces:
+        if piece[0] == "blocks":
+            _, brow, bcol, cblk = piece
+            total += float(cblk.double().sum())
+            n_blk += 1
+            for t in range(brow.size):
+                r0, c0 = int(brow[t]) * Bb, int(bcol[t]) * Bb
+                loc = np.flatnonzero(where[r0:min(r0 + Bb, M)] >= 0)
+                if loc.size == 0:
+                    continue
+                w = min(Bb, P - c0)
+                got[where[r0 + loc], c0:c0 + w] += cblk[t][
+                    torch.from_numpy(loc).to(cblk.device)][:, :w].double(
+                ).cpu().numpy()
+        else:
+            _, lo, hi, blk = piece
+            n_coo += 1
+            r = blk.storage.numpy_view("row") + lo
+            c = blk.storage.numpy_view("col")
+            v = blk.storage.value().detach().double().cpu().numpy()
+            total += float(v.sum())
+            sel = where[r] >= 0
+            np.add.at(got, (where[r[sel]], c[sel]), v[sel])
+    check = float(np.asarray(S.sum(axis=0)).ravel()
+                  @ np.asarray(S.sum(axis=1)).ravel())
+    ref = (S[rows] @ S).toarray()
+    return (abs(total - check) / abs(check),
+            float(np.abs(got - ref).max() / np.abs(ref).max()), n_blk,
+            n_coo)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -514,7 +708,12 @@ def main(argv=None) -> int:
         csr_spmm, csr_spmm_minmax, csr_spmm_minmax_plain, csr_spmm_plain,
         edge_dot, edge_dot_plain, edge_softmax, edge_softmax_plain,
         minmax_edge_dot, minmax_edge_dot_plain, minmax_spmm_t,
-        minmax_spmm_t_plain)
+        minmax_spmm_t_plain, block_spgemm_plan, block_spgemm_stream,
+        block_spgemm_window, block_spgemm_window_plain, block_spgemm_windows,
+        plan_numeric, plan_numeric_plain)
+    from pytorch_sparse_tpu_torch.ops.matmul import _Plan
+    from pytorch_sparse_tpu_torch.ops.spgemm import (
+        PLAN_MAX_TERMS, _block_split, _dense_part, _row_chunks)
     from pytorch_sparse_tpu_torch.ops.kernels.hybrid import (
         _PRECISION_PARTS, HybridFormat, get_block_precision,
         set_store_budget)
@@ -528,7 +727,9 @@ def main(argv=None) -> int:
                "block_spmm_t": block_spmm_t, "edge_dot": edge_dot,
                "csr_spmm_minmax": csr_spmm_minmax,
                "minmax_edge_dot": minmax_edge_dot,
-               "minmax_spmm_t": minmax_spmm_t, "edge_softmax": edge_softmax}
+               "minmax_spmm_t": minmax_spmm_t, "edge_softmax": edge_softmax,
+               "plan_numeric": plan_numeric,
+               "block_spgemm_window": block_spgemm_window}
 
     def record(phase, **kw):
         results["phases"].setdefault(phase, []).append(kw)
@@ -580,9 +781,13 @@ def main(argv=None) -> int:
     for A_ in (A_u, A_u1, A_h, A_r):  # the CSC views of min/max backward
         A_.storage.csc_row()
         A_.storage.colptr()
+    Ms, Es, ns = SPGEMM_SMALL
+    A_s = community_graph(Ms, Es, n_comm=ns, seed=1, equal_sizes=True,
+                          device=device)
     record("setup", seconds=round(time.time() - t0, 2),
            uniform_nnz=A_u.nnz(), reddit10_nnz=A_r.nnz(),
-           hybrid_nnz=A_h.nnz(), hybrid=repr(h32), gcn_gat_nnz=A_g.nnz())
+           hybrid_nnz=A_h.nnz(), hybrid=repr(h32), gcn_gat_nnz=A_g.nnz(),
+           spgemm_small_nnz=A_s.nnz())
 
     # ---- 3. kernels against their plain versions -------------------------
     t0 = time.time()
@@ -889,6 +1094,155 @@ def main(argv=None) -> int:
     except Exception:
         failures.append("phase 3 (min/max and softmax kernels): "
                         + traceback.format_exc())
+
+    # plan_numeric (K9) on the A_g @ A_g plan: the forward with f32
+    # values, with one side implicit ones and with bf16 values, and both
+    # backward orderings (grad_C through each term's output entry, the
+    # terms re-sorted by A entry and by B entry).  The yardstick is
+    # cuSPARSE's whole product of the two CSR tensors, structure included.
+    try:
+        t1 = time.time()
+        plan_g = _Plan(A_g, A_g)
+        plan_host_s = time.time() - t1
+        vg = A_g.storage.value()
+        a_pos, b_pos, t_ptr = (plan_g.dev(n) for n in ("a_pos", "b_pos",
+                                                       "t_ptr"))
+        T, n_out, E_g = a_pos.shape[0], plan_g.n_out, A_g.nnz()
+        grad_c = operand(torch, n_out, 1, 17, device)[:, 0].contiguous()
+        by_a, by_b = plan_g._by("a"), plan_g._by("b")
+        k9_cases = []
+        for label, pargs, shape in [
+            ("A_g @ A_g f32", (vg, a_pos, vg, b_pos, t_ptr), (E_g, E_g)),
+            ("A_g @ A_g one side None", (vg, a_pos, None, None, t_ptr),
+             (E_g, 0)),
+            ("A_g @ A_g bf16", (vg.bfloat16(), a_pos, vg.bfloat16(), b_pos,
+                                t_ptr), (E_g, E_g)),
+            ("backward: terms by A entry", (grad_c, by_a[0], vg, by_a[1],
+                                            by_a[2]), (n_out, E_g)),
+            ("backward: terms by B entry", (grad_c, by_b[0], vg, by_b[1],
+                                            by_b[2]), (n_out, E_g)),
+        ]:
+            got = plan_numeric(*pargs)
+            ref = plan_numeric_plain(*pargs)
+            sync()
+            n_o = pargs[4].shape[0] - 1
+            bound_ms, bound_by = plan_numeric_bounds(
+                shape[0], shape[1], T, n_o, pargs[0].element_size(),
+                pargs[2] is not None)
+            timing = {"ms": timer(lambda: plan_numeric(*pargs)),
+                      "plain_ms": plain_timer(
+                          lambda: plan_numeric_plain(*pargs)),
+                      "library_ms": None, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+            if label == "A_g @ A_g f32":
+                timing["structure_host_s"] = plan_host_s
+                try:
+                    # duplicate edges merged first: a CSR tensor must
+                    # not hold them (the same matrix, so the same product)
+                    S_g = torch.sparse_coo_tensor(
+                        torch.stack([A_g.storage.row().long(),
+                                     A_g.storage.col().long()]), vg,
+                        A_g.sizes()).coalesce().to_sparse_csr()
+                    lib_nnz = torch.sparse.mm(S_g, S_g)._nnz()
+                    timing["library_ms"] = timer(
+                        lambda: torch.sparse.mm(S_g, S_g))
+                    timing["library_nnz"] = int(lib_nnz)
+                    del S_g
+                except (RuntimeError, NotImplementedError) as exc:
+                    timing["library_missing"] = repr(exc)
+            k9_cases.append(kernel_case(torch, label, got, ref, failures,
+                                        "plan_numeric", **timing))
+            del got, ref
+        kernels.append(kernel_entry(
+            "plan_numeric", "plan_numeric.cu", "ops/matmul.py:606",
+            k9_cases, "torch.sparse.mm(csr, csr): the whole product, "
+            "structure included (cuSPARSE SpGEMM)",
+            f"A_g @ A_g: E={E_g} T={T} n_out={n_out} f32"))
+        del plan_g, by_a, by_b, grad_c, a_pos, b_pos, t_ptr
+    except Exception:
+        failures.append("phase 3 (plan_numeric): " + traceback.format_exc())
+
+    # block_spgemm_window (K10) on the D@D share of the community hybrid
+    # graph (f32 and bf16 stores) and of the Reddit-10% graph, in windows
+    # of SPGEMM_WINDOW output blocks; 8 sampled output blocks of the
+    # hybrid graph also against float64 host products of the same
+    # (for bf16, the rounded) operands.
+    try:
+        k10_cases = []
+        for label, A_ in [("community hybrid", A_h),
+                          ("community Reddit-10%", A_r)]:
+            blocks32, srow, scol = _block_split(A_, SPGEMM_BB,
+                                                SPGEMM_DENSITY)[:3]
+            bplan = block_spgemm_plan(srow, scol, srow, scol)
+            ai, bi, oseg, n_tot = bplan[0], bplan[1], bplan[2], len(bplan[3])
+            wins = [w[2:] for w in block_spgemm_windows(
+                bplan, SPGEMM_WINDOW, device)]
+            stores = [("f32 store", blocks32)]
+            if A_ is A_h:
+                stores.append(("bf16 store", blocks32.to(torch.bfloat16)))
+            for store, blocks in stores:
+                def run(fn, blocks=blocks):
+                    return [fn(blocks, blocks, *w) for w in wins]
+
+                def library(blocks=blocks):
+                    outs = []
+                    for a_, b_, sp_, n_ in wins:
+                        prod = torch.bmm(blocks[a_.long()].float(),
+                                         blocks[b_.long()].float())
+                        seg = torch.repeat_interleave(
+                            torch.arange(n_, device=device),
+                            sp_[1:] - sp_[:-1])
+                        out = torch.zeros((n_,) + prod.shape[1:],
+                                          device=device)
+                        outs.append(out.index_add_(0, seg, prod))
+                    return outs
+
+                got = torch.cat(run(block_spgemm_window))
+                ref = torch.cat(run(block_spgemm_window_plain))
+                sync()
+                bound_ms, bound_by = block_spgemm_bounds(
+                    torch, blocks, ai.shape[0], n_tot)
+                timing = {
+                    "ms": timer(lambda: run(block_spgemm_window)),
+                    "plain_ms": plain_timer(
+                        lambda: run(block_spgemm_window_plain)),
+                    "library_ms": plain_timer(library),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "blocks": int(blocks.shape[0]), "pairs": int(ai.shape[0]),
+                    "out_blocks": int(n_tot), "windows": len(wins)}
+                if A_ is A_h:
+                    # float64 host products of 8 sampled output blocks
+                    pick = np.random.RandomState(18).choice(n_tot, 8, False)
+                    worst = 0.0
+                    for o in pick:
+                        ps = np.flatnonzero(oseg == o)
+                        ha = blocks[torch.from_numpy(ai[ps]).to(
+                            device)].double().cpu().numpy()
+                        hb = blocks[torch.from_numpy(bi[ps]).to(
+                            device)].double().cpu().numpy()
+                        host = np.tensordot(ha, hb, axes=([0, 2], [0, 1]))
+                        diff = np.abs(got[o].double().cpu().numpy() - host)
+                        worst = max(worst, float(diff.max()
+                                                 / np.abs(host).max()))
+                    timing["host_f64_rel_err_8_blocks"] = worst
+                    if worst > KERNEL_GATE:
+                        failures.append(f"block_spgemm_window {label} "
+                                        f"{store}: {worst:.3g} against "
+                                        "float64 host products")
+                k10_cases.append(kernel_case(
+                    torch, f"{label} {store}", got, ref, failures,
+                    "block_spgemm_window", **timing))
+                del got, ref
+            del blocks32, stores, wins
+        kernels.append(kernel_entry(
+            "block_spgemm_window", "block_spgemm.cu",
+            "ops/kernels/block_spgemm.py:88", k10_cases,
+            "torch.bmm over the gathered pairs (f32, TF32 off) + "
+            "index_add_", f"community hybrid D@D: Bb={SPGEMM_BB} "
+            f"min_density={SPGEMM_DENSITY} f32 store"))
+    except Exception:
+        failures.append("phase 3 (block_spgemm_window): "
+                        + traceback.format_exc())
     record("kernel_phase", seconds=round(time.time() - t0, 2))
 
     # ---- 4, 4b, 5 and 6: the main path, with launch counts ---------------
@@ -957,6 +1311,7 @@ def main(argv=None) -> int:
         "5 GCN inference": ("csr_spmm",),
         "6 GCN training": ("csr_spmm",),
         "7 GAT inference": ("edge_softmax", "csr_spmm"),
+        "8 SpSpMM": ("plan_numeric", "block_spgemm_window"),
     }
     phase_launches = {}
 
@@ -1038,12 +1393,56 @@ def main(argv=None) -> int:
             losses.append(loss.item())
         return loss0.item(), grads0, losses, opt, tmodel, gen
 
+    def spspmm_pipeline():
+        """8a: ``A_g @ A_g`` through the public ``@`` and both value
+        gradients; 8b: the Reddit pipeline's structural ops on ``A_r``;
+        8c: ``spspmm_stream_device(A_s, A_s)`` with every piece.  Each
+        sub-phase keeps its results, host seconds and launch counts."""
+        def counts():
+            return {n: f.launches for n, f in counted.items()}
+
+        res = {}
+        t1 = time.time()
+        va = A_g.storage.value().detach().clone().requires_grad_(True)
+        vb = A_g.storage.value().detach().clone().requires_grad_(True)
+        Aa = A_g.set_value(va, layout="coo")
+        Ab = A_g.set_value(vb, layout="coo")
+        C = Aa @ Ab
+        sync()
+        product_s = time.time() - t1
+        gC = operand(torch, C.nnz(), 1, 19, device)[:, 0].contiguous()
+        gA, gB = torch.autograd.grad(C.storage.value(), (va, vb), gC)
+        sync()
+        res["8a"] = dict(C=C, Aa=Aa, Ab=Ab, va=va, vb=vb, gC=gC, gA=gA,
+                         gB=gB, product_s=product_s,
+                         with_grads_s=time.time() - t1, launches=counts())
+        t1 = time.time()
+        before = counts()
+        sym = A_r + A_r.t()
+        res["8b"] = dict(
+            t=A_r.t(), sym=sym,
+            diag_set=A_r.remove_diag().set_diag(torch.ones(Mr,
+                                                           device=device)),
+            get_diag=A_r.get_diag(), spspmm_diag=ts.spspmm_diag(A_r, A_r))
+        sync()
+        res["8b"].update(seconds=time.time() - t1, launches={
+            n: v - before[n] for n, v in counts().items()})
+        t1 = time.time()
+        before = counts()
+        pieces = list(ts.spspmm_stream_device(
+            A_s, A_s, Bb=SPGEMM_BB, min_density=SPGEMM_DENSITY))
+        sync()
+        res["8c"] = dict(pieces=pieces, seconds=time.time() - t1, launches={
+            n: v - before[n] for n, v in counts().items()})
+        return res
+
     outs = drive("4 forward legs", forward_legs) or []
     bwd_grads = drive("4b backward legs", backward_legs) or []
     mm_res = drive("4c min/max legs", minmax_legs) or []
     logits = drive("5 GCN inference", gcn_inference)
     train = drive("6 GCN training", gcn_training)
     gat_logits = drive("7 GAT inference", gat_inference)
+    spg = drive("8 SpSpMM", spspmm_pipeline)
     launches = {n: sum(c[n] for c in phase_launches.values())
                 for n in counted}
     record("main_path", seconds=round(time.time() - t0, 2),
@@ -1249,6 +1648,164 @@ def main(argv=None) -> int:
                 failures.append(f"GAT: finite={finite} shape="
                                 f"{gat_logits.shape} rel err vs plain "
                                 f"{rel_e:.3g}")
+
+    # ---- 8. SpSpMM and the Reddit pipeline: checks and times -------------
+    def add_cases(name, cases):
+        """Append compared cases to a kernel's entry of the kernels line;
+        its errors are the largest over all its cases."""
+        entry = next(k_ for k_ in kernels if k_["name"] == name)
+        entry["cases"].extend(cases)
+        for key in ("max_abs_err", "max_rel_err"):
+            entry[key] = max(c_[key] for c_ in entry["cases"])
+
+    def check_spspmm(spg):
+        import scipy.sparse as sp
+
+        # 8a: structure exactly scipy's product of the 0/1 patterns (scipy
+        # drops exact zeros of a weighted product; the port keeps every
+        # entry), values against scipy's float64 product, gradients
+        # against float64 host dots.  No block kernel may run.
+        a = spg["8a"]
+        C = a["C"]
+        S1, SW = scipy_csr(sp, A_g, values=False), scipy_csr(sp, A_g)
+        same, err_v = csr_against(C, S1 @ S1, SW @ SW)
+        ok_g, err_ga, err_gb = spspmm_grad_oracle_check(
+            a["Aa"], a["Ab"], C, a["gC"], a["gA"], a["gB"], GATE_F32)
+        finite = all(bool(torch.isfinite(t_).all()) for t_ in (
+            C.storage.value(), a["gA"], a["gB"]))
+        blk = {n: a["launches"][n] for n in ("block_spmm", "block_spmm_t",
+                                             "block_spgemm_window")}
+        t1 = time.time()
+        plan = _Plan(A_g, A_g)
+        host_s = time.time() - t1
+        va, vb, gC = a["va"], a["vb"], a["gC"]
+        with torch.no_grad():
+            numeric_ms = timer(lambda: plan.numeric(va, vb))
+        fb_ms = timer(lambda: torch.autograd.grad(plan.numeric(va, vb),
+                                                  (va, vb), gC))
+        record("spspmm", leg="8a A_g @ A_g (public @)", nnz=A_g.nnz(),
+               terms=int(plan.a_pos.shape[0]), nnz_out=C.nnz(),
+               structure_equal=same, value_rel_err=err_v,
+               grad_a_rel_err=err_ga, grad_b_rel_err=err_gb, gate=GATE_F32,
+               structure_host_s=host_s, numeric_ms=numeric_ms,
+               numeric_fwd_bwd_ms=fb_ms, product_host_s=a["product_s"],
+               product_with_grads_host_s=a["with_grads_s"],
+               launches=a["launches"], card=card)
+        if not (same and err_v <= GATE_F32 and ok_g and finite
+                and not any(blk.values())
+                and a["launches"]["plan_numeric"] == 3):
+            failures.append(f"8a A_g @ A_g: structure equal {same}, value "
+                            f"err {err_v:.3g}, grad errs {err_ga:.3g} / "
+                            f"{err_gb:.3g} (gate {GATE_F32}), finite "
+                            f"{finite}, block launches {blk}, plan_numeric "
+                            f"launches {a['launches']['plan_numeric']} "
+                            "(want 3)")
+        del plan, spg["8a"], a, C
+
+        # 8b: each op of the pipeline on A_r against scipy: t(), the
+        # diagonal edit and get_diag exactly, the sums to GATE_F32.
+        b = spg["8b"]
+        SR, SR1 = scipy_csr(sp, A_r), scipy_csr(sp, A_r, values=False)
+        rr, cr = A_r.storage.numpy_view("row"), A_r.storage.numpy_view("col")
+        off = rr != cr
+        eye = np.arange(Mr)
+        d_idx = (np.concatenate([rr[off], eye]),
+                 np.concatenate([cr[off], eye]))
+        errs = {}
+        errs["t()"] = csr_against(b["t"], SR1.T, SR.T)
+        errs["A + A.t()"] = csr_against(b["sym"], SR1 + SR1.T, SR + SR.T)
+        errs["remove_diag().set_diag(ones)"] = csr_against(
+            b["diag_set"], sp.csr_matrix((np.ones(d_idx[0].size), d_idx),
+                                         shape=SR.shape),
+            sp.csr_matrix((np.concatenate([
+                A_r.storage.value().double().cpu().numpy()[off],
+                np.ones(Mr)]), d_idx), shape=SR.shape))
+        dg = b["get_diag"].double().cpu().numpy()
+        errs["get_diag"] = (dg.shape == (Mr,), float(np.abs(
+            dg - SR.diagonal()).max()))
+        ref_sd = np.asarray(SR.multiply(SR.T).sum(axis=1)).ravel()
+        errs["spspmm_diag(A, A)"] = (True, float(np.abs(
+            b["spspmm_diag"].double().cpu().numpy() - ref_sd).max()
+            / np.abs(ref_sd).max()))
+        gates = {"t()": 0.0, "A + A.t()": GATE_F32,
+                 "remove_diag().set_diag(ones)": 0.0, "get_diag": 0.0,
+                 "spspmm_diag(A, A)": GATE_F32}
+        record("spspmm", leg="8b Reddit pipeline ops on A_r", nnz=A_r.nnz(),
+               rel_errs={k_: v_[1] for k_, v_ in errs.items()},
+               structure_equal={k_: v_[0] for k_, v_ in errs.items()},
+               gates=gates, host_s=b["seconds"], launches=b["launches"],
+               card=card)
+        for k_, (same_, err_) in errs.items():
+            if not (same_ and err_ <= gates[k_]):
+                failures.append(f"8b {k_}: structure equal {same_}, err "
+                                f"{err_:.3g} (gate {gates[k_]})")
+        del spg["8b"], b
+
+        # 8c: the pieces of the device block stream sum to A_s @ A_s.
+        c = spg["8c"]
+        ck_err, rows_err, n_blk, n_coo = stream_pieces_check(
+            torch, sp, A_s, c["pieces"], SPGEMM_BB)
+        del spg["8c"]["pieces"]
+        blocks_s, srow_s, scol_s, rem_s, dense_nnz, mask_s = _block_split(
+            A_s, SPGEMM_BB, SPGEMM_DENSITY)
+        block_ms = timer(lambda: list(block_spgemm_stream(
+            blocks_s, srow_s, scol_s, blocks_s, srow_s, scol_s,
+            max_out_blocks=SPGEMM_WINDOW)))
+        # The kernels against their plain versions on the inputs 8c gives
+        # them: the windows of A_s's block product, and the cross-term
+        # chunks A @ R_B and R_A @ D_B at the stream's own chunking.
+        bplan_s = block_spgemm_plan(srow_s, scol_s, srow_s, scol_s)
+        wins_s = [w[2:] for w in block_spgemm_windows(
+            bplan_s, SPGEMM_WINDOW, device)]
+        got = torch.cat([block_spgemm_window(blocks_s, blocks_s, *w)
+                         for w in wins_s])
+        ref = torch.cat([block_spgemm_window_plain(blocks_s, blocks_s, *w)
+                         for w in wins_s])
+        k10_8c = [kernel_case(
+            torch, "8c A_s D@D f32 store", got, ref, failures,
+            "block_spgemm_window", pairs=int(bplan_s[0].shape[0]),
+            windows=len(wins_s))]
+        add_cases("block_spgemm_window", k10_8c)
+        del got, ref, wins_s
+        k9_8c = []
+        for lab, L, R in [("8c A_s @ R_B", A_s, rem_s),
+                          ("8c R_A @ D_B", rem_s, _dense_part(A_s, mask_s))]:
+            rowptr_l, chunks = _row_chunks(L, R, PLAN_MAX_TERMS)
+            for lo, hi in chunks:
+                plan = _Plan(L, R, int(rowptr_l[lo]), int(rowptr_l[hi]))
+                pargs = (L.storage.value(), plan.dev("a_pos"),
+                         R.storage.value(), plan.dev("b_pos"),
+                         plan.dev("t_ptr"))
+                k9_8c.append(kernel_case(
+                    torch, f"{lab} rows [{lo}, {hi})", plan_numeric(*pargs),
+                    plan_numeric_plain(*pargs), failures, "plan_numeric",
+                    terms=int(plan.a_pos.shape[0]), n_out=plan.n_out))
+                del plan, pargs
+        add_cases("plan_numeric", k9_8c)
+        record("spspmm", leg="8c spspmm_stream_device(A_s, A_s)",
+               nnz=A_s.nnz(), terms=ts.expansion_terms(A_s, A_s),
+               dense_blocks=int(blocks_s.shape[0]),
+               block_pairs=int(bplan_s[0].shape[0]),
+               dense_edge_share=dense_nnz / A_s.nnz(), block_pieces=n_blk,
+               coo_pieces=n_coo, checksum_rel_err=ck_err,
+               rows_rel_err=rows_err, gates=[1e-6, GATE_F32],
+               host_s=c["seconds"], block_stream_ms=block_ms,
+               kernel_vs_plain=[{k_: v_ for k_, v_ in c_.items()
+                                 if k_ != "ok"} for c_ in k10_8c + k9_8c],
+               launches=c["launches"], card=card)
+        if not (ck_err <= 1e-6 and rows_err <= GATE_F32 and n_blk > 0
+                and n_coo > 0 and c["launches"]["block_spgemm_window"] > 0
+                and c["launches"]["plan_numeric"] > 0):
+            failures.append(f"8c stream: checksum err {ck_err:.3g} (gate "
+                            f"1e-6), rows err {rows_err:.3g} (gate "
+                            f"{GATE_F32}), {n_blk} block and {n_coo} coo "
+                            f"pieces, launches {c['launches']}")
+
+    if spg is not None:
+        try:
+            check_spspmm(spg)
+        except Exception:
+            failures.append("phase 8 checks: " + traceback.format_exc())
 
     results.update(kernels=kernels, launches=launches, failures=failures,
                    card=card)

@@ -5,7 +5,10 @@ It carries ``SparseStorage``/``SparseTensor`` with their caches; the
 routed SpMM (a hand-written CSR row kernel, a hand-written block-dense
 kernel, and the whole-matrix dense route) forward and backward; SpMM
 min/max with its argout, forward and backward; GCN inference and
-training; and GAT inference with a hand-written edge-softmax kernel.
+training; GAT inference with a hand-written edge-softmax kernel; SpSpMM
+(a hand-written plan-numeric kernel and block-pair kernel) with its
+chunked, streaming and block-split paths; and the structural ops of a
+SpSpMM pipeline (transpose, add, diagonal edits, the legacy tuple API).
 Names follow the JAX package.  Entry points run on ``cuda`` unless
 given ``device="cpu"``; the CPU runs each kernel's plain PyTorch
 version.
@@ -16,9 +19,12 @@ __version__ = "0.1.0"
 from .storage import SparseStorage  # noqa
 from .tensor import SparseTensor  # noqa
 from .ops import (  # noqa
-    spmm_sum, spmm_add, spmm_mean, spmm_min, spmm_max, matmul,
-    HybridFormat, DenseFormat, build_hybrid, build_dense, hybrid_spmm,
-    dense_spmm, remove_diag, set_diag, fill_diag,
+    spmm_sum, spmm_add, spmm_mean, spmm_min, spmm_max, spspmm_sum, matmul,
+    expansion_terms, spspmm_chunked, spspmm_stream, spspmm_diag,
+    spspmm_stream_device, HybridFormat, DenseFormat, build_hybrid,
+    build_dense, hybrid_spmm, dense_spmm, t, transpose, coalesce, spspmm,
+    spadd, add, add_, add_nnz, add_nnz_, remove_diag, set_diag, fill_diag,
+    get_diag,
 )
 from .utils import ind2ptr, ptr2ind  # noqa
 
@@ -30,6 +36,12 @@ __all__ = [
     "spmm_mean",
     "spmm_min",
     "spmm_max",
+    "spspmm_sum",
+    "expansion_terms",
+    "spspmm_chunked",
+    "spspmm_stream",
+    "spspmm_diag",
+    "spspmm_stream_device",
     "matmul",
     "HybridFormat",
     "DenseFormat",
@@ -37,9 +49,19 @@ __all__ = [
     "build_dense",
     "hybrid_spmm",
     "dense_spmm",
+    "t",
+    "transpose",
+    "coalesce",
+    "spspmm",
+    "spadd",
+    "add",
+    "add_",
+    "add_nnz",
+    "add_nnz_",
     "remove_diag",
     "set_diag",
     "fill_diag",
+    "get_diag",
     "ind2ptr",
     "ptr2ind",
     "__version__",

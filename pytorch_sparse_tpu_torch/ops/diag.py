@@ -123,8 +123,26 @@ def fill_diag(src: SparseTensor, fill_value: float, k: int = 0
     return set_diag(src, None, k)
 
 
+def get_diag(src: SparseTensor) -> torch.Tensor:
+    """The main diagonal, ``(min(M, N), ...)`` in the value's dtype
+    (float32 ones for implicit values); absent entries are 0."""
+    st = src.storage
+    value = st.value()
+    if value is None:
+        value = torch.ones(st.nnz(), dtype=torch.float32, device=st.device)
+    k = min(st.sparse_sizes())
+    out = value.new_zeros((k,) + tuple(value.shape[1:]))
+    hrow = st.numpy_view("row")
+    on_diag = np.flatnonzero(hrow == st.numpy_view("col"))
+    if on_diag.size:
+        idx = torch.from_numpy(on_diag).to(st.device)
+        out[torch.from_numpy(hrow[on_diag]).to(st.device)] = value[idx]
+    return out
+
+
 SparseTensor.remove_diag = lambda self, k=0: remove_diag(self, k)
 SparseTensor.set_diag = lambda self, values=None, k=0: set_diag(
     self, values, k)
 SparseTensor.fill_diag = lambda self, fill_value, k=0: fill_diag(
     self, fill_value, k)
+SparseTensor.get_diag = lambda self: get_diag(self)

@@ -1,9 +1,10 @@
-"""Sparse x dense matmul (SpMM) with autograd.
+"""Sparse x dense (SpMM) and sparse x sparse (SpSpMM) matmul with
+autograd.
 
-Counterpart of the SpMM half of ``pytorch_sparse_tpu/ops/matmul.py``
-(``spmm_sum``, ``spmm_mean``, ``spmm`` and ``matmul`` over dense
-operands).  Each call goes through the storage router: a cached or newly
-built :class:`HybridFormat`/:class:`DenseFormat` when the block-density
+Counterpart of ``pytorch_sparse_tpu/ops/matmul.py`` (``spmm_sum``,
+``spmm_mean``, ``spmm``, ``spspmm_sum`` and ``matmul``).  Each SpMM call
+goes through the storage router: a cached or newly built
+:class:`HybridFormat`/:class:`DenseFormat` when the block-density
 statistics say the block routes pay, else the CSR kernel.
 
 Half-precision operands (float16, bfloat16) compute in float32 and
@@ -31,18 +32,28 @@ divides by the row degree outside the autograd functions, so autograd
 folds ``1/deg`` into both gradients.  A backward computes only the
 gradients asked for, and is not itself differentiable (the kernels have
 no backward of their own).
+
+SpSpMM (``A @ B`` with a sparse ``B``) runs an eager host structure pass
+and a numeric pass on the ``plan_numeric`` kernel, whose backward gives
+both values their gradients with the same kernel; products past
+``ops.spgemm.PLAN_MAX_TERMS`` terms take the chunked plan.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..storage import SparseStorage
 from ..tensor import SparseTensor
+from ..utils.host_sort import stable_argsort
 from .kernels.csr_spmm import csr_spmm
 from .kernels.edge_dot import edge_dot
 from .kernels.hybrid import hybrid_spmm, hybrid_spmm_t
+from .kernels.plan_numeric import plan_numeric
 from .kernels.spmm_minmax import (
     csr_spmm_minmax, minmax_edge_dot, minmax_spmm_t,
 )
@@ -242,16 +253,229 @@ def spmm(src: SparseTensor, other: torch.Tensor, reduce: str = "sum"):
     raise ValueError(f"Unknown reduce mode: {reduce!r}")
 
 
+# ----------------------------------------------------------------------
+# SpSpMM (counterpart of the JAX package's ``matmul.py:497-668``): an
+# eager host structure pass, then a differentiable numeric pass on the
+# ``plan_numeric`` kernel.  Large products go through ``ops/spgemm.py``.
+# ----------------------------------------------------------------------
+
+# Terms per host sort in the structure pass (as the JAX package's).
+_SORT_CHUNK = 1 << 25
+
+
+def _expansion_degrees(colA: np.ndarray, rowptrB: np.ndarray) -> np.ndarray:
+    """Expansion terms of each A entry: ``deg_B(colA[e])`` (host int64)."""
+    return rowptrB[colA + 1] - rowptrB[colA]
+
+
+def _spspmm_structure(A: SparseTensor, B: SparseTensor, e_lo: int = 0,
+                      e_hi: Optional[int] = None):
+    """Expansion-pass structure of ``A @ B`` over the A entries
+    ``[e_lo, e_hi)`` (complete rows, for the output to be a row block of
+    C): for each A entry (i, k), every entry of B's row k.
+
+    Returns host int64 arrays ``(a_pos, b_pos, t_ptr, rowC, colC)``: the
+    A entry (absolute) and B entry of each product term, sorted by
+    output (row, col) and stably within it; the term pointer ``t_ptr``
+    (n_out + 1) of each output entry's contiguous run; and the output
+    structure.  The JAX package's bucket tables (``t_tabs``/``inv``),
+    which keep XLA:TPU scatter-free, are not built: ``t_ptr`` is all the
+    kernel reads.  Every term's entry is kept, also one whose values
+    cancel to zero."""
+    rowA = A.storage.numpy_view("row")
+    colA = A.storage.numpy_view("col")
+    if e_hi is None:
+        e_hi = rowA.shape[0]
+    rowA, colA = rowA[e_lo:e_hi], colA[e_lo:e_hi]
+    rowptrB = B.storage.numpy_view("rowptr")
+    colB = B.storage.numpy_view("col")
+
+    deg = _expansion_degrees(colA, rowptrB)
+    total = int(deg.sum())
+    a_pos = np.repeat(np.arange(colA.shape[0], dtype=np.int64), deg)
+    run_start = np.cumsum(deg) - deg
+    b_pos = rowptrB[colA[a_pos]] + (np.arange(total, dtype=np.int64)
+                                    - run_start[a_pos])
+    out_row = rowA[a_pos]
+    out_col = colB[b_pos]
+
+    # Sort by (row, col) as one int64 key.  The terms are row-major
+    # already (A is row-sorted), so each bounded chunk of complete rows
+    # sorts on its own: the same stable order, a bounded working set.
+    key = out_row * B.sparse_size(1) + out_col
+    if total > _SORT_CHUNK:
+        row_change = np.flatnonzero(
+            np.concatenate([[True], out_row[1:] != out_row[:-1]]))
+        order = np.empty(total, np.int64)
+        s = 0
+        while s < total:
+            e = min(s + _SORT_CHUNK, total)
+            if e < total:  # extend to the next complete-row boundary
+                ip = np.searchsorted(row_change, e)
+                e = int(row_change[ip]) if ip < row_change.size else total
+            order[s:e] = s + stable_argsort(key[s:e])
+            s = e
+    else:
+        order = stable_argsort(key)
+    key = key[order]
+    a_pos, b_pos = a_pos[order] + e_lo, b_pos[order]
+    new = np.ones(total, bool)
+    new[1:] = key[1:] != key[:-1]
+    t_start = np.flatnonzero(new)
+    t_ptr = np.append(t_start, total)
+    rowC, colC = out_row[order][t_start], out_col[order][t_start]
+    return a_pos, b_pos, t_ptr, rowC, colC
+
+
+class _Plan:
+    """One structure plan of ``A @ B`` (or of a row block of it) with its
+    index arrays on the operands' device, and the two backward orderings,
+    built on first use: the terms stably re-sorted by ``a_pos`` (or
+    ``b_pos``), each term's output entry, and the pointer over the A (or
+    B) entries."""
+
+    def __init__(self, A: SparseTensor, B: SparseTensor, e_lo: int = 0,
+                 e_hi: Optional[int] = None):
+        if e_hi is None:
+            e_hi = A.nnz()
+        self.a_pos, self.b_pos, self.t_ptr, self.rowC, self.colC = (
+            _spspmm_structure(A, B, e_lo, e_hi))
+        self.e_lo, self.e_hi = e_lo, e_hi
+        self.nnzA, self.nnzB = A.nnz(), B.nnz()
+        self.device = A.device()
+        self._dev = {}
+
+    @property
+    def n_out(self) -> int:
+        return int(self.rowC.shape[0])
+
+    def dev(self, name: str) -> torch.Tensor:
+        """The host array ``name`` as an int32 tensor on the device."""
+        if name not in self._dev:
+            self._dev[name] = torch.from_numpy(
+                getattr(self, name).astype(np.int32)).to(self.device)
+        return self._dev[name]
+
+    def _by(self, side: str):
+        """``(out_id, other_pos, ptr)`` of the terms stably sorted by
+        their ``side`` entry, with ``ptr`` over ``side``'s entries (A's
+        restricted to ``[e_lo, e_hi)``)."""
+        key = f"by_{side}"
+        if key not in self._dev:
+            pos, other = ((self.a_pos - self.e_lo, self.b_pos) if side == "a"
+                          else (self.b_pos, self.a_pos))
+            n = self.e_hi - self.e_lo if side == "a" else self.nnzB
+            perm = stable_argsort(pos)
+            out_id = np.repeat(np.arange(self.n_out, dtype=np.int64),
+                               np.diff(self.t_ptr))[perm]
+            ptr = np.concatenate([[0], np.cumsum(np.bincount(pos,
+                                                              minlength=n))])
+
+            def up(a):
+                return torch.from_numpy(a.astype(np.int32)).to(self.device)
+
+            self._dev[key] = (up(out_id), up(other[perm]), up(ptr))
+        return self._dev[key]
+
+    def numeric(self, valueA: Optional[torch.Tensor],
+                valueB: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The output values: ``None`` when both operands have implicit
+        ones, else the differentiable :class:`_PlanNumeric` pass."""
+        if valueA is None and valueB is None:
+            return None
+        return _PlanNumeric.apply(self, valueA, valueB)
+
+
+class _PlanNumeric(torch.autograd.Function):
+    """``valueC[s] = sum of valueA[a_pos[t]] * valueB[b_pos[t]]`` over the
+    terms of output entry ``s`` (kernel ``plan_numeric``).  A ``None``
+    side means ones in the other's dtype; the kernel then reads the other
+    side alone.  Backward: ``grad_valueA[e] = sum of grad_C[out_id[t]] *
+    valueB[b_pos[t]]`` over the terms of A entry ``e``, the same kernel
+    over the terms re-sorted by ``a_pos``; ``grad_valueB`` alike, re-sorted
+    by ``b_pos``.  This is the gradient JAX gets by autodiff; each runs
+    only when asked for."""
+
+    @staticmethod
+    def forward(ctx, plan: _Plan, valueA, valueB):
+        ctx.plan = plan
+        ctx.save_for_backward(valueA, valueB)
+        t_ptr = plan.dev("t_ptr")
+        if valueA is None:
+            return plan_numeric(valueB, plan.dev("b_pos"), None, None, t_ptr)
+        if valueB is None:
+            return plan_numeric(valueA, plan.dev("a_pos"), None, None, t_ptr)
+        return plan_numeric(valueA, plan.dev("a_pos"), valueB,
+                            plan.dev("b_pos"), t_ptr)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        valueA, valueB = ctx.saved_tensors
+        plan = ctx.plan
+        grad = grad.contiguous()
+        grad_a = grad_b = None
+        if ctx.needs_input_grad[1]:
+            out_id, b_pos, ptr = plan._by("a")
+            g = plan_numeric(grad, out_id, valueB, b_pos, ptr).to(
+                valueA.dtype)
+            if g.shape[0] != plan.nnzA:  # a row block of A's entries
+                g = torch.cat([g.new_zeros(plan.e_lo), g,
+                               g.new_zeros(plan.nnzA - plan.e_hi)])
+            grad_a = g
+        if ctx.needs_input_grad[2]:
+            out_id, a_pos, ptr = plan._by("b")
+            grad_b = plan_numeric(grad, out_id, valueA, a_pos, ptr).to(
+                valueB.dtype)
+        return None, grad_a, grad_b
+
+
+def check_pair(A: SparseTensor, B: SparseTensor) -> None:
+    """Raise unless ``A @ B`` is defined and both lie on one device."""
+    if A.sparse_size(1) != B.sparse_size(0):
+        raise ValueError(f"A has {A.sparse_size(1)} columns, B "
+                         f"{B.sparse_size(0)} rows")
+    if A.device() != B.device():
+        raise ValueError(f"A lies on {A.device()}, B on {B.device()}")
+
+
+def spspmm_sum(A: SparseTensor, B: SparseTensor) -> SparseTensor:
+    """``A @ B`` as a SparseTensor on the operands' device.  Products of
+    more than ``ops.spgemm.PLAN_MAX_TERMS`` terms take the chunked plan
+    (:func:`~pytorch_sparse_tpu_torch.ops.spgemm.spspmm_large`)."""
+    check_pair(A, B)
+    from . import spgemm
+
+    if spgemm.expansion_terms(A, B) > spgemm.PLAN_MAX_TERMS:
+        return spgemm.spspmm_large(A, B)
+    plan = _Plan(A, B)
+    value = plan.numeric(A.storage.value(), B.storage.value())
+    return SparseTensor(
+        row=plan.rowC, col=plan.colC, value=value,
+        sparse_sizes=(A.sparse_size(0), B.sparse_size(1)), is_sorted=True,
+        trust_data=True, device=A.device())
+
+
+def spspmm(A: SparseTensor, B: SparseTensor,
+           reduce: str = "sum") -> SparseTensor:
+    """SpSpMM reduce-mode dispatcher: only ``sum`` (``add``) exists."""
+    if reduce in ("sum", "add"):
+        return spspmm_sum(A, B)
+    raise ValueError(
+        f"`spspmm` reduce mode {reduce!r} not supported (only 'sum', as in "
+        "the reference's matmul.py:118-126).")
+
+
 def matmul(src: SparseTensor, other, reduce: str = "sum"):
-    """Sparse x dense matmul.  Sparse x sparse (SpSpMM) is not ported
-    yet."""
+    """Sparse x dense (SpMM) or sparse x sparse (SpSpMM) matmul."""
     if isinstance(other, SparseTensor):
-        raise NotImplementedError(
-            "sparse x sparse matmul is not ported yet (ROADMAP.md)")
+        return spspmm(src, other, reduce)
     return spmm(src, other, reduce)
 
 
 SparseTensor.spmm = lambda self, other, reduce="sum": spmm(self, other, reduce)
+SparseTensor.spspmm = lambda self, other, reduce="sum": spspmm(
+    self, other, reduce)
 SparseTensor.matmul = lambda self, other, reduce="sum": matmul(
     self, other, reduce)
 SparseTensor.__matmul__ = lambda self, other: matmul(self, other, "sum")

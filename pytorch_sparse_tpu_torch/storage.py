@@ -20,6 +20,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .segment import segment_max, segment_mean, segment_min, segment_sum
 from .typing import DeviceLike, resolve_device
 from .utils.convert import INDEX_DTYPE
 from .utils.host_sort import lexsort2, lexsort2_decode
@@ -479,7 +480,8 @@ class SparseStorage:
             block_dtype=store_dtype, device=self.device))
 
     # ------------------------------------------------------------------
-    # Coalescing: dedupe sorted (row, col) pairs on the host.
+    # Coalescing: dedupe sorted (row, col) pairs on the host; values that
+    # require grad are reduced on the device, the rest on the host.
     # ------------------------------------------------------------------
     def is_coalesced(self) -> bool:
         hrow = self.numpy_view("row")
@@ -504,7 +506,14 @@ class SparseStorage:
         new_row, new_col = hrow[keep], hcol[keep]
         new_value = None
         value = self._value
-        if value is not None:
+        if value is not None and value.requires_grad:
+            # Reduce on the device so that the gradient reaches ``value``.
+            seg = torch.from_numpy(np.cumsum(keep) - 1).to(value.device)
+            reducer = {"add": segment_sum, "sum": segment_sum,
+                       "mean": segment_mean, "min": segment_min,
+                       "max": segment_max}[reduce]
+            new_value = reducer(value, seg, new_row.shape[0])
+        elif value is not None:
             starts_trunc = np.flatnonzero(keep)
             v = _to_numpy(value)
             if reduce in ("add", "sum"):

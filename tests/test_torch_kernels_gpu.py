@@ -14,10 +14,12 @@ import torch
 
 import pytorch_sparse_tpu_torch as pts
 from pytorch_sparse_tpu_torch.ops.kernels import (
-    block_spmm, block_spmm_plain, block_spmm_t, block_spmm_t_plain, csr_spmm,
+    block_spgemm_window, block_spgemm_window_plain, block_spmm,
+    block_spmm_plain, block_spmm_t, block_spmm_t_plain, csr_spmm,
     csr_spmm_minmax, csr_spmm_minmax_plain, csr_spmm_plain, edge_dot,
     edge_dot_plain, edge_softmax, edge_softmax_plain, minmax_edge_dot,
-    minmax_edge_dot_plain, minmax_spmm_t, minmax_spmm_t_plain)
+    minmax_edge_dot_plain, minmax_spmm_t, minmax_spmm_t_plain, plan_numeric,
+    plan_numeric_plain)
 from pytorch_sparse_tpu_torch.ops.kernels import hybrid as phyb
 from pytorch_sparse_tpu_torch.testing import rel_err
 
@@ -295,3 +297,137 @@ def test_gat_inference_matches_cpu():
             outs.append(model(A, torch.from_numpy(x).to(dev)).cpu())
     assert (edge_softmax.launches, csr_spmm.launches) == (2, 9)
     assert rel_err(outs[1], outs[0]) <= 1e-5
+
+
+def _spgemm_pair(dev, seed=40, values=(True, True), M=700, N=600, P=650):
+    rng = np.random.RandomState(seed)
+    A = pts.SparseTensor(row=rng.randint(0, M, 9_000),
+                         col=rng.randint(0, N, 9_000),
+                         value=rng.randn(9_000).astype(np.float32)
+                         if values[0] else None,
+                         sparse_sizes=(M, N), device=dev)
+    B = pts.SparseTensor(row=rng.randint(0, N, 8_000),
+                         col=rng.randint(0, P, 8_000),
+                         value=rng.randn(8_000).astype(np.float32)
+                         if values[1] else None,
+                         sparse_sizes=(N, P), device=dev)
+    return A.coalesce(), B.coalesce()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_numeric_matches_plain_on_gpu(dtype):
+    """K9 against its plain version: the forward plan with both values,
+    with one side implicit ones, and both backward orderings (the terms
+    re-sorted by A entry and by B entry); an empty plan and outputs with
+    no terms."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.matmul import _Plan
+
+    A, B = _spgemm_pair("cuda")
+    plan = _Plan(A, B)
+    va, vb = (A.storage.value().to(dtype), B.storage.value().to(dtype))
+    a_pos, b_pos, t_ptr = (plan.dev(n) for n in ("a_pos", "b_pos", "t_ptr"))
+    for args in ((va, a_pos, vb, b_pos, t_ptr), (va, a_pos, None, None, t_ptr),
+                 (vb, b_pos, None, None, t_ptr)):
+        got = plan_numeric(*args)
+        assert got.dtype == dtype and got.shape == (plan.n_out,)
+        assert rel_err(got, plan_numeric_plain(*args)) <= 1e-5
+    grad = torch.from_numpy(_x(41, plan.n_out)).cuda().to(dtype)
+    for side, other in (("a", vb), ("b", va)):
+        out_id, pos, ptr = plan._by(side)
+        args = (grad, out_id, other, pos, ptr)
+        assert rel_err(plan_numeric(*args), plan_numeric_plain(*args)) <= 1e-5
+    i32 = dict(dtype=torch.int32, device="cuda")
+    e = torch.zeros(0, **i32)
+    assert plan_numeric(va, e, vb, e, torch.zeros(1, **i32)).shape == (0,)
+    gaps = torch.tensor([0, 0, 2, 2, 3], **i32)  # outputs 0 and 2: no terms
+    idx = torch.tensor([5, 7, 9], **i32)
+    assert torch.equal(plan_numeric(va, idx, vb, idx, gaps),
+                       plan_numeric_plain(va, idx, vb, idx, gaps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("values", [(True, True), (True, False),
+                                    (False, False)])
+def test_spspmm_and_grads_match_cpu(values):
+    """``A @ B`` and both value gradients on the card (K9 forward and
+    backward) against the CPU's plain versions."""
+    _need_gpu()
+    res = []
+    for dev in ("cpu", "cuda"):
+        A, B = _spgemm_pair(dev, values=values)
+        leaves = []
+        if values[0]:
+            A = A.set_value(A.storage.value().clone().requires_grad_(True),
+                            layout="coo")
+            leaves.append(A.storage.value())
+        if values[1]:
+            B = B.set_value(B.storage.value().clone().requires_grad_(True),
+                            layout="coo")
+            leaves.append(B.storage.value())
+        plan_numeric.launches = 0
+        C = A @ B
+        row, col, v = C.coo()
+        out = [row.cpu(), col.cpu()]
+        if v is not None:
+            gout = torch.from_numpy(_x(42, C.nnz())).to(dev)
+            out += [v.detach().cpu()] + [g.cpu() for g in torch.autograd.grad(
+                v, leaves, gout)]
+        if dev == "cuda":
+            assert plan_numeric.launches == (0 if v is None
+                                             else 1 + len(leaves))
+        res.append(out)
+    assert torch.equal(res[1][0], res[0][0])
+    assert torch.equal(res[1][1], res[0][1])
+    for got, ref in zip(res[1][2:], res[0][2:]):
+        assert rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bb", [100, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_spgemm_window_matches_plain_on_gpu(Bb, dtype):
+    """K10 against its plain version: uneven pair runs (3, 0, 1 and 5
+    pairs), a block size that is not a multiple of the 128-wide tile,
+    f32 and bf16 stores, and an empty window."""
+    _need_gpu()
+    rng = np.random.RandomState(43)
+    blocksA = torch.from_numpy(_x(44, 6, Bb, Bb)).cuda().to(dtype)
+    blocksB = torch.from_numpy(_x(45, 5, Bb, Bb)).cuda().to(dtype)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    a_idx = torch.from_numpy(rng.randint(0, 6, 9)).cuda().int()
+    b_idx = torch.from_numpy(rng.randint(0, 5, 9)).cuda().int()
+    seg_ptr = torch.tensor([0, 3, 3, 4, 9], **i32)
+    args = (blocksA, blocksB, a_idx, b_idx, seg_ptr, 4)
+    got = block_spgemm_window(*args)
+    assert got.dtype == torch.float32 and got.shape == (4, Bb, Bb)
+    assert rel_err(got, block_spgemm_window_plain(*args)) <= 1e-5
+    assert bool((got[1] == 0).all())
+    e = torch.zeros(0, **i32)
+    assert block_spgemm_window(blocksA, blocksB, e, e,
+                               torch.zeros(1, **i32), 0).shape == (0, Bb, Bb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_raw_runs_plan_numeric_on_gpu(dtype):
+    """``spspmm_stream(raw=True)`` computes its values with K9 on the card,
+    one launch a chunk, and pulls host triples equal to the CPU's."""
+    _need_gpu()
+    res = []
+    for dev in ("cpu", "cuda"):
+        A, B = _spgemm_pair(dev)
+        A = A.set_value(A.storage.value().to(dtype), layout="coo")
+        B = B.set_value(B.storage.value().to(dtype), layout="coo")
+        plan_numeric.launches = 0
+        res.append(list(pts.spspmm_stream(A, B, max_terms=40_000, raw=True)))
+        if dev == "cuda":
+            assert plan_numeric.launches == len(res[-1]) > 1
+    for (lo, hi, (rp, col, v)), (lo_c, hi_c, (rp_c, col_c, v_c)) in zip(*res):
+        assert (lo, hi) == (lo_c, hi_c)
+        np.testing.assert_array_equal(rp, rp_c)
+        np.testing.assert_array_equal(col, col_c)
+        assert isinstance(v, np.ndarray) and v.dtype == np.float32
+        assert rel_err(torch.from_numpy(v), torch.from_numpy(v_c)) <= (
+            1e-5 if dtype == torch.float32 else 1e-2)

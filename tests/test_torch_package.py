@@ -95,14 +95,22 @@ def test_spmm_refuses_grad_inputs():
 
 @pytest.mark.parametrize("reduce", ["min", "max"])
 def test_minmax_and_spspmm_not_ported_yet(reduce):
-    """min/max now return the extreme (ported); SpSpMM still raises."""
+    """min/max return the extreme, and ``A @ A`` the sparse product (both
+    ported); SpSpMM has no min/max reduce mode."""
     A = pts.SparseTensor(row=[0, 1, 1], col=[1, 0, 1], device="cpu")
     x = torch.tensor([[1.0, -2.0], [3.0, 4.0]])
     want = {"min": [[3.0, 4.0], [1.0, -2.0]],
             "max": [[3.0, 4.0], [3.0, 4.0]]}[reduce]
     assert torch.equal(spmm(A, x, reduce), torch.tensor(want))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A @ A
+    C = A @ A  # [[0, 1], [1, 1]] squared, with implicit ones
+    assert C.sparse_sizes() == (2, 2) and not C.has_value()
+    assert C.storage.row().tolist() == [0, 0, 1, 1]
+    assert C.storage.col().tolist() == [0, 1, 0, 1]
+    W = A.set_value(torch.tensor([1.0, 2.0, 3.0]), layout="coo")
+    assert torch.equal((W @ W).to_dense(),
+                       W.to_dense() @ W.to_dense())
+    with pytest.raises(ValueError, match="reduce mode"):
+        pts.matmul(A, A, reduce)
 
 
 def test_operand_checks():
