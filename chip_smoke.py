@@ -24,7 +24,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    community hybrid and Reddit-10% graphs; ``minmax_edge_dot`` and
    ``minmax_spmm_t`` on the max argout of each f32 case;
    ``edge_softmax`` at 8 heads and 1 on the uniform graph with
-   self-loops and on the community hybrid graph.  ``plan_numeric`` on
+   self-loops and on the community hybrid graph; ``edge_softmax_bwd`` at
+   8 heads, 1 and 3 on the uniform graph with self-loops.
+   ``block_spmm_dblocks`` on phase 9's block-aligned hybrid (both forms,
+   f32 and bf16 stores, K=256 and 40; a bf16 store must equal the f32
+   store's sums rounded once) and on a ragged case (B=100, K=70).
+   ``plan_numeric`` on
    the plan of ``A_g @ A_g`` (phase 5's normalised uniform graph times
    itself) with f32 values, one side implicit ones and bf16 values, and
    in both backward orderings; ``block_spgemm_window`` on the dense-block
@@ -93,17 +98,39 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    join the kernels' entries; their launches are not counted).  8c runs
    at about 1/75 of Reddit's 115M nnz: the host structure pass of the
    cross terms bounds it.
+9. GCN training on a block-aligned prebuilt hybrid: phase 6's model
+   (``Adam(lr=1e-2)``, dropout 0) on ``build_hybrid_from_tensor`` of the
+   community hybrid graph's structure after ``gcn_norm``, with
+   ``B=512`` and the generator's own community boundaries as
+   ``partptr``.  A first step with the block store frozen, then a second
+   with
+   ``h.blocks.requires_grad_()``, which must launch
+   ``block_spmm_dblocks`` once per layer.  The logits, the first step's
+   loss and every parameter gradient are held against the same step on
+   the CSR route of the unaligned matrix (with this run's ReLU
+   decisions), and 8 sampled slots of the blocks gradient against
+   float64 host products of each layer's operand and output gradient.
+10. GAT training: phase 7's model and graph, one ``Adam(lr=5e-3)`` step,
+   its loss and every gradient held against the same step through torch
+   autograd on the plain edge-softmax and CSR versions.
+11. GraphSAGE and GIN training at ogbn-arxiv width (128 -> 256 -> 256 ->
+   40) on the uniform graph (implicit ones), one ``Adam(lr=1e-2)`` step
+   each, held against the plain CSR version with this run's ReLU
+   decisions.
 
-The main path is phases 4, 4b, 4c, 5, 6, 7 and 8, each driven once with
-every launch count set to 0 just before it and read just after it.  Each
-phase must launch the kernels it runs (4: ``csr_spmm`` and
-``block_spmm``; 4b: those and ``block_spmm_t`` and ``edge_dot``; 4c:
-``csr_spmm_minmax``, ``minmax_edge_dot`` and ``minmax_spmm_t``, and no
-block kernel; 5 and 6: ``csr_spmm``; 7: ``edge_softmax`` twice and
-``csr_spmm`` once per head plus once; 8: ``plan_numeric`` three times in
-8a and in 8c's cross terms, ``block_spgemm_window`` in 8c and not in
-8a), and the ``kernels`` line reports
-each kernel's launches summed over them.
+The main path is phases 4 to 11, each driven once with every launch
+count set to 0 just before it and read just after it.  Each phase must
+launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
+those and ``block_spmm_t`` and ``edge_dot``; 4c: ``csr_spmm_minmax``,
+``minmax_edge_dot`` and ``minmax_spmm_t``, and no block kernel; 5 and 6:
+``csr_spmm``; 7: ``edge_softmax`` twice and ``csr_spmm`` once per head
+plus once; 8: ``plan_numeric`` three times in 8a and in 8c's cross
+terms, ``block_spgemm_window`` in 8c and not in 8a; 9: ``block_spmm``,
+``block_spmm_t`` and ``csr_spmm``, ``block_spmm_dblocks`` three times,
+all in the second step, and no ``edge_dot``; 10: ``edge_softmax`` and
+``edge_softmax_bwd`` twice each, ``csr_spmm`` 18 times and ``edge_dot``
+9 times; 11: ``csr_spmm``), and the ``kernels`` line reports each
+kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
 """
@@ -137,6 +164,9 @@ GAT_WIDTHS = (128, 8, 8, 40)               # in, heads, per-head, out
 SPGEMM_SMALL = (23_296, 1_600_000, 30)     # nodes, draws, communities
 SPGEMM_BB, SPGEMM_DENSITY = 512, 0.02      # block split of the SpGEMM legs
 SPGEMM_WINDOW = 2048                       # output blocks per K10 window
+ALIGNED_B = 512                            # phase 9's block size
+K5B_KS = (256, 40)                         # phase 9's aggregation widths
+K8B_HEADS = (8, 1, 3)
 REPS = 20
 PLAIN_REPS = 5                 # the slower plain versions of slice 3
 
@@ -470,8 +500,11 @@ def gat_plain(torch, model, adj, x, edge_softmax_plain, csr_spmm_plain):
     row, coll = adj.storage.row().long(), col.long()
 
     def layer(h, a_src, a_dst):
-        logits = F.leaky_relu((h * a_src).sum(-1)[row]
-                              + (h * a_dst).sum(-1)[coll], 0.2)
+        # The model's own einsums: the same logits, so the same LeakyReLU
+        # decisions, as the kernel run.
+        logits = F.leaky_relu(torch.einsum("nhd,hd->nh", h, a_src)[row]
+                              + torch.einsum("nhd,hd->nh", h, a_dst)[coll],
+                              0.2)
         att = edge_softmax_plain(rowptr, logits)
         return torch.stack([
             csr_spmm_plain(rowptr, col, att[:, i].contiguous(),
@@ -485,6 +518,75 @@ def gat_plain(torch, model, adj, x, edge_softmax_plain, csr_spmm_plain):
     h = layer((h @ model.w2).reshape(-1, 1, out_dim), model.a2_src,
               model.a2_dst)
     return h[:, 0]
+
+
+def dblocks_bounds(torch, nb, B, K_, n_rows_p, n_rows_q, dtype):
+    """K5b's bound: ``2 B^2 K`` flops a slot at the FP32 rate (the kernel
+    multiplies f32 operands for either store), against the
+    ``(nb+1, B, B)`` store-dtype output written once and ``p``, ``q`` and
+    the two int32 slot arrays read once."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (nb + 1) * B * B * elem + 4 * K_ * (n_rows_p + n_rows_q) \
+        + 8 * nb
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, 2 * B * B * K_ * nb / FP32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def relu_recorder(torch, log):
+    """``torch.relu`` that appends each call's decisions to ``log``."""
+    def relu(x):
+        log.append((x > 0).detach())
+        return torch.relu(x)
+    return relu
+
+
+def relu_replay(masks):
+    """A ReLU that keeps exactly the entries of the next recorded mask."""
+    it = iter(masks)
+    return lambda x: x * next(it)
+
+
+def sage_forward(model, agg, x, relu):
+    """GraphSAGE's forward written out, with the aggregation
+    ``agg(h, "mean")`` and the ReLU given."""
+    n = len(model.b)
+    for i in range(n):
+        x = x @ model.w_self[i] + agg(x, "mean") @ model.w_neigh[i] \
+            + model.b[i]
+        if i < n - 1:
+            x = relu(x)
+    return x
+
+
+def gin_forward(model, agg, x, relu):
+    """GIN's forward written out, as :func:`sage_forward`."""
+    n = len(model.w1)
+    for i in range(n):
+        x = (1.0 + model.eps[i]) * x + agg(x, "sum")
+        x = relu(x @ model.w1[i] + model.b1[i])
+        x = x @ model.w2[i] + model.b2[i]
+        if i < n - 1:
+            x = relu(x)
+    return x
+
+
+def gcn_agg_io(torch, agg, model, x, labels):
+    """A GCN forward written out with the aggregation ``agg(h)``: each
+    layer's aggregation input, and the gradient of the mean negative
+    log-likelihood with respect to each layer's aggregation output."""
+    ins, outs = [], []
+    n = len(model.weights)
+    for i, (w, b) in enumerate(zip(model.weights, model.biases)):
+        z = x @ w
+        y = agg(z)
+        ins.append(z.detach())
+        outs.append(y)
+        x = y + b
+        if i < n - 1:
+            x = torch.relu(x)
+    logp = torch.log_softmax(x, dim=-1)
+    loss = -logp.gather(-1, labels[:, None])[:, 0].mean()
+    return ins, torch.autograd.grad(loss, outs)
 
 
 def seeded_labels(torch, x, n_classes, seed, device):
@@ -702,16 +804,20 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     import pytorch_sparse_tpu_torch as ts
     from pytorch_sparse_tpu_torch import _build
-    from pytorch_sparse_tpu_torch.models import GAT, GCN, gcn_norm
+    from pytorch_sparse_tpu_torch.models import (
+        GAT, GCN, GIN, GraphSAGE, gcn_norm, nll_loss)
     from pytorch_sparse_tpu_torch.ops.kernels import (
-        block_spmm, block_spmm_plain, block_spmm_t, block_spmm_t_plain,
-        csr_spmm, csr_spmm_minmax, csr_spmm_minmax_plain, csr_spmm_plain,
-        edge_dot, edge_dot_plain, edge_softmax, edge_softmax_plain,
-        minmax_edge_dot, minmax_edge_dot_plain, minmax_spmm_t,
-        minmax_spmm_t_plain, block_spgemm_plan, block_spgemm_stream,
-        block_spgemm_window, block_spgemm_window_plain, block_spgemm_windows,
-        plan_numeric, plan_numeric_plain)
-    from pytorch_sparse_tpu_torch.ops.matmul import _Plan
+        block_spmm, block_spmm_dblocks, block_spmm_dblocks_plain,
+        block_spmm_plain, block_spmm_t, block_spmm_t_plain,
+        build_hybrid_from_tensor, csr_spmm, csr_spmm_minmax,
+        csr_spmm_minmax_plain, csr_spmm_plain, edge_dot, edge_dot_plain,
+        edge_softmax, edge_softmax_bwd, edge_softmax_bwd_plain,
+        edge_softmax_plain, hybrid_spmm, minmax_edge_dot,
+        minmax_edge_dot_plain, minmax_spmm_t, minmax_spmm_t_plain,
+        block_spgemm_plan, block_spgemm_stream, block_spgemm_window,
+        block_spgemm_window_plain, block_spgemm_windows, plan_numeric,
+        plan_numeric_plain)
+    from pytorch_sparse_tpu_torch.ops.matmul import _CsrSum, _Plan
     from pytorch_sparse_tpu_torch.ops.spgemm import (
         PLAN_MAX_TERMS, _block_split, _dense_part, _row_chunks)
     from pytorch_sparse_tpu_torch.ops.kernels.hybrid import (
@@ -729,7 +835,9 @@ def main(argv=None) -> int:
                "minmax_edge_dot": minmax_edge_dot,
                "minmax_spmm_t": minmax_spmm_t, "edge_softmax": edge_softmax,
                "plan_numeric": plan_numeric,
-               "block_spgemm_window": block_spgemm_window}
+               "block_spgemm_window": block_spgemm_window,
+               "block_spmm_dblocks": block_spmm_dblocks,
+               "edge_softmax_bwd": edge_softmax_bwd}
 
     def record(phase, **kw):
         results["phases"].setdefault(phase, []).append(kw)
@@ -784,10 +892,23 @@ def main(argv=None) -> int:
     Ms, Es, ns = SPGEMM_SMALL
     A_s = community_graph(Ms, Es, n_comm=ns, seed=1, equal_sizes=True,
                           device=device)
+    # Phase 9's adjacency: the community hybrid graph's structure after
+    # gcn_norm (unit edge weights, as phase 5's), as a block-aligned hybrid
+    # on the generator's own community boundaries.
+    t1 = time.time()
+    A_hn = gcn_norm(A_h.fill_value(1.0))
+    partptr = np.linspace(0, Mh, nh + 1).astype(np.int64)
+    h9 = build_hybrid_from_tensor(A_hn, B=ALIGNED_B, partptr=partptr)
+    h9_s = time.time() - t1
     record("setup", seconds=round(time.time() - t0, 2),
            uniform_nnz=A_u.nnz(), reddit10_nnz=A_r.nnz(),
            hybrid_nnz=A_h.nnz(), hybrid=repr(h32), gcn_gat_nnz=A_g.nnz(),
-           spgemm_small_nnz=A_s.nnz())
+           spgemm_small_nnz=A_s.nnz(), aligned_hybrid=repr(h9),
+           aligned_hybrid_nnz=A_hn.nnz(), aligned_blocks=h9.nb,
+           aligned_M_pad=h9.M_pad,
+           aligned_dense_edge_share=h9.dense_nnz / A_hn.nnz(),
+           aligned_block_bytes=h9.blocks.numel() * h9.blocks.element_size(),
+           aligned_build_s=h9_s)
 
     # ---- 3. kernels against their plain versions -------------------------
     t0 = time.time()
@@ -955,6 +1076,88 @@ def main(argv=None) -> int:
     except Exception:
         failures.append("phase 3 (kernels): " + traceback.format_exc())
 
+    # block_spmm_dblocks (K5b) on phase 9's block-aligned hybrid at its
+    # aggregation widths: the forward pass's form (P = grad_out, Q = x)
+    # and the transpose pass's (P = g, Q = grad_out) differ only in their
+    # operands.  The f32 store's sums are held against the plain version;
+    # the bf16 store must equal those sums rounded once to bf16 (the same
+    # kernel arithmetic, cast at the end), and its rounding is reported.
+    # Then a ragged case, B=100 and K=70, against the plain version.
+    try:
+        B9, nb9 = h9.B, h9.nb
+        rows9 = (h9.rb_ptr.shape[0] - 1) * B9
+        sr9, sc9 = h9.slot_row, h9.slot_col
+        k5b_cases = []
+        for k in K5B_KS:
+            for form, seeds in (("forward form", (64, 65)),
+                                ("transpose form", (66, 67))):
+                pq = (operand(torch, rows9, k, seeds[0], device),
+                      operand(torch, rows9, k, seeds[1], device))
+                got = block_spmm_dblocks(*pq, sr9, sc9, B9, torch.float32)
+                ref = block_spmm_dblocks_plain(*pq, sr9, sc9, B9,
+                                               torch.float32)
+                got16 = block_spmm_dblocks(*pq, sr9, sc9, B9, torch.bfloat16)
+                sync()
+                same16 = bool(torch.equal(got16, got.to(torch.bfloat16)))
+                rnd16 = errors(got16, ref)[1]
+                timing = {}
+                if k == K5B_KS[0] and form == "forward form":
+                    def library(pq=pq, k=k):
+                        pv, qv = (t.view(-1, B9, k) for t in pq)
+                        return torch.bmm(pv[sr9.long()],
+                                         qv[sc9.long()].transpose(1, 2))
+
+                    bound_ms, bound_by = dblocks_bounds(
+                        torch, nb9, B9, k, rows9, rows9, torch.float32)
+                    b16_ms, b16_by = dblocks_bounds(
+                        torch, nb9, B9, k, rows9, rows9, torch.bfloat16)
+                    timing = {
+                        "ms": timer(lambda: block_spmm_dblocks(
+                            *pq, sr9, sc9, B9, torch.float32)),
+                        "plain_ms": timer(lambda: block_spmm_dblocks_plain(
+                            *pq, sr9, sc9, B9, torch.float32)),
+                        "library_ms": timer(library), "bound_ms": bound_ms,
+                        "bound_by": bound_by,
+                        "bf16_store_ms": timer(lambda: block_spmm_dblocks(
+                            *pq, sr9, sc9, B9, torch.bfloat16)),
+                        "bf16_store_bound_ms": b16_ms,
+                        "bf16_store_bound_by": b16_by}
+                case = kernel_case(
+                    torch, f"{form} K={k} f32 store (bf16 store: the same "
+                    "sums rounded once)", got, ref, failures,
+                    "block_spmm_dblocks", bf16_equals_rounded_f32=same16,
+                    bf16_rel_err_vs_plain=rnd16, **timing)
+                if not same16:
+                    case["ok"] = False
+                    failures.append(f"block_spmm_dblocks {form} K={k}: the "
+                                    "bf16 store is not the f32 sums rounded")
+                k5b_cases.append(case)
+                del got, ref, got16, pq
+        rng = np.random.RandomState(68)
+        keys = np.sort(rng.choice(30, 17, replace=False))
+        srr, scr = (torch.from_numpy(a.astype(np.int32)).to(device)
+                    for a in (keys // 5, keys % 5))
+        pq = (operand(torch, 600, 70, 69, device),
+              operand(torch, 500, 70, 70, device))
+        got = block_spmm_dblocks(*pq, srr, scr, 100, torch.float32)
+        ref = block_spmm_dblocks_plain(*pq, srr, scr, 100, torch.float32)
+        sync()
+        k5b_cases.append(kernel_case(torch, "ragged B=100 K=70", got, ref,
+                                     failures, "block_spmm_dblocks"))
+        if not bool((got[-1] == 0).all()):
+            failures.append("block_spmm_dblocks: the zero slot got a "
+                            "gradient")
+        kernels.append(kernel_entry(
+            "block_spmm_dblocks", "block_spmm.cu",
+            "ops/kernels/hybrid.py:696", k5b_cases,
+            "torch.bmm(P_blocks[slot_row], Q_blocks[slot_col]^T), TF32 off",
+            f"aligned hybrid M_pad={h9.M_pad} nb={nb9} B={B9} "
+            f"K={K5B_KS[0]} f32 store"))
+        del got, ref, pq
+    except Exception:
+        failures.append("phase 3 (block_spmm_dblocks): "
+                        + traceback.format_exc())
+
     # csr_spmm_minmax (K6, min and max) and its backward halves (K7a
     # minmax_edge_dot and K7b minmax_spmm_t, on the max argout).  K6's
     # out and arg must equal the plain version's exactly; K7a and K7b
@@ -1091,6 +1294,57 @@ def main(argv=None) -> int:
             "edge_softmax", "edge_softmax.cu", "ops/kernels/ell.py:462",
             sm_cases, "torch.sparse.softmax over the (M, N, H) hybrid COO "
             "tensor", f"M={Mu} E={A_g.nnz()} H=8 f32"))
+
+        # edge_softmax_bwd (K8b) on GAT's graph at 8 heads, 1 and 3 (the
+        # generic loop): p from K8, a seeded output gradient.  The library
+        # yardstick is torch's sparse softmax backward on the (M, N, H)
+        # hybrid COO tensors of the logits, p and g.
+        sb_cases = []
+        rp = A_g.storage.rowptr()
+        m_, n_ = A_g.sparse_sizes()
+        for H in K8B_HEADS:
+            logits = operand(torch, A_g.nnz(), H, 15, device) * 2.0
+            p_ = edge_softmax(rp, logits)
+            g_ = operand(torch, A_g.nnz(), H, 71, device)
+            got = edge_softmax_bwd(rp, p_, g_)
+            ref = edge_softmax_bwd_plain(rp, p_, g_)
+            sync()
+            timing = {"ms": timer(lambda: edge_softmax_bwd(rp, p_, g_)),
+                      "plain_ms": plain_timer(
+                          lambda: edge_softmax_bwd_plain(rp, p_, g_)),
+                      "library_ms": None,
+                      "bound_ms": (4 * (m_ + 1) + 12 * A_g.nnz() * H)
+                      / HBM_BYTES_PER_S * 1e3,
+                      "bound_by": "bytes"}
+            try:
+                idx = torch.stack([A_g.storage.row().long(),
+                                   A_g.storage.col().long()])
+                S = torch.sparse_coo_tensor(idx, logits,
+                                            (m_, n_, H)).coalesce()
+                S_out = torch.sparse.softmax(S, 1)
+                vals = g_ if S._nnz() == A_g.nnz() else torch.randn_like(
+                    S_out.values())
+                S_g = torch.sparse_coo_tensor(S.indices(), vals, S.shape)
+                lib_out = torch._sparse_softmax_backward_data(S_g, S_out, 1,
+                                                              S)
+                if S._nnz() == A_g.nnz():  # same edges in the same order
+                    timing["library_max_abs_err"] = errors(
+                        lib_out.coalesce().values(), ref)[0]
+                timing["library_ms"] = timer(
+                    lambda: torch._sparse_softmax_backward_data(
+                        S_g, S_out, 1, S))
+                del S, S_out, S_g, lib_out
+            except (RuntimeError, NotImplementedError, AttributeError) as exc:
+                timing["library_missing"] = repr(exc)
+            sb_cases.append(kernel_case(
+                torch, f"uniform + self-loops H={H}", got, ref, failures,
+                "edge_softmax_bwd", **timing))
+            del got, ref, logits, p_, g_
+        kernels.append(kernel_entry(
+            "edge_softmax_bwd", "edge_softmax.cu",
+            "ops/kernels/ell.py:462", sb_cases,
+            "torch._sparse_softmax_backward_data over the (M, N, H) hybrid "
+            "COO tensors", f"M={Mu} E={A_g.nnz()} H=8 f32"))
     except Exception:
         failures.append("phase 3 (min/max and softmax kernels): "
                         + traceback.format_exc())
@@ -1312,6 +1566,11 @@ def main(argv=None) -> int:
         "6 GCN training": ("csr_spmm",),
         "7 GAT inference": ("edge_softmax", "csr_spmm"),
         "8 SpSpMM": ("plan_numeric", "block_spgemm_window"),
+        "9 GCN training on the aligned hybrid": (
+            "block_spmm", "block_spmm_t", "csr_spmm", "block_spmm_dblocks"),
+        "10 GAT training": ("edge_softmax", "edge_softmax_bwd", "csr_spmm",
+                            "edge_dot"),
+        "11 GraphSAGE and GIN training": ("csr_spmm",),
     }
     phase_launches = {}
 
@@ -1436,6 +1695,68 @@ def main(argv=None) -> int:
             n: v - before[n] for n, v in counts().items()})
         return res
 
+    # Phases 9-11: the models' train steps.
+    x_9 = operand(torch, Mh, in_dim, 72, device)
+    labels_9 = seeded_labels(torch, x_9, out_dim, 73, device)
+
+    def gcn_hybrid_training():
+        """Phase 9: one step with the block store frozen, then one with
+        ``h9.blocks`` requiring grad (its gradient is kept, the store is
+        not in the optimizer)."""
+        tmodel = make_gcn()
+        opt = torch.optim.Adam(tmodel.parameters(), lr=1e-2)
+        opt.zero_grad()
+        loss0 = tmodel.loss(h9, x_9, labels_9)
+        loss0.backward()
+        grads0 = [p_.grad.detach().clone() for p_ in tmodel.parameters()]
+        opt.step()
+        k5b_step1 = block_spmm_dblocks.launches
+        params1 = [p_.detach().clone() for p_ in tmodel.parameters()]
+        h9.blocks.requires_grad_(True)
+        try:
+            opt.zero_grad()
+            tmodel.loss(h9, x_9, labels_9).backward()
+            opt.step()
+            gblocks = h9.blocks.grad
+        finally:
+            h9.blocks.requires_grad_(False)
+            h9.blocks.grad = None
+        return dict(loss0=loss0.item(), grads0=grads0, params1=params1,
+                    gblocks=gblocks, k5b_step1=k5b_step1,
+                    k5b_step2=block_spmm_dblocks.launches - k5b_step1,
+                    model=tmodel, opt=opt)
+
+    def gat_training():
+        """Phase 10: one Adam step of phase 7's GAT."""
+        gmodel = GAT(gat_in, gat_hid, gat_out, heads=gat_heads,
+                     generator=torch.Generator().manual_seed(0),
+                     device=device)
+        opt = torch.optim.Adam(gmodel.parameters(), lr=5e-3)
+        opt.zero_grad()
+        loss = gmodel.loss(A_g, x_g, labels)
+        loss.backward()
+        grads = [p_.grad.detach().clone() for p_ in gmodel.parameters()]
+        opt.step()
+        return loss.item(), grads, gmodel, opt
+
+    def make_sage_gin(cls):
+        return cls(in_dim, hid, out_dim, num_layers=nlayers,
+                   generator=torch.Generator().manual_seed(0), device=device)
+
+    def sage_gin_training():
+        """Phase 11: one Adam step each of GraphSAGE and GIN."""
+        res = {}
+        for cls in (GraphSAGE, GIN):
+            m = make_sage_gin(cls)
+            opt = torch.optim.Adam(m.parameters(), lr=1e-2)
+            opt.zero_grad()
+            loss = m.loss(A_u1, x_g, labels)
+            loss.backward()
+            grads = [p_.grad.detach().clone() for p_ in m.parameters()]
+            opt.step()
+            res[cls.__name__] = (loss.item(), grads, m, opt)
+        return res
+
     outs = drive("4 forward legs", forward_legs) or []
     bwd_grads = drive("4b backward legs", backward_legs) or []
     mm_res = drive("4c min/max legs", minmax_legs) or []
@@ -1443,6 +1764,9 @@ def main(argv=None) -> int:
     train = drive("6 GCN training", gcn_training)
     gat_logits = drive("7 GAT inference", gat_inference)
     spg = drive("8 SpSpMM", spspmm_pipeline)
+    gcn9 = drive("9 GCN training on the aligned hybrid", gcn_hybrid_training)
+    gat10 = drive("10 GAT training", gat_training)
+    models11 = drive("11 GraphSAGE and GIN training", sage_gin_training)
     launches = {n: sum(c[n] for c in phase_launches.values())
                 for n in counted}
     record("main_path", seconds=round(time.time() - t0, 2),
@@ -1464,6 +1788,16 @@ def main(argv=None) -> int:
     if gat_counts != {"edge_softmax": 2, "csr_spmm": gat_heads + 1}:
         failures.append(f"GAT launched {gat_counts} (want edge_softmax 2, "
                         f"csr_spmm {gat_heads + 1})")
+    if phase_launches["9 GCN training on the aligned hybrid"]["edge_dot"]:
+        failures.append("the hybrid GCN steps launched edge_dot (no value "
+                        "gradient is needed)")
+    gat10_counts = {n: phase_launches["10 GAT training"][n] for n in (
+        "edge_softmax", "edge_softmax_bwd", "csr_spmm", "edge_dot")}
+    gat10_want = {"edge_softmax": 2, "edge_softmax_bwd": 2,
+                  "csr_spmm": 2 * (gat_heads + 1), "edge_dot": gat_heads + 1}
+    if gat10_counts != gat10_want:
+        failures.append(f"GAT training launched {gat10_counts} (want "
+                        f"{gat10_want})")
 
     def route_of(A):
         h = A.storage.hybrid(auto=False)
@@ -1571,6 +1905,11 @@ def main(argv=None) -> int:
                                 f"shape={logits.shape} "
                                 f"rel err vs plain {rel_e:.3g}")
 
+    def step(m, o, lossfn):
+        o.zero_grad()
+        lossfn(m).backward()
+        o.step()
+
     # ---- 6. GCN training: checks and times -------------------------------
     if train is not None:
         loss0, grads0, losses, opt, tmodel, gen = train
@@ -1594,12 +1933,6 @@ def main(argv=None) -> int:
         grad_errs = [errors(g, p.grad)[1]
                      for g, p in zip(grads0, rmodel.parameters())]
         loss_err = abs(loss0 - ref_loss.item()) / abs(ref_loss.item())
-
-        def step(m, o, lossfn):
-            o.zero_grad()
-            lossfn(m).backward()
-            o.step()
-
         ms = timer(lambda: step(tmodel, opt, lambda m: m.loss(
             A_g, x_g, labels, dropout_rate=0.5, generator=gen)))
         ms_nodrop = timer(lambda: step(tmodel, opt, lambda m: m.loss(
@@ -1806,6 +2139,192 @@ def main(argv=None) -> int:
             check_spspmm(spg)
         except Exception:
             failures.append("phase 8 checks: " + traceback.format_exc())
+        del spg
+
+    # ---- 9. GCN on the aligned hybrid: checks and times ------------------
+    def check_gcn9(r):
+        # The reference is the same step on the CSR route of the unaligned
+        # matrix (the CSR kernel through its autograd function), with the
+        # hybrid run's ReLU decisions; the entries where the CSR run's own
+        # decisions differ are counted, as in phase 6.
+        st_hn = A_hn.storage
+
+        def csr_route(rowptr, col, value, h):
+            return _CsrSum.apply(st_hn, value, h)
+
+        rmodel = make_gcn()
+        kmasks = relu_masks(torch, hybrid_spmm, rmodel, h9, x_9)
+        cmasks = relu_masks(torch, lambda a, h: csr_route(*a.csr(), h),
+                            rmodel, A_hn, x_9)
+        flips = sum(int((k_ != c_).sum()) for k_, c_ in zip(kmasks, cmasks))
+        with torch.no_grad():
+            logits_h = rmodel(h9, x_9)
+            logits_c = gcn_plain(torch, csr_route, rmodel, A_hn, x_9, kmasks)
+        logit_err = errors(logits_h, logits_c)[1]
+        ref_loss = plain_loss(torch, csr_route, rmodel, A_hn, x_9, labels_9,
+                              kmasks)
+        ref_loss.backward()
+        del kmasks, cmasks, logits_h, logits_c
+        grad_errs = [errors(g, p_.grad)[1]
+                     for g, p_ in zip(r["grads0"], rmodel.parameters())]
+        loss_err = abs(r["loss0"] - ref_loss.item()) / abs(ref_loss.item())
+        # 8 sampled slots of the second step's blocks gradient against
+        # float64 host products: the sum over layers of each layer's
+        # output gradient (row block) times its aggregation input (column
+        # block), both scattered to their padded positions.
+        bmodel = make_gcn()
+        with torch.no_grad():
+            for p_, q_ in zip(bmodel.parameters(), r["params1"]):
+                p_.copy_(q_)
+        ins, gouts = gcn_agg_io(torch, lambda z: hybrid_spmm(h9, z), bmodel,
+                                x_9, labels_9)
+        rm = h9.row_map.long()
+        B9 = h9.B
+
+        def pad_rows(t):
+            return t.new_zeros((h9.M_pad, t.shape[1])).index_copy(0, rm, t)
+
+        ins = [pad_rows(t) for t in ins]
+        gouts = [pad_rows(t) for t in gouts]
+        gblocks = r["gblocks"]
+        worst = 0.0
+        for s_ in np.random.RandomState(74).choice(h9.nb, 8, replace=False):
+            r_, c_ = int(h9.slot_row[s_]), int(h9.slot_col[s_])
+            host = sum(
+                g_[r_ * B9:(r_ + 1) * B9].double().cpu().numpy()
+                @ z_[c_ * B9:(c_ + 1) * B9].double().cpu().numpy().T
+                for g_, z_ in zip(gouts, ins))
+            diff = np.abs(gblocks[s_].double().cpu().numpy() - host)
+            worst = max(worst, float(diff.max() / np.abs(host).max()))
+        zero_slot = bool((gblocks[h9.nb] == 0).all())
+        del ins, gouts, gblocks, r["gblocks"], bmodel
+        tmodel, opt = r["model"], r["opt"]
+        ms = timer(lambda: step(tmodel, opt, lambda m: m.loss(
+            h9, x_9, labels_9)))
+        h9.blocks.requires_grad_(True)
+        try:
+            ms_blocks = timer(lambda: step(tmodel, opt, lambda m: m.loss(
+                h9, x_9, labels_9)))
+        finally:
+            h9.blocks.requires_grad_(False)
+            h9.blocks.grad = None
+        ropt = torch.optim.Adam(rmodel.parameters(), lr=1e-2)
+        csr_ms = timer(lambda: step(rmodel, ropt, lambda m: plain_loss(
+            torch, csr_route, m, A_hn, x_9, labels_9)))
+        max_flips = int(RELU_FLIP_SHARE * Mh * hid * (nlayers - 1))
+        record("gcn_hybrid_train", layers=nlayers, nodes=Mh,
+               nnz=A_hn.nnz(), B=h9.B, blocks=h9.nb, M_pad=h9.M_pad,
+               dense_edge_share=h9.dense_nnz / A_hn.nnz(),
+               loss_step1=r["loss0"], loss_rel_err_vs_csr=loss_err,
+               logits_rel_err_vs_csr=logit_err,
+               grad_rel_errs_vs_csr=grad_errs, relu_flips=flips,
+               max_relu_flips=max_flips,
+               blocks_grad_rel_err_8_slots_vs_f64=worst,
+               blocks_grad_zero_slot=zero_slot,
+               block_spmm_dblocks_launches=[r["k5b_step1"], r["k5b_step2"]],
+               gate=KERNEL_GATE, ms_per_step=ms,
+               ms_per_step_blocks_grad=ms_blocks,
+               csr_route_ms_per_step=csr_ms, card=card)
+        if not (np.isfinite(r["loss0"]) and loss_err <= KERNEL_GATE
+                and logit_err <= KERNEL_GATE
+                and max(grad_errs) <= KERNEL_GATE and flips <= max_flips
+                and worst <= KERNEL_GATE and zero_slot
+                and r["k5b_step1"] == 0 and r["k5b_step2"] == nlayers):
+            failures.append(
+                f"hybrid GCN training: loss err {loss_err:.3g}, logits err "
+                f"{logit_err:.3g}, grad errs {max(grad_errs):.3g}, blocks "
+                f"grad err {worst:.3g} (gate {KERNEL_GATE}), zero slot "
+                f"{zero_slot}, ReLU flips {flips} (at most {max_flips}), "
+                f"block_spmm_dblocks launches {r['k5b_step1']} then "
+                f"{r['k5b_step2']} (want 0 then {nlayers})")
+
+    # ---- 10. GAT training: checks and times ------------------------------
+    def check_gat10(r):
+        loss_k, grads_k, gmodel, gopt = r
+        rg = GAT(gat_in, gat_hid, gat_out, heads=gat_heads,
+                 generator=torch.Generator().manual_seed(0), device=device)
+
+        def plain_gat_loss(m):
+            return nll_loss(gat_plain(torch, m, A_g, x_g, edge_softmax_plain,
+                                      csr_spmm_plain), labels)
+
+        ref = plain_gat_loss(rg)
+        ref.backward()
+        grad_errs = [errors(g, p_.grad)[1]
+                     for g, p_ in zip(grads_k, rg.parameters())]
+        loss_err = abs(loss_k - ref.item()) / abs(ref.item())
+        ms = timer(lambda: step(gmodel, gopt, lambda m: m.loss(
+            A_g, x_g, labels)))
+        ropt = torch.optim.Adam(rg.parameters(), lr=5e-3)
+        plain_ms = plain_timer(lambda: step(rg, ropt, plain_gat_loss))
+        record("gat_train", widths=[gat_in, f"{gat_heads}x{gat_hid}",
+                                    gat_out], nodes=Mu, nnz=A_g.nnz(),
+               launches=gat10_counts, loss_step1=loss_k,
+               loss_rel_err_vs_plain=loss_err,
+               grad_rel_errs_vs_plain=grad_errs, gate=KERNEL_GATE,
+               ms_per_step=ms, plain_ms_per_step=plain_ms, card=card)
+        if not (np.isfinite(loss_k) and loss_err <= KERNEL_GATE
+                and max(grad_errs) <= KERNEL_GATE):
+            failures.append(f"GAT training: loss err {loss_err:.3g}, grad "
+                            f"errs {max(grad_errs):.3g} (gate {KERNEL_GATE})")
+
+    # ---- 11. GraphSAGE and GIN training: checks and times ----------------
+    def check_models11(res):
+        rowptr_u, col_u = A_u1.storage.rowptr(), A_u1.storage.col()
+        deg_u = A_u1.storage.rowcount().clamp_min(1).float()[:, None]
+
+        def plain_agg(h, reduce):
+            out = csr_spmm_plain(rowptr_u, col_u, None, h)
+            return out / deg_u if reduce == "mean" else out
+
+        def kernel_agg(h, reduce):
+            return (ts.spmm_mean if reduce == "mean" else ts.spmm_sum)(A_u1, h)
+
+        for cls, fwd in ((GraphSAGE, sage_forward), (GIN, gin_forward)):
+            loss_k, grads_k, m, opt = res[cls.__name__]
+            rm_ = make_sage_gin(cls)
+            kmasks, pmasks = [], []
+            with torch.no_grad():
+                fwd(rm_, kernel_agg, x_g, relu_recorder(torch, kmasks))
+                fwd(rm_, plain_agg, x_g, relu_recorder(torch, pmasks))
+            flips = sum(int((k_ != p_).sum()) for k_, p_ in zip(kmasks,
+                                                                pmasks))
+            max_flips = int(RELU_FLIP_SHARE * sum(k_.numel() for k_ in kmasks))
+            ref = nll_loss(fwd(rm_, plain_agg, x_g, relu_replay(kmasks)),
+                           labels)
+            ref.backward()
+            del kmasks, pmasks
+            grad_errs = [errors(g, p_.grad)[1]
+                         for g, p_ in zip(grads_k, rm_.parameters())]
+            loss_err = abs(loss_k - ref.item()) / abs(ref.item())
+            ms = timer(lambda: step(m, opt, lambda mm: mm.loss(
+                A_u1, x_g, labels)))
+            ropt = torch.optim.Adam(rm_.parameters(), lr=1e-2)
+            plain_ms = timer(lambda: step(rm_, ropt, lambda mm: nll_loss(
+                fwd(mm, plain_agg, x_g, torch.relu), labels)))
+            record("model_train", model=cls.__name__, layers=nlayers,
+                   widths=[in_dim] + [hid] * (nlayers - 1) + [out_dim],
+                   nodes=Mu, nnz=A_u1.nnz(), loss_step1=loss_k,
+                   loss_rel_err_vs_plain=loss_err,
+                   grad_rel_errs_vs_plain=grad_errs, relu_flips=flips,
+                   max_relu_flips=max_flips, gate=KERNEL_GATE,
+                   ms_per_step=ms, plain_ms_per_step=plain_ms, card=card)
+            if not (np.isfinite(loss_k) and loss_err <= KERNEL_GATE
+                    and max(grad_errs) <= KERNEL_GATE and flips <= max_flips):
+                failures.append(
+                    f"{cls.__name__} training: loss err {loss_err:.3g}, grad "
+                    f"errs {max(grad_errs):.3g} (gate {KERNEL_GATE}), ReLU "
+                    f"flips {flips} (at most {max_flips})")
+
+    for label, res, check in (("9", gcn9, check_gcn9),
+                              ("10", gat10, check_gat10),
+                              ("11", models11, check_models11)):
+        if res is not None:
+            try:
+                check(res)
+            except Exception:
+                failures.append(f"phase {label} checks: "
+                                + traceback.format_exc())
 
     results.update(kernels=kernels, launches=launches, failures=failures,
                    card=card)

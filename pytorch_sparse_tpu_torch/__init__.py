@@ -4,11 +4,14 @@
 It carries ``SparseStorage``/``SparseTensor`` with their caches; the
 routed SpMM (a hand-written CSR row kernel, a hand-written block-dense
 kernel, and the whole-matrix dense route) forward and backward; SpMM
-min/max with its argout, forward and backward; GCN inference and
-training; GAT inference with a hand-written edge-softmax kernel; SpSpMM
-(a hand-written plan-numeric kernel and block-pair kernel) with its
-chunked, streaming and block-split paths; and the structural ops of a
-SpSpMM pipeline (transpose, add, diagonal edits, the legacy tuple API).
+min/max with its argout, forward and backward; the block-aligned hybrid
+format, differentiable in the operand and in its block store (a
+hand-written block-gradient kernel); GCN, GAT (hand-written edge-softmax
+kernels, forward and backward), GraphSAGE and GIN inference and
+training; SpSpMM (a hand-written plan-numeric kernel and block-pair
+kernel) with its chunked, streaming and block-split paths; and the
+structural ops of a SpSpMM pipeline (transpose, add, diagonal edits, the
+legacy tuple API).
 Names follow the JAX package.  Entry points run on ``cuda`` unless
 given ``device="cpu"``; the CPU runs each kernel's plain PyTorch
 version.
@@ -22,7 +25,7 @@ from .ops import (  # noqa
     spmm_sum, spmm_add, spmm_mean, spmm_min, spmm_max, spspmm_sum, matmul,
     expansion_terms, spspmm_chunked, spspmm_stream, spspmm_diag,
     spspmm_stream_device, HybridFormat, DenseFormat, build_hybrid,
-    build_dense, hybrid_spmm, dense_spmm, t, transpose, coalesce, spspmm,
+    build_hybrid_from_tensor, build_dense, hybrid_spmm, dense_spmm, t, transpose, coalesce, spspmm,
     spadd, add, add_, add_nnz, add_nnz_, remove_diag, set_diag, fill_diag,
     get_diag,
 )
@@ -46,6 +49,7 @@ __all__ = [
     "HybridFormat",
     "DenseFormat",
     "build_hybrid",
+    "build_hybrid_from_tensor",
     "build_dense",
     "hybrid_spmm",
     "dense_spmm",

@@ -46,6 +46,23 @@
 // widened with __bfloat162float as they are staged.  Tiles past B or K
 // are masked with zeros.  Output blocks with no slot write zeros.  Block
 // offsets are 64-bit.
+//
+// The third entry is the block-store gradient (the d_ab contraction of
+// _mxu_einsum_bwd, :696, with the equations of _GRAD_EQS, :671-676):
+//
+//   dblocks  out[s, i, c] = sum_k P[slot_row[s]*B + i, k] * Q[slot_col[s]*B + c, k]
+//
+// for every slot s < nb, and out[nb] = 0 (the trailing zero block gets no
+// gradient).  The forward pass's gradient has P = grad_out and Q = x; the
+// transpose pass's has P = its input g and Q = grad_out.  It is bound by
+// operations as the passes are (2*B*B*K flops a slot against B*B*elem
+// bytes written).  Each slot owns its output block, so one thread block
+// per (slot, 128-row tile, 128-column tile) walks K in steps of 8 with
+// the same double-buffered 128x8 tiles and 8x8 register tiles as above:
+// both tiles are read as rows of 8 consecutive k and stored transposed.
+// The sum runs over k in ascending order in fp32 and is rounded to the
+// store dtype once, at the end (__float2bfloat16 rounds to nearest even,
+// as torch's cast does).  No atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +80,14 @@ static_assert(TM == TN, "the block tile and the x tile load alike");
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
 }
 
 // TRANSPOSE == false: the forward pass.  seg_ptr is rb_ptr, the slots of
@@ -182,6 +207,102 @@ block_spmm_kernel(const T* __restrict__ blocks, const int* __restrict__ order,
   }
 }
 
+// out[s] = P[slot_row[s]] . Q[slot_col[s]]^T for s < nb; out[nb] = 0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+block_dblocks_kernel(const float* __restrict__ P, const float* __restrict__ Q,
+                     const int* __restrict__ slot_row,
+                     const int* __restrict__ slot_col, T* __restrict__ out,
+                     int nb, int B, int K) {
+  // Both tiles as [k][row]; the +4 padding keeps the transposed stores
+  // free of bank conflicts and the float4 reads aligned.
+  __shared__ __align__(16) float As[2][TK][TM + 4];
+  __shared__ __align__(16) float Bs[2][TK][TN + 4];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // columns tx*4.. and 64+tx*4..
+  const int ty = tid / 16;  // rows ty*4.. and 64+ty*4..
+  const int s = blockIdx.x;
+  const int m0 = blockIdx.y * TM;
+  const int n0 = blockIdx.z * TN;
+  // The zero slot has no operands: its steps are none and it writes 0.
+  const int nsteps = s < nb ? (K + TK - 1) / TK : 0;
+  const float* __restrict__ p =
+      s < nb ? P + (int64_t)slot_row[s] * B * K : P;
+  const float* __restrict__ q =
+      s < nb ? Q + (int64_t)slot_col[s] * B * K : Q;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  float a_reg[kLoads];
+  float b_reg[kLoads];
+
+  // Global -> registers for step t: row (m0|n0) + idx / TK, k kk + idx % TK.
+  auto load = [&](int t) {
+    const int kk = t * TK;
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / TK;
+      const int k = kk + idx % TK;
+      const bool k_ok = k < K;
+      a_reg[i] = (k_ok && m0 + r < B) ? p[(int64_t)(m0 + r) * K + k] : 0.f;
+      b_reg[i] = (k_ok && n0 + r < B) ? q[(int64_t)(n0 + r) * K + k] : 0.f;
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int idx = tid + i * kThreads;
+      As[buf][idx % TK][idx / TK] = a_reg[i];
+      Bs[buf][idx % TK][idx / TK] = b_reg[i];
+    }
+  };
+
+  if (nsteps > 0) {
+    load(0);
+    store(0);
+  }
+  __syncthreads();
+  for (int t = 0; t < nsteps; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < nsteps) load(t + 1);
+#pragma unroll
+    for (int c = 0; c < TK; ++c) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][c][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[buf][c][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][c][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&Bs[buf][c][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (t + 1 < nsteps) store(buf ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int lr = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (lr >= B) continue;
+    T* __restrict__ orow = out + ((int64_t)s * B + lr) * B;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int gc = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (gc < B) orow[gc] = from_float<T>(acc[i][j]);
+    }
+  }
+}
+
 template <bool TRANSPOSE>
 int launch(int device, int dtype, const void* blocks, const int* order,
            const int* src_blk, const int* seg_ptr, const void* src, void* out,
@@ -235,6 +356,33 @@ int block_spmm_t(int device, int dtype, const void* blocks,
                       static_cast<const int*>(slot_row),
                       static_cast<const int*>(cb_ptr), gb, out, C, B, K,
                       stream);
+}
+
+// The block-store gradient.  P (R*B, K) and Q (C*B, K) float32
+// row-major, the operands padded to whole blocks; slot_row, slot_col
+// (nb) int32; out (nb+1, B, B) float32 (dtype 0) or bfloat16 (dtype 1).
+int block_spmm_dblocks(int device, int dtype, const void* P, const void* Q,
+                       const void* slot_row, const void* slot_col, void* out,
+                       int nb, int B, int K, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (nb < 0 || B <= 0 || K < 0) return (int)cudaErrorInvalidValue;
+  dim3 grid(nb + 1, (B + TM - 1) / TM, (B + TN - 1) / TN);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(P);
+  const float* q = static_cast<const float*>(Q);
+  const int* sr = static_cast<const int*>(slot_row);
+  const int* sc = static_cast<const int*>(slot_col);
+  if (dtype == 0) {
+    block_dblocks_kernel<float><<<grid, kThreads, 0, s>>>(
+        p, q, sr, sc, static_cast<float*>(out), nb, B, K);
+  } else if (dtype == 1) {
+    block_dblocks_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        p, q, sr, sc, static_cast<__nv_bfloat16*>(out), nb, B, K);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 const char* kernel_error_string(int code) {

@@ -26,6 +26,15 @@
 // Hand-written CUDA like the package's other kernels (a Triton reduction
 // would also fit; the port builds every kernel with one toolchain).
 //
+// The backward (edge_softmax_bwd_f32) is the gradient JAX takes by
+// autodiff through ell_edge_softmax and models/gat.py:16-24: with p the
+// forward's output and g the output gradient,
+//   grad_l[e, h] = p[e, h] * (g[e, h] - sum_{e' in row r} p[e', h] * g[e', h]).
+// It is bound by bytes as the forward is (p and g read, grad_l written:
+// 12 bytes per edge and head), and runs on the same warp-per-row sweep: the
+// per-head dot sum_row p*g reduces across the warp, then a second sweep
+// writes p * (g - dot).  Rows are independent, so there are no atomics.
+//
 // The interface is plain C, bound from Python with ctypes: pointers come
 // in as void*, the launch goes on the caller's stream, and the return
 // value is cudaGetLastError() after the launch.
@@ -108,12 +117,65 @@ edge_softmax_generic_kernel(const int* __restrict__ rowptr,
   }
 }
 
+// Backward, H divides 32: one head per lane.
+template <int H>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+edge_softmax_bwd_kernel(const int* __restrict__ rowptr,
+                        const float* __restrict__ p,
+                        const float* __restrict__ g,
+                        float* __restrict__ out, int M) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= M) return;  // uniform across the warp
+  const int64_t lo = (int64_t)rowptr[row] * H;
+  const int64_t hi = (int64_t)rowptr[row + 1] * H;
+  if (lo == hi) return;
+
+  float d = 0.f;
+  for (int64_t i = lo + lane; i < hi; i += 32) d = fmaf(p[i], g[i], d);
+  d = warp_sum<H>(d);
+  for (int64_t i = lo + lane; i < hi; i += 32) out[i] = p[i] * (g[i] - d);
+}
+
+// Backward, any H: loop over heads, lanes stride over the row's edges.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+edge_softmax_bwd_generic_kernel(const int* __restrict__ rowptr,
+                                const float* __restrict__ p,
+                                const float* __restrict__ g,
+                                float* __restrict__ out, int M, int H) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= M) return;  // uniform across the warp
+  const int start = rowptr[row];
+  const int end = rowptr[row + 1];
+  for (int h = 0; h < H; ++h) {
+    float d = 0.f;
+    for (int e = start + lane; e < end; e += 32) {
+      const int64_t i = (int64_t)e * H + h;
+      d = fmaf(p[i], g[i], d);
+    }
+    d = warp_sum<1>(d);
+    for (int e = start + lane; e < end; e += 32) {
+      const int64_t i = (int64_t)e * H + h;
+      out[i] = p[i] * (g[i] - d);
+    }
+  }
+}
+
 template <int H>
 void launch(const int* rowptr, const float* logits, float* out, int M,
             cudaStream_t stream) {
   const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock);
   edge_softmax_kernel<H><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
       rowptr, logits, out, M);
+}
+
+template <int H>
+void launch_bwd(const int* rowptr, const float* p, const float* g,
+                float* out, int M, cudaStream_t stream) {
+  const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  edge_softmax_bwd_kernel<H><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      rowptr, p, g, out, M);
 }
 
 }  // namespace
@@ -142,6 +204,36 @@ int edge_softmax_f32(int device, const void* rowptr, const void* logits,
       const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock);
       edge_softmax_generic_kernel<<<grid, kWarpsPerBlock * 32, 0, s>>>(
           rp, lp, op, M, H);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The backward.  rowptr (M+1) int32; p (the forward's output), g (the
+// output gradient) and out (the logits' gradient), each (E, H) float32
+// row-major in CSR edge order.  Rows with no edge write nothing.
+int edge_softmax_bwd_f32(int device, const void* rowptr, const void* p,
+                         const void* g, void* out, int M, int H,
+                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (M <= 0 || H <= 0) return 0;
+  const int* rp = static_cast<const int*>(rowptr);
+  const float* pp = static_cast<const float*>(p);
+  const float* gp = static_cast<const float*>(g);
+  float* op = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (H) {
+    case 1: launch_bwd<1>(rp, pp, gp, op, M, s); break;
+    case 2: launch_bwd<2>(rp, pp, gp, op, M, s); break;
+    case 4: launch_bwd<4>(rp, pp, gp, op, M, s); break;
+    case 8: launch_bwd<8>(rp, pp, gp, op, M, s); break;
+    case 16: launch_bwd<16>(rp, pp, gp, op, M, s); break;
+    case 32: launch_bwd<32>(rp, pp, gp, op, M, s); break;
+    default: {
+      const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock);
+      edge_softmax_bwd_generic_kernel<<<grid, kWarpsPerBlock * 32, 0, s>>>(
+          rp, pp, gp, op, M, H);
     }
   }
   return (int)cudaGetLastError();

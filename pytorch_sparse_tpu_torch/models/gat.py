@@ -11,8 +11,11 @@ each head aggregates with the CSR SpMM autograd function, the attention
 as its per-call values.  That call bypasses the router, which would bake
 the values into a block store.  The adjacency's own values are ignored.
 
-On CUDA the forward runs under ``torch.no_grad()`` or
-``torch.inference_mode()``: the edge-softmax kernel has no backward yet.
+Training runs on the kernels on both passes: the edge softmax's
+backward kernel, ``edge_dot`` for each head's attention gradient and
+``csr_spmm`` over the CSC view for each head's operand gradient.
+:meth:`GAT.loss` is the masked mean negative log-likelihood; the JAX
+package's example trains with Adam at ``lr=5e-3``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from ..ops.kernels.edge_softmax import edge_softmax
 from ..ops.matmul import _CsrSum
 from ..tensor import SparseTensor
 from ..typing import DeviceLike, resolve_device
-from .gcn import _glorot
+from .gcn import _glorot, nll_loss
 
 _PARAMS = ("w1", "a1_src", "a1_dst", "w2", "a2_src", "a2_dst")
 
@@ -110,3 +113,9 @@ class GAT(nn.Module):
         h2 = (h @ self.w2).reshape(-1, 1, self.w2.shape[1])
         h2 = _attention_layer(adj, h2, self.a2_src, self.a2_dst)
         return h2[:, 0, :]
+
+    def loss(self, adj: SparseTensor, x: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """:func:`~pytorch_sparse_tpu_torch.models.gcn.nll_loss` of the
+        logits."""
+        return nll_loss(self(adj, x), labels, mask)

@@ -3,10 +3,13 @@
 
 Each layer projects first and then aggregates, ``x = A_hat @ (x W) + b``,
 so the SpMM runs at the layer's output width.  ReLU, then dropout when
-asked for, follow every layer but the last.  :meth:`GCN.loss` is the
-masked mean negative log-likelihood; a train step is ``loss.backward()``
-and an optimizer step (``torch.optim.Adam(lr=1e-2)`` in the JAX
-package's example).
+asked for, follow every layer but the last.  The adjacency is a
+:class:`SparseTensor` (the routed SpMM) or, as in the JAX package's
+``GCN.apply``, a prebuilt :class:`HybridFormat` or :class:`DenseFormat`
+(aggregated by ``hybrid_spmm``, whose store gets a gradient when it
+requires one).  :meth:`GCN.loss` is the masked mean negative
+log-likelihood; a train step is ``loss.backward()`` and an optimizer
+step (``torch.optim.Adam(lr=1e-2)`` in the JAX package's example).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.diag import fill_diag
+from ..ops.kernels.hybrid import DenseFormat, HybridFormat, hybrid_spmm
 from ..ops.matmul import spmm
 from ..segment import segment_sum
 from ..tensor import SparseTensor
@@ -46,6 +50,46 @@ def _glorot(generator: torch.Generator, fan_in: int, fan_out: int,
     return ((u * 2.0 - 1.0) * scale).to(dtype)
 
 
+def _layer_dims(in_dim: int, hidden_dim: int, out_dim: int,
+                num_layers: int):
+    return [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
+
+
+def _copy_layer_params(model: nn.Module, layers, names) -> None:
+    """Copy the numpy arrays ``layers[i][name]`` into ``model.<name>[i]``,
+    checking shapes."""
+    with torch.no_grad():
+        for i, layer in enumerate(layers):
+            for name in names:
+                p, arr = getattr(model, name)[i], np.array(layer[name])
+                if tuple(p.shape) != arr.shape:
+                    raise ValueError(f"layer {i} {name} has shape "
+                                     f"{arr.shape}, expected {tuple(p.shape)}")
+                p.copy_(torch.from_numpy(arr))
+
+
+def nll_loss(logits: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under the log-softmax
+    of ``logits``; with ``mask`` (one weight per node, e.g. the training
+    split as 0/1) the masked mean ``sum(nll * mask) / max(sum(mask),
+    1)``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _aggregate(adj, h: torch.Tensor) -> torch.Tensor:
+    """``adj @ h``: a prebuilt hybrid or dense view through
+    ``hybrid_spmm``, a :class:`SparseTensor` through the routed SpMM."""
+    if isinstance(adj, (HybridFormat, DenseFormat)):
+        return hybrid_spmm(adj, h)
+    return spmm(adj, h, reduce="sum")
+
+
 class GCN(nn.Module):
     """n-layer GCN: ``in_dim -> hidden_dim x (num_layers-1) -> out_dim``.
 
@@ -63,7 +107,7 @@ class GCN(nn.Module):
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
+        dims = _layer_dims(in_dim, hidden_dim, out_dim, num_layers)
         self.weights = nn.ParameterList(
             nn.Parameter(_glorot(generator, dims[i], dims[i + 1],
                                  dtype).to(dev))
@@ -91,7 +135,7 @@ class GCN(nn.Module):
                 model.biases[i].copy_(torch.from_numpy(np.array(layer["b"])))
         return model
 
-    def forward(self, adj: SparseTensor, x: torch.Tensor,
+    def forward(self, adj, x: torch.Tensor,
                 dropout_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Logits ``(M, out_dim)``.  With ``dropout_rate > 0`` each hidden
@@ -101,7 +145,7 @@ class GCN(nn.Module):
         device's default generator when None)."""
         n = len(self.weights)
         for i, (w, b) in enumerate(zip(self.weights, self.biases)):
-            x = spmm(adj, x @ w, reduce="sum") + b
+            x = _aggregate(adj, x @ w) + b
             if i < n - 1:
                 x = torch.relu(x)
                 if dropout_rate > 0.0:
@@ -110,17 +154,8 @@ class GCN(nn.Module):
                     x = torch.where(keep, x / (1.0 - dropout_rate), 0.0)
         return x
 
-    def loss(self, adj: SparseTensor, x: torch.Tensor, labels: torch.Tensor,
+    def loss(self, adj, x: torch.Tensor, labels: torch.Tensor,
              mask: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Mean negative log-likelihood of ``labels`` under the
-        log-softmax of the logits; with ``mask`` (one weight per node,
-        e.g. the training split as 0/1) the masked mean
-        ``sum(nll * mask) / max(sum(mask), 1)``."""
-        logits = self(adj, x, dropout_rate, generator)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
-        if mask is None:
-            return nll.mean()
-        mask = mask.to(nll.dtype)
-        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        """:func:`nll_loss` of the logits."""
+        return nll_loss(self(adj, x, dropout_rate, generator), labels, mask)

@@ -14,8 +14,8 @@ from .spgemm import (  # noqa
     spspmm_stream, spspmm_stream_device,
 )
 from .kernels.hybrid import (  # noqa
-    DenseFormat, HybridFormat, build_dense, build_hybrid, dense_spmm,
-    hybrid_spmm,
+    DenseFormat, HybridFormat, build_dense, build_hybrid,
+    build_hybrid_from_tensor, dense_spmm, hybrid_spmm,
 )
 from .transpose import t, transpose  # noqa
 from .coalesce import coalesce  # noqa

@@ -4,20 +4,26 @@
   ``out[slot_row[s]] += blocks[s] @ xb[slot_col[s]]`` for every slot.
 * :func:`block_spmm_t`, the transpose over the column-block schedule
   ``order_t``: ``out[slot_col[s]] += blocks[s]^T @ gb[slot_row[s]]``.
+* :func:`block_spmm_dblocks`, the gradient of the block store:
+  ``out[s] = p[slot_row[s]] @ q[slot_col[s]]^T`` for every slot, cast
+  to the store dtype, and an all-zero trailing block.
 
 They replace the JAX package's block-dense route
 (``pytorch_sparse_tpu/ops/kernels/hybrid.py``: ``_block_pass``,
 ``_scan_block_pass`` with the ``"sbc,sck->sbk"`` and ``"sbc,sbk->sck"``
-equations of ``_mxu_einsum_impl``, and the block pass of
-``hybrid_spmm_t``).  One CUDA kernel (``csrc/block_spmm.cu``) serves
-both: it gives each output block to one set of thread blocks, which
-walk that block's slots in schedule order and accumulate in fp32
-registers; there is no segment-sum and no atomic.
+equations of ``_mxu_einsum_impl``, the block pass of ``hybrid_spmm_t``,
+and the ``d_ab`` half of ``_mxu_einsum_bwd``).  One CUDA source
+(``csrc/block_spmm.cu``) serves all three: the passes give each output
+block to one set of thread blocks, which walk that block's slots in
+schedule order and accumulate in fp32 registers; the gradient gives each
+slot's output block to its own thread blocks.  There is no segment-sum
+and no atomic.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
-PyTorch version (:func:`block_spmm_plain`, :func:`block_spmm_t_plain`)
-for CPU tensors.  Other devices raise.  ``block_spmm.launches`` and
-``block_spmm_t.launches`` count kernel launches.
+PyTorch version (:func:`block_spmm_plain`, :func:`block_spmm_t_plain`,
+:func:`block_spmm_dblocks_plain`) for CPU tensors.  Other devices
+raise.  ``block_spmm.launches``, ``block_spmm_t.launches`` and
+``block_spmm_dblocks.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -52,6 +58,12 @@ def _kernel_lib():
             ctypes.c_void_p,
         ]
         lib.block_spmm_t.restype = ctypes.c_int
+        lib.block_spmm_dblocks.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.block_spmm_dblocks.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -214,3 +226,78 @@ def block_spmm_t(blocks: torch.Tensor, slot_row: torch.Tensor,
 
 
 block_spmm_t.launches = 0
+
+
+def _check_args_d(p, q, slot_row, slot_col, B) -> None:
+    if slot_row.dtype != INDEX_DTYPE or slot_col.dtype != INDEX_DTYPE:
+        raise TypeError("slot_row and slot_col must be int32")
+    if slot_row.shape != slot_col.shape or slot_row.dim() != 1:
+        raise ValueError("slot_row and slot_col must be (nb,)")
+    if (p.dim() != 2 or q.dim() != 2 or p.shape[1] != q.shape[1]
+            or p.shape[0] % B or q.shape[0] % B):
+        raise ValueError("p must be (R*B, K) and q (C*B, K)")
+    devs = {t.device for t in (p, q, slot_row, slot_col)}
+    if len(devs) != 1:
+        raise ValueError("block_spmm_dblocks operands lie on different "
+                         "devices")
+
+
+def block_spmm_dblocks_plain(p: torch.Tensor, q: torch.Tensor,
+                             slot_row: torch.Tensor, slot_col: torch.Tensor,
+                             B: int, dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version: gather each slot's row block of ``p`` and
+    column block of ``q``, multiply with ``torch.bmm`` in the
+    accumulation dtype, in chunks of slots, and cast to ``dtype``."""
+    _check_args_d(p, q, slot_row, slot_col, B)
+    K = p.shape[1]
+    nb = slot_row.shape[0]
+    acc = torch.promote_types(p.dtype, torch.float32)
+    pv = p.reshape(-1, B, K).to(acc)
+    qv = q.reshape(-1, B, K).to(acc)
+    out = torch.zeros((nb + 1, B, B), dtype=dtype, device=p.device)
+    step = max(1, _PLAIN_CHUNK_BYTES // max(B * max(B, K) * 4, 1))
+    for s in range(0, nb, step):
+        e = min(s + step, nb)
+        out[s:e] = torch.bmm(pv[slot_row[s:e].long()],
+                             qv[slot_col[s:e].long()].transpose(1, 2))
+    return out
+
+
+def block_spmm_dblocks(p: torch.Tensor, q: torch.Tensor,
+                       slot_row: torch.Tensor, slot_col: torch.Tensor,
+                       B: int, dtype: torch.dtype) -> torch.Tensor:
+    """``(nb+1, B, B)`` gradient of a block store in ``dtype`` (float32
+    or bfloat16): ``out[s] = p[slot_row[s]] @ q[slot_col[s]]^T`` summed
+    in fp32, and ``out[nb] = 0``.  ``p`` ``(R*B, K)`` and ``q``
+    ``(C*B, K)`` float32, the row-block and column-block operands padded
+    to whole blocks; ``slot_row``/``slot_col`` ``(nb,)`` int32.
+
+    CUDA tensors run the hand-written kernel; CPU tensors run
+    :func:`block_spmm_dblocks_plain`."""
+    _check_args_d(p, q, slot_row, slot_col, B)
+    dev = p.device
+    if dev.type == "cpu":
+        return block_spmm_dblocks_plain(p, q, slot_row, slot_col, B, dtype)
+    if dev.type != "cuda":
+        raise NotImplementedError(
+            f"block_spmm_dblocks has no kernel for {dev.type}")
+    if (dtype not in _STORE_CODES or p.dtype != torch.float32
+            or q.dtype != torch.float32):
+        raise TypeError("the block_spmm_dblocks kernel takes float32 "
+                        "operands and writes a float32 or bfloat16 store")
+    for t in (p, q, slot_row, slot_col):
+        if not t.is_contiguous():
+            raise ValueError("block_spmm_dblocks operands must be contiguous")
+    nb, K = slot_row.shape[0], p.shape[1]
+    out = torch.empty((nb + 1, B, B), dtype=dtype, device=dev)
+    lib = _kernel_lib()
+    rc = lib.block_spmm_dblocks(
+        dev.index, _STORE_CODES[dtype], p.data_ptr(), q.data_ptr(),
+        slot_row.data_ptr(), slot_col.data_ptr(), out.data_ptr(), nb, B, K,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "block_spmm_dblocks launch")
+    block_spmm_dblocks.launches += 1
+    return out
+
+
+block_spmm_dblocks.launches = 0

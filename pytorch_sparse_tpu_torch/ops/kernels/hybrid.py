@@ -23,6 +23,11 @@ Format (built host-side, then uploaded):
   same edges as a CSC ``(colptr, row, value)`` sorted by (col, row), or
   None.
 
+* ``row_map`` / ``M_pad``: on a block-aligned layout
+  (:func:`build_hybrid_from_tensor` with a ``partptr``), node ``i`` lives
+  at padded position ``row_map[i]`` of the ``(M_pad, M_pad)`` internal
+  matrix, so that every part starts on a block boundary; else None / 0.
+
 Forward (:func:`hybrid_spmm`) and transpose (:func:`hybrid_spmm_t`, the
 ``grad_mat`` pass)::
 
@@ -30,6 +35,13 @@ Forward (:func:`hybrid_spmm`) and transpose (:func:`hybrid_spmm_t`, the
     out = out + csr_spmm(rest, x)          # remainder added after
     out_t = block_spmm_t(blocks, slot_row, order_t, cb_ptr, pad(g))[:N]
     out_t = out_t + csr_spmm(rest_t, g)
+
+Both are differentiable in the operand and in the store (``blocks``, or
+``dense`` of a :class:`DenseFormat`), as the JAX package's custom VJP
+``_mxu_einsum`` is: each direction's operand gradient is the other
+direction, and the store's gradient is the ``block_spmm_dblocks`` kernel
+(a matrix product for the dense store), run only when the store
+requires grad.  The remainder's CSR values get no gradient.
 
 The block and dense stores bake the build-time values; the storage
 layer drops the view on ``set_value`` and when the values are written
@@ -47,10 +59,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from ...typing import DeviceLike, resolve_device
 from ...utils.host_sort import lexsort2, stable_argsort
-from .block_spmm import block_spmm, block_spmm_t
+from .block_spmm import block_spmm, block_spmm_dblocks, block_spmm_t
 from .csr_spmm import csr_spmm
 
 # ----------------------------------------------------------------------
@@ -142,7 +155,8 @@ _Csr = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 class HybridFormat:
     def __init__(self, blocks, slot_row, slot_col, rb_ptr, order_t, cb_ptr,
                  rest: _Csr, rest_t: _Csr, M: int, N: int, B: int,
-                 dense_nnz: int):
+                 dense_nnz: int, row_map: Optional[torch.Tensor] = None,
+                 M_pad: int = 0):
         self.blocks = blocks
         self.slot_row = slot_row
         self.slot_col = slot_col
@@ -153,6 +167,8 @@ class HybridFormat:
         self.rest_t = rest_t
         self.M, self.N, self.B = M, N, B
         self.dense_nnz = dense_nnz
+        self.row_map = row_map
+        self.M_pad = M_pad
 
     @property
     def nb(self) -> int:
@@ -334,19 +350,146 @@ def _pad_to_blocks(a: torch.Tensor, B: int) -> torch.Tensor:
     return torch.cat([a, a.new_zeros((pad, a.shape[1]))]) if pad else a
 
 
+def _align_to_blocks(row: np.ndarray, col: np.ndarray, partptr,
+                     B: int) -> Tuple[np.ndarray, np.ndarray, int, np.ndarray]:
+    """Renumber nodes so that every part of ``partptr`` starts on a
+    block boundary: each part keeps its order and is padded to a
+    multiple of ``B`` (the map is strictly increasing).  Returns
+    ``(row', col', M_pad, row_map)``."""
+    pp = np.asarray(partptr, np.int64)
+    sizes = np.diff(pp)
+    padded = -(-sizes // B) * B
+    new_starts = np.concatenate([[0], np.cumsum(padded)])
+    M_pad = int(new_starts[-1])
+    part_of = np.repeat(np.arange(sizes.size), sizes)
+    offset_in_part = np.arange(pp[-1]) - np.repeat(pp[:-1], sizes)
+    row_map = new_starts[part_of] + offset_in_part
+    return row_map[row], row_map[col], M_pad, row_map
+
+
+def _inner(h: HybridFormat) -> HybridFormat:
+    """The padded-space view of a block-aligned format."""
+    return HybridFormat(h.blocks, h.slot_row, h.slot_col, h.rb_ptr,
+                        h.order_t, h.cb_ptr, h.rest, h.rest_t, h.M_pad,
+                        h.M_pad, h.B, h.dense_nnz)
+
+
+def build_hybrid_from_tensor(A, B: int = 512,
+                             min_density: Optional[float] = None,
+                             K_hint: int = 128,
+                             block_dtype: Optional[torch.dtype] = None,
+                             partptr=None) -> HybridFormat:
+    """The hybrid view of a :class:`SparseTensor`'s values, on its
+    device.  With ``partptr`` (the part boundaries of a community- or
+    partition-ordered square matrix) the layout is block-aligned: each
+    part starts on a block boundary, so that communities fill whole
+    blocks; :func:`hybrid_spmm` maps the operand and the result through
+    ``row_map``."""
+    value = A.storage.value()
+    row = A.storage.numpy_view("row")
+    col = A.storage.numpy_view("col")
+    val = None if value is None else value.detach().cpu().numpy()
+    M, N = A.sparse_sizes()
+    kw = dict(B=B, min_density=min_density, K_hint=K_hint,
+              block_dtype=block_dtype, device=A.device())
+    if partptr is None:
+        return build_hybrid(row, col, val, M, N, **kw)
+    assert M == N, "block alignment assumes a square (symmetric-layout) matrix"
+    row2, col2, M_pad, row_map = _align_to_blocks(row, col, partptr, B)
+    h = build_hybrid(row2, col2, val, M_pad, M_pad, **kw)
+    h.row_map = torch.from_numpy(row_map.astype(np.int32)).to(A.device())
+    h.M_pad = M_pad
+    return h
+
+
+def _product(h, x: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """``A @ x`` (or ``A^T @ x``) in padded space on the kernels, in
+    ``x``'s dtype; half precision operands compute in float32."""
+    if isinstance(h, DenseFormat):
+        a = h.dense.t() if transpose else h.dense
+        return _dense_matmul(a, x).to(x.dtype)
+    xa = x.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
+    xb = _pad_to_blocks(xa, h.B)
+    if transpose:
+        out = block_spmm_t(h.blocks, h.slot_row, h.order_t, h.cb_ptr, xb)
+        out, rest = out[:h.N].to(x.dtype), h.rest_t
+    else:
+        out = block_spmm(h.blocks, h.slot_col, h.rb_ptr, xb)
+        out, rest = out[:h.M].to(x.dtype), h.rest
+    if rest is not None:
+        ptr, idx, val = rest
+        out = out + csr_spmm(ptr, idx, val.to(xa.dtype), xa).to(x.dtype)
+    return out
+
+
+def _store_grad(h, x: torch.Tensor, grad: torch.Tensor,
+                transpose: bool) -> torch.Tensor:
+    """Gradient of the store of ``_product(h, x, transpose)`` for the
+    output gradient ``grad``, in the store's dtype: the row-side operand
+    times the column-side one transposed (``grad`` and ``x`` forward,
+    ``x`` and ``grad`` for the transpose), block by block on the
+    ``block_spmm_dblocks`` kernel, or one matrix product for the dense
+    store."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    rows, cols = (x, grad) if transpose else (grad, x)
+    if isinstance(h, DenseFormat):
+        dt = torch.promote_types(acc, h.dense.dtype)
+        return torch.mm(rows.to(dt), cols.to(dt).t()).to(h.dense.dtype)
+    p = _pad_to_blocks(rows.to(acc).contiguous(), h.B)
+    q = _pad_to_blocks(cols.to(acc).contiguous(), h.B)
+    return block_spmm_dblocks(p, q, h.slot_row, h.slot_col, h.B,
+                              h.blocks.dtype)
+
+
+class _StoreProduct(torch.autograd.Function):
+    """``A @ x`` (``transpose`` False) or ``A^T @ x`` (True) through a
+    padded-space :class:`HybridFormat` or a :class:`DenseFormat`, with
+    ``store`` (``h.blocks`` or ``h.dense``) as an input so that autograd
+    can give it its gradient.  Backward: the operand's gradient is the
+    other direction (``block_spmm_t`` or ``block_spmm`` plus the CSR
+    remainder's other view); the store's is :func:`_store_grad`, run
+    only when the store requires grad.  The remainder's values get no
+    gradient.  ``x`` is kept only for the store's gradient."""
+
+    @staticmethod
+    def forward(ctx, h, store, x, transpose: bool):
+        ctx.h, ctx.transpose = h, transpose
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None)
+        return _product(h, x, transpose)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        grad = grad.contiguous()  # autograd gives it the output's dtype
+        grad_store = grad_x = None
+        if ctx.needs_input_grad[1]:
+            grad_store = _store_grad(ctx.h, x, grad, ctx.transpose)
+        if ctx.needs_input_grad[2]:
+            grad_x = _product(ctx.h, grad, not ctx.transpose)
+        return None, grad_store, grad_x, None
+
+
+def _spmm(h, x: torch.Tensor, transpose: bool) -> torch.Tensor:
+    if isinstance(h, DenseFormat):
+        return _StoreProduct.apply(h, h.dense, x, transpose)
+    if h.row_map is not None:
+        # Block-aligned layout: scatter x into its padded positions (the
+        # padding rows stay exactly zero), run, gather back; autograd
+        # carries both.
+        rm = h.row_map.long()
+        xp = x.new_zeros((h.M_pad, x.shape[1])).index_copy(0, rm, x)
+        return _spmm(_inner(h), xp, transpose)[rm]
+    return _StoreProduct.apply(h, h.blocks, x, transpose)
+
+
 def hybrid_spmm(h, x: torch.Tensor) -> torch.Tensor:
     """``out = A @ x`` through a :class:`HybridFormat` or
     :class:`DenseFormat`; (N, K) -> (M, K) in ``x``'s dtype.  Half
-    precision operands compute in float32."""
-    if isinstance(h, DenseFormat):
-        return dense_spmm(h, x)
-    xa = x.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
-    xb = _pad_to_blocks(xa, h.B)
-    out = block_spmm(h.blocks, h.slot_col, h.rb_ptr, xb)[:h.M].to(x.dtype)
-    if h.rest is not None:
-        rowptr, col, val = h.rest
-        out = out + csr_spmm(rowptr, col, val.to(xa.dtype), xa).to(x.dtype)
-    return out
+    precision operands compute in float32.  Differentiable in ``x`` and
+    in ``h.blocks``/``h.dense`` (when it requires grad); the remainder's
+    CSR values (``h.rest``, ``h.rest_t``) get no gradient."""
+    return _spmm(h, x, False)
 
 
 def hybrid_spmm_t(h, g: torch.Tensor) -> torch.Tensor:
@@ -354,17 +497,8 @@ def hybrid_spmm_t(h, g: torch.Tensor) -> torch.Tensor:
     schedule ``order_t`` and the remainder's CSC) or a
     :class:`DenseFormat`; (M, K) -> (N, K) in ``g``'s dtype.  It backs
     ``grad_mat`` of the routed SpMM.  Half precision operands compute in
-    float32."""
-    if isinstance(h, DenseFormat):
-        return dense_spmm_t(h, g)
-    ga = g.to(torch.promote_types(g.dtype, torch.float32)).contiguous()
-    gb = _pad_to_blocks(ga, h.B)
-    out = block_spmm_t(h.blocks, h.slot_row, h.order_t, h.cb_ptr,
-                       gb)[:h.N].to(g.dtype)
-    if h.rest_t is not None:
-        colptr, row, val = h.rest_t
-        out = out + csr_spmm(colptr, row, val.to(ga.dtype), ga).to(g.dtype)
-    return out
+    float32.  Differentiable as :func:`hybrid_spmm` is."""
+    return _spmm(h, g, True)
 
 
 def _split_bf16(x: torch.Tensor, parts: int):
@@ -409,10 +543,11 @@ def _dense_matmul(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def dense_spmm(d: DenseFormat, x: torch.Tensor) -> torch.Tensor:
-    return _dense_matmul(d.dense, x).to(x.dtype)
+    """``d @ x``, differentiable in ``x`` and in ``d.dense``."""
+    return _spmm(d, x, False)
 
 
 def dense_spmm_t(d: DenseFormat, g: torch.Tensor) -> torch.Tensor:
     """``d^T @ g``: the transpose product of the dense route, with the
-    same store-dtype rules as :func:`dense_spmm`."""
-    return _dense_matmul(d.dense.t(), g).to(g.dtype)
+    same store-dtype rules and gradients as :func:`dense_spmm`."""
+    return _spmm(d, g, True)

@@ -15,11 +15,12 @@ import torch
 import pytorch_sparse_tpu_torch as pts
 from pytorch_sparse_tpu_torch.ops.kernels import (
     block_spgemm_window, block_spgemm_window_plain, block_spmm,
-    block_spmm_plain, block_spmm_t, block_spmm_t_plain, csr_spmm,
-    csr_spmm_minmax, csr_spmm_minmax_plain, csr_spmm_plain, edge_dot,
-    edge_dot_plain, edge_softmax, edge_softmax_plain, minmax_edge_dot,
-    minmax_edge_dot_plain, minmax_spmm_t, minmax_spmm_t_plain, plan_numeric,
-    plan_numeric_plain)
+    block_spmm_dblocks, block_spmm_dblocks_plain, block_spmm_plain,
+    block_spmm_t, block_spmm_t_plain, csr_spmm, csr_spmm_minmax,
+    csr_spmm_minmax_plain, csr_spmm_plain, edge_dot, edge_dot_plain,
+    edge_softmax, edge_softmax_bwd, edge_softmax_bwd_plain,
+    edge_softmax_plain, minmax_edge_dot, minmax_edge_dot_plain,
+    minmax_spmm_t, minmax_spmm_t_plain, plan_numeric, plan_numeric_plain)
 from pytorch_sparse_tpu_torch.ops.kernels import hybrid as phyb
 from pytorch_sparse_tpu_torch.testing import rel_err
 
@@ -231,9 +232,10 @@ def test_minmax_kernel_half_operands_on_gpu(dtype, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("H", [1, 3, 8, 32, 40])
 def test_edge_softmax_matches_plain_on_gpu(H):
-    """K8 against its plain version (1e-5 of max |ref|; NaN on a row-head
-    whose logits are all -inf, in both), on a matrix with empty rows and
-    one row of 3,000 edges; a CUDA logits that requires grad raises."""
+    """K8 and K8b against their plain versions (1e-5 of max |ref|; NaN on
+    a row-head whose logits are all -inf, in both), on a matrix with
+    empty rows and one row of 3,000 edges; a CUDA logits that requires
+    grad gets its gradient from one K8b launch."""
     _need_gpu()
     rng = np.random.RandomState(33)
     M, E = 3000, 24_000
@@ -246,8 +248,16 @@ def test_edge_softmax_matches_plain_on_gpu(H):
     logits = torch.from_numpy(logits).cuda()
     got = edge_softmax(rowptr, logits)
     _same(got, edge_softmax_plain(rowptr, logits), 1e-5)
-    with pytest.raises(NotImplementedError, match="backward"):
-        edge_softmax(rowptr, logits.clone().requires_grad_(True))
+    g = torch.from_numpy(_x(39, E + 3000, H)).cuda()
+    _same(edge_softmax_bwd(rowptr, got, g),
+          edge_softmax_bwd_plain(rowptr, got, g), 1e-5)
+    finite = torch.where(torch.isinf(logits), -30.0, logits)
+    lt = finite.clone().requires_grad_(True)
+    edge_softmax_bwd.launches = 0
+    (edge_softmax(rowptr, lt) * g).sum().backward()
+    assert edge_softmax_bwd.launches == 1
+    p = edge_softmax_plain(rowptr, finite)
+    _same(lt.grad, edge_softmax_bwd_plain(rowptr, p, g), 1e-5)
 
 
 @pytest.mark.gpu
@@ -431,3 +441,157 @@ def test_stream_raw_runs_plan_numeric_on_gpu(dtype):
         assert isinstance(v, np.ndarray) and v.dtype == np.float32
         assert rel_err(torch.from_numpy(v), torch.from_numpy(v_c)) <= (
             1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def _slots(rng, R, C, nb):
+    keys = np.sort(rng.choice(R * C, nb, replace=False))
+    return [torch.from_numpy(a.astype(np.int32)).cuda()
+            for a in (keys // C, keys % C)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K", [(128, 40), (128, 256), (100, 70), (512, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_dblocks_matches_plain_on_gpu(B, K, dtype):
+    """K5b against its plain version (1e-5 of max |ref| before the final
+    cast; a bf16 store within one bf16 step): both forms, which differ
+    only in their operands, ragged B and K, and the zero trailing slot."""
+    _need_gpu()
+    rng = np.random.RandomState(46)
+    R, C, nb = 6, 5, 17
+    slot_row, slot_col = _slots(rng, R, C, nb)
+    # The forward's (grad_out, x) and the transpose's (g, grad_out): row
+    # blocks of one operand against column blocks of the other.
+    for seeds in ((47, 48), (57, 58)):
+        args = (torch.from_numpy(_x(seeds[0], R * B, K)).cuda(),
+                torch.from_numpy(_x(seeds[1], C * B, K)).cuda())
+        got = block_spmm_dblocks(*args, slot_row, slot_col, B, dtype)
+        ref = block_spmm_dblocks_plain(*args, slot_row, slot_col, B,
+                                       torch.float32)
+        assert got.dtype == dtype and got.shape == (nb + 1, B, B)
+        assert bool((got[nb] == 0).all())
+        if dtype == torch.float32:
+            assert rel_err(got, ref) <= 1e-5
+        else:
+            step = ref.abs() * 2.0 ** -7 + 1e-5 * float(ref.abs().max())
+            assert bool(((got.float() - ref).abs() <= step).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("store", [None, torch.bfloat16])
+def test_hybrid_spmm_grads_match_cpu(store, aligned):
+    """C.1: on the card ``hybrid_spmm`` and ``hybrid_spmm_t`` return
+    tensors with a ``grad_fn``, and their gradients for the operand and
+    the block store equal the CPU's, on an unaligned and a block-aligned
+    hybrid of a community graph."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.testing import community_graph
+
+    M, n_comm = 6_000, 8
+    partptr = np.linspace(0, M, n_comm + 1).astype(np.int64)
+    res = []
+    for dev in ("cpu", "cuda"):
+        A = community_graph(M, 200_000, n_comm=n_comm, seed=1,
+                            equal_sizes=True, device=dev)
+        h = phyb.build_hybrid_from_tensor(
+            A, B=256, min_density=0.02, block_dtype=store,
+            partptr=partptr if aligned else None)
+        h.blocks.requires_grad_(True)
+        grads = []
+        for fn in (phyb.hybrid_spmm, phyb.hybrid_spmm_t):
+            x = torch.from_numpy(_x(49, M, 64)).to(dev).requires_grad_(True)
+            gout = torch.from_numpy(_x(50, M, 64)).to(dev)
+            block_spmm_dblocks.launches = 0
+            out = fn(h, x)
+            assert out.grad_fn is not None
+            gb, gx = torch.autograd.grad(out, (h.blocks, x), gout)
+            if dev == "cuda":
+                assert block_spmm_dblocks.launches == 1
+            grads += [out.detach().cpu(), gx.cpu(), gb.float().cpu()]
+        res.append(grads)
+    for i, (got, ref) in enumerate(zip(res[1], res[0])):
+        if store is not None and i % 3 == 2:  # bf16 store gradient
+            step = ref.abs() * 2.0 ** -7 + 1e-5 * float(ref.abs().max())
+            assert bool(((got - ref).abs() <= step).all())
+        else:
+            assert rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_gat_train_step_matches_cpu():
+    """One GAT Adam step (lr 5e-3) on the card against the CPU: the loss,
+    every gradient and the stepped weights; the step launches the
+    edge-softmax kernels twice each, csr_spmm once per head and output
+    layer in each direction and edge_dot as often."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.models import GAT
+
+    rng = np.random.RandomState(51)
+    row, col = rng.randint(0, 2500, 20_000), rng.randint(0, 2500, 20_000)
+    x = _x(52, 2500, 32)
+    labels = torch.from_numpy(rng.randint(0, 7, 2500))
+    res = []
+    for dev in ("cpu", "cuda"):
+        A = pts.SparseTensor(row=row, col=col, sparse_sizes=(2500, 2500),
+                             device=dev).set_diag()
+        model = GAT(32, 8, 7, heads=8,
+                    generator=torch.Generator().manual_seed(1), device=dev)
+        opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+        for f in (edge_softmax, edge_softmax_bwd, csr_spmm, edge_dot):
+            f.launches = 0
+        loss = model.loss(A, torch.from_numpy(x).to(dev), labels.to(dev))
+        loss.backward()
+        grads = [p.grad.cpu() for p in model.parameters()]
+        opt.step()
+        if dev == "cuda":
+            assert (edge_softmax.launches, edge_softmax_bwd.launches,
+                    csr_spmm.launches, edge_dot.launches) == (2, 2, 18, 9)
+        res.append([loss.detach().cpu()] + grads
+                   + [p.detach().cpu() for p in model.parameters()])
+    for got, ref in zip(res[1], res[0]):
+        assert rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gcn_hybrid", "sage", "gin"])
+def test_model_train_step_matches_cpu(kind):
+    """One Adam step of GCN on a block-aligned prebuilt hybrid (its
+    blocks requiring grad), GraphSAGE and GIN on the card against the
+    CPU: the loss and every gradient, to 1e-4 of each gradient's largest
+    entry.  The bias and ``eps`` gradients are means over the nodes of
+    terms that cancel to a tenth of their size (softmax minus one-hot at
+    a random init), which amplifies the two devices' summation orders
+    past 1e-5 (1.2e-5 seen for GCN's output bias)."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.models import GCN, GIN, GraphSAGE, gcn_norm
+    from pytorch_sparse_tpu_torch.testing import community_graph
+
+    M = 4_000
+    x = _x(53, M, 32)
+    labels = torch.from_numpy(np.random.RandomState(54).randint(0, 5, M))
+    res = []
+    for dev in ("cpu", "cuda"):
+        A = community_graph(M, 120_000, n_comm=8, seed=2, equal_sizes=True,
+                            device=dev)
+        gen = torch.Generator().manual_seed(5)
+        extra = []
+        if kind == "gcn_hybrid":
+            adj = phyb.build_hybrid_from_tensor(
+                gcn_norm(A), B=256, min_density=0.02,
+                partptr=np.linspace(0, M, 9).astype(np.int64))
+            adj.blocks.requires_grad_(True)
+            extra = [adj.blocks]
+            model = GCN(32, 48, 5, num_layers=3, generator=gen, device=dev)
+        else:
+            adj = A
+            cls = GraphSAGE if kind == "sage" else GIN
+            model = cls(32, 48, 5, num_layers=3, generator=gen, device=dev)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+        loss = model.loss(adj, torch.from_numpy(x).to(dev), labels.to(dev))
+        loss.backward()
+        opt.step()
+        res.append([loss.detach().cpu()] + [
+            t.grad.cpu() for t in list(model.parameters()) + extra])
+    for got, ref in zip(res[1], res[0]):
+        assert rel_err(got, ref) <= 1e-4
