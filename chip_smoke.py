@@ -36,7 +36,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    x dense-block share (512x512 blocks of density 0.02, windows of 2048
    output blocks) of the community hybrid graph (f32 and bf16 stores; 8
    sampled output blocks also against float64 host products) and of the
-   Reddit-10% graph.
+   Reddit-10% graph.  ``random_walk`` at PyG's Node2Vec configuration
+   (``examples/node2vec.py``, p = q = 1: 10 walks of 20 steps from every
+   node of the uniform graph, 1,693,430 walks), on the uniform graph with
+   every third row emptied and on a small graph with 200 rows of degree
+   0; the walks must equal the plain version's exactly.
    Each is timed with CUDA events beside its plain version, a PyTorch
    library yardstick that the port never calls (none computes an
    argout), and its bound on an H100
@@ -117,8 +121,30 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    40) on the uniform graph (implicit ones), one ``Adam(lr=1e-2)`` step
    each, held against the plain CSR version with this run's ReLU
    decisions.
+12. GraphSAINT-RW training on the ogbn-products-scale synthetic graph of
+   the JAX package's ``benchmarks/products_pipeline.py`` (2,449,029
+   nodes, 123,718,280 draws, 106,159,079 edges after coalescing), at
+   OGB's products
+   ``graph_saint.py`` setting: 20,000 roots from a seeded CUDA
+   generator, ``random_walk`` of length 3 (K12), ``torch.unique``,
+   ``saint_subgraph`` on the host, features gathered on the card, one
+   GraphSAGE step (100 -> 256 -> 256 -> 47, ``Adam(lr=1e-3)``) a batch,
+   three batches.  Every walk step must be an edge or a stay at a node
+   of degree 0, each subgraph must equal scipy's ``A[idx][:, idx]``, and
+   the first step's loss and gradients the plain CSR version's (with
+   this run's ReLU decisions).
+13. Neighbour-sampled GraphSAGE on the same graph and model at PyG's
+   ``ogbn_products_sage.py`` setting (batch 1,024, fanouts 15, 10, 5):
+   ``sample_adj`` per hop, innermost first, a bipartite forward in the
+   form of ``examples/train_sage_minibatch.py`` (no padding); three
+   batches in turn, then the same three through
+   ``MinibatchPrefetcher(num_workers=2)``, which must be identical.
+   Every sampled edge id must lie in its row, no row may hold a column
+   twice, each row must hold ``min(deg, k)`` edges, ``n_id`` must start
+   with the frontier, and the first step must match the plain CSR
+   version.
 
-The main path is phases 4 to 11, each driven once with every launch
+The main path is phases 4 to 13, each driven once with every launch
 count set to 0 just before it and read just after it.  Each phase must
 launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
 those and ``block_spmm_t`` and ``edge_dot``; 4c: ``csr_spmm_minmax``,
@@ -129,8 +155,9 @@ terms, ``block_spgemm_window`` in 8c and not in 8a; 9: ``block_spmm``,
 ``block_spmm_t`` and ``csr_spmm``, ``block_spmm_dblocks`` three times,
 all in the second step, and no ``edge_dot``; 10: ``edge_softmax`` and
 ``edge_softmax_bwd`` twice each, ``csr_spmm`` 18 times and ``edge_dot``
-9 times; 11: ``csr_spmm``), and the ``kernels`` line reports each
-kernel's launches summed over them.
+9 times; 11: ``csr_spmm``; 12: ``random_walk`` and ``csr_spmm``; 13:
+``csr_spmm``; 12 and 13 no block kernel), and the ``kernels`` line
+reports each kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
 """
@@ -167,6 +194,15 @@ SPGEMM_WINDOW = 2048                       # output blocks per K10 window
 ALIGNED_B = 512                            # phase 9's block size
 K5B_KS = (256, 40)                         # phase 9's aggregation widths
 K8B_HEADS = (8, 1, 3)
+# K12 at PyG's examples/node2vec.py (p = q = 1, an unbiased walk):
+# walk_length, walks_per_node.
+NODE2VEC = (20, 10)
+# Phases 12-13: the ogbn-products-scale graph of the JAX package's
+# benchmarks/products_pipeline.py, with OGB's products widths.
+PRODUCTS_SCALE = 1.0
+SAGE_WIDTHS = (100, 256, 47, 3)            # in, hidden, out, layers
+SAINT = (20_000, 3, 3)                     # roots, walk length, batches
+NEIGHBOR = (1024, (15, 10, 5), 3)          # batch, fanouts, batches
 REPS = 20
 PLAIN_REPS = 5                 # the slower plain versions of slice 3
 
@@ -791,6 +827,113 @@ def stream_pieces_check(torch, sp, A, pieces, Bb, seed=13, n_random=512):
             n_coo)
 
 
+def products_graph(scale, seed=0):
+    """The ogbn-products-scale synthetic graph of the JAX package's
+    ``benchmarks/products_pipeline.py:35-56`` (a copy, same seed and
+    draws): 2,449,029 nodes and 123,718,280 draws at scale 1, 8,000
+    planted communities (80% of the edges stay inside one) and a fifth
+    of the sources drawn from the first 1% of the nodes (hubs).
+    Returns ``(M, src, dst)``."""
+    rng = np.random.RandomState(seed)
+    M = int(2_449_029 * scale)
+    E = int(123_718_280 * scale)
+    n_comm = max(int(8000 * scale), 8)
+    comm = rng.randint(0, n_comm, M).astype(np.int32)
+    order = np.argsort(comm, kind="stable")
+    comm_ptr = np.searchsorted(comm[order], np.arange(n_comm + 1))
+    src = rng.randint(0, M, E).astype(np.int64)
+    hubs = rng.randint(0, max(M // 100, 1), E // 5).astype(np.int64)
+    src[: hubs.shape[0]] = hubs
+    intra = rng.rand(E) < 0.8
+    c = comm[src[intra]]
+    lo, hi = comm_ptr[c], comm_ptr[c + 1]
+    dst_intra = order[
+        lo + (rng.rand(int(intra.sum())) * (hi - lo)).astype(np.int64)
+    ]
+    dst = rng.randint(0, M, E).astype(np.int64)
+    dst[intra] = dst_intra
+    return M, src, dst
+
+
+def random_walk_touched(rowptr, walks, rand):
+    """The ``rowptr`` and ``col`` entries that the walks ``walks`` (``(n,
+    L+1)``, drawn with ``rand``) read: ``rowptr[u]`` and ``rowptr[u+1]``
+    of every node ``u`` stepped from, and the ``col`` position of every
+    step off a node of degree > 0, each entry counted once."""
+    import torch
+
+    cur = walks[:, :-1].reshape(-1).long()
+    lo = rowptr[cur]
+    deg = rowptr[cur + 1] - lo
+    pos = lo + (rand.reshape(-1) * deg.to(torch.float32)).to(lo.dtype)
+    nodes = torch.unique(cur)
+    n_rowptr = torch.unique(torch.cat([nodes, nodes + 1])).numel()
+    return n_rowptr, torch.unique(pos[deg > 0]).numel()
+
+
+def random_walk_bounds(rowptr, walks, rand):
+    """K12's bound on these inputs: the ``(n, L)`` uniforms and ``start``
+    read once, the ``rowptr`` and ``col`` entries that these walks read
+    (:func:`random_walk_touched`) once, and the ``(n, L+1)`` walks
+    written once; one multiply a step."""
+    n, L = rand.shape
+    n_rowptr, n_col = random_walk_touched(rowptr, walks, rand)
+    nbytes = 4 * n * L + 4 * n + 4 * n_rowptr + 4 * n_col + 4 * n * (L + 1)
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, n * L / FP32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def walk_steps_off_graph(keys, deg, M, walks):
+    """Steps of ``walks`` (host ``(n, L+1)``) that are neither an edge of
+    the graph (``keys``: sorted ``row * M + col``) nor a stay at a node
+    of degree 0."""
+    u = walks[:, :-1].ravel().astype(np.int64)
+    v = walks[:, 1:].ravel().astype(np.int64)
+    q = u * M + v
+    pos = np.minimum(np.searchsorted(keys, q), keys.shape[0] - 1)
+    edge = keys[pos] == q
+    stay = (deg[u] == 0) & (u == v)
+    return int((~(edge | stay)).sum())
+
+
+def sampled_hop_faults(rowptr, col, frontier, adj, e_id, n_id, k):
+    """The faults of one ``sample_adj`` hop over the CSR graph
+    ``(rowptr, col)`` (host arrays): sampled edge ids outside their
+    row or pointing at another node than their local column, rows that
+    hold a column twice, rows with other than ``min(deg, k)`` edges, and
+    whether ``n_id`` starts with the frontier."""
+    rp = adj.storage.numpy_view("rowptr")
+    lc = adj.storage.numpy_view("col")
+    owner = np.repeat(np.arange(frontier.shape[0]), np.diff(rp))
+    node = frontier[owner]
+    bad_e = ~((e_id >= rowptr[node]) & (e_id < rowptr[node + 1])
+              & (col[np.clip(e_id, 0, col.shape[0] - 1)] == n_id[lc]))
+    dup = (np.diff(lc) <= 0) & (owner[1:] == owner[:-1])
+    deg = rowptr[frontier + 1] - rowptr[frontier]
+    return dict(bad_edges=int(bad_e.sum()), duplicate_rows=int(dup.sum()),
+                wrong_size_rows=int((np.diff(rp) != np.minimum(deg, k)).sum()),
+                n_id_prefix_ok=bool(np.array_equal(
+                    n_id[:frontier.shape[0]], frontier)))
+
+
+def sage_bipartite_forward(model, adjs, x, agg, relu):
+    """GraphSAGE over sampled bipartite hops, innermost hop first in
+    ``adjs`` (the form of the JAX package's
+    ``examples/train_sage_minibatch.py:69-80``, without its padding):
+    layer ``i`` aggregates over ``adjs[n-1-i]`` with ``agg(adj, x)`` and
+    keeps the hop's target rows of ``x``.  Uses the ``GraphSAGE``
+    module's parameters."""
+    n = len(model.b)
+    for i in range(n):
+        adj = adjs[n - 1 - i]
+        n_tgt = adj.sparse_size(0)
+        x = x[:n_tgt] @ model.w_self[i] + agg(adj, x) @ model.w_neigh[i] \
+            + model.b[i]
+        if i < n - 1:
+            x = relu(x)
+    return x
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -816,7 +959,10 @@ def main(argv=None) -> int:
         minmax_edge_dot_plain, minmax_spmm_t, minmax_spmm_t_plain,
         block_spgemm_plan, block_spgemm_stream, block_spgemm_window,
         block_spgemm_window_plain, block_spgemm_windows, plan_numeric,
-        plan_numeric_plain)
+        plan_numeric_plain, random_walk_plain)
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        random_walk as random_walk_kernel)
+    from pytorch_sparse_tpu_torch.sample import MinibatchPrefetcher
     from pytorch_sparse_tpu_torch.ops.matmul import _CsrSum, _Plan
     from pytorch_sparse_tpu_torch.ops.spgemm import (
         PLAN_MAX_TERMS, _block_split, _dense_part, _row_chunks)
@@ -837,7 +983,8 @@ def main(argv=None) -> int:
                "plan_numeric": plan_numeric,
                "block_spgemm_window": block_spgemm_window,
                "block_spmm_dblocks": block_spmm_dblocks,
-               "edge_softmax_bwd": edge_softmax_bwd}
+               "edge_softmax_bwd": edge_softmax_bwd,
+               "random_walk": random_walk_kernel}
 
     def record(phase, **kw):
         results["phases"].setdefault(phase, []).append(kw)
@@ -900,6 +1047,17 @@ def main(argv=None) -> int:
     partptr = np.linspace(0, Mh, nh + 1).astype(np.int64)
     h9 = build_hybrid_from_tensor(A_hn, B=ALIGNED_B, partptr=partptr)
     h9_s = time.time() - t1
+    # Phases 12-13's graph: the ogbn-products-scale synthetic graph,
+    # unweighted and coalesced, as the JAX package's products pipeline
+    # builds it.
+    t1 = time.time()
+    Mp, src_p, dst_p = products_graph(PRODUCTS_SCALE)
+    products_draw_s = time.time() - t1
+    A_p = ts.SparseTensor(row=src_p, col=dst_p, sparse_sizes=(Mp, Mp),
+                          device=device).coalesce("add")
+    A_p.storage.rowptr()
+    del src_p, dst_p
+    products_s = time.time() - t1
     record("setup", seconds=round(time.time() - t0, 2),
            uniform_nnz=A_u.nnz(), reddit10_nnz=A_r.nnz(),
            hybrid_nnz=A_h.nnz(), hybrid=repr(h32), gcn_gat_nnz=A_g.nnz(),
@@ -908,7 +1066,9 @@ def main(argv=None) -> int:
            aligned_M_pad=h9.M_pad,
            aligned_dense_edge_share=h9.dense_nnz / A_hn.nnz(),
            aligned_block_bytes=h9.blocks.numel() * h9.blocks.element_size(),
-           aligned_build_s=h9_s)
+           aligned_build_s=h9_s, products_scale=PRODUCTS_SCALE,
+           products_nodes=Mp, products_nnz=A_p.nnz(),
+           products_draw_s=products_draw_s, products_build_s=products_s)
 
     # ---- 3. kernels against their plain versions -------------------------
     t0 = time.time()
@@ -1497,6 +1657,64 @@ def main(argv=None) -> int:
     except Exception:
         failures.append("phase 3 (block_spgemm_window): "
                         + traceback.format_exc())
+
+    # random_walk (K12) at PyG's Node2Vec configuration (p = q = 1,
+    # walk_length 20, 10 walks a node) on the uniform graph: 1,693,430
+    # walks, timed.  Then on two graphs with rows of degree 0: the uniform
+    # graph with every third row emptied, and a small graph.  The walks
+    # must equal the plain version's exactly.
+    try:
+        L_w, per_node = NODE2VEC
+        gen_w = torch.Generator(device=device).manual_seed(21)
+        rng_w = np.random.RandomState(22)
+        small = ts.SparseTensor(
+            row=rng_w.randint(0, 800, 6000), col=rng_w.randint(0, 1000, 6000),
+            sparse_sizes=(1000, 1000), device=device)
+        keep = np.flatnonzero(A_u.storage.numpy_view("row") % 3 != 0)
+        A_sink = ts.SparseTensor(
+            row=A_u.storage.numpy_view("row")[keep],
+            col=A_u.storage.numpy_view("col")[keep], sparse_sizes=(Mu, Mu),
+            is_sorted=True, trust_data=True, device=device)
+        rw_cases = []
+        for label, A_, n_per in [
+                ("node2vec uniform", A_u, per_node),
+                ("uniform, every third row empty", A_sink, 1),
+                ("small graph, 200 rows empty", small, 3)]:
+            rp, cl = A_.csr()[:2]
+            M_ = A_.sparse_size(0)
+            start = torch.arange(M_, dtype=torch.int32,
+                                 device=device).repeat(n_per)
+            rand = torch.rand((start.shape[0], L_w), generator=gen_w,
+                              device=device)
+            got = random_walk_kernel(rp, cl, start, rand)
+            ref = random_walk_plain(rp, cl, start, rand)
+            sync()
+            n_diff = int((got != ref).sum())
+            if n_diff:
+                failures.append(f"random_walk {label}: {n_diff} walk entries "
+                                "differ from the plain version's")
+            abs_e, rel_e = errors(got, ref)
+            case = {"case": label, "walks": int(start.shape[0]),
+                    "walk_length": L_w, "entries_differing": n_diff,
+                    "max_abs_err": abs_e, "max_rel_err": rel_e,
+                    "ok": n_diff == 0}
+            if label == "node2vec uniform":
+                case.update(
+                    ms=timer(lambda: random_walk_kernel(rp, cl, start, rand)),
+                    plain_ms=timer(lambda: random_walk_plain(rp, cl, start,
+                                                             rand)),
+                    library_ms=None)
+                case["bound_ms"], case["bound_by"] = random_walk_bounds(
+                    rp, got, rand)
+            rw_cases.append(case)
+            del got, ref, rand, start
+        del A_sink, small
+        kernels.append(kernel_entry(
+            "random_walk", "random_walk.cu", "sample/rw.py:21", rw_cases,
+            "none (no PyTorch call computes a random walk)",
+            f"{Mu * per_node} walks of {L_w} steps on M={Mu} E={Eu}"))
+    except Exception:
+        failures.append("phase 3 (random_walk): " + traceback.format_exc())
     record("kernel_phase", seconds=round(time.time() - t0, 2))
 
     # ---- 4, 4b, 5 and 6: the main path, with launch counts ---------------
@@ -1571,6 +1789,8 @@ def main(argv=None) -> int:
         "10 GAT training": ("edge_softmax", "edge_softmax_bwd", "csr_spmm",
                             "edge_dot"),
         "11 GraphSAGE and GIN training": ("csr_spmm",),
+        "12 GraphSAINT-RW training": ("random_walk", "csr_spmm"),
+        "13 neighbour-sampled GraphSAGE": ("csr_spmm",),
     }
     phase_launches = {}
 
@@ -1757,6 +1977,126 @@ def main(argv=None) -> int:
             res[cls.__name__] = (loss.item(), grads, m, opt)
         return res
 
+    # Phases 12-13: sampled GraphSAGE training on the products-scale
+    # graph, at OGB's products widths (100 -> 256 -> 256 -> 47) with
+    # Adam(lr=1e-3).
+    in_p, hid_p, out_p, nl_p = SAGE_WIDTHS
+    x_p = torch.randn((Mp, in_p), device=device,
+                      generator=torch.Generator(device=device).manual_seed(81))
+    labels_p = seeded_labels(torch, x_p, out_p, 82, device)
+
+    def make_sage_p():
+        return GraphSAGE(in_p, hid_p, out_p, num_layers=nl_p,
+                         generator=torch.Generator().manual_seed(0),
+                         device=device)
+
+    def saint_training():
+        """Phase 12: GraphSAINT random-walk batches (OGB's products
+        ``graph_saint.py``: 20,000 roots, walk length 3, no
+        normalisation): roots from a seeded CUDA generator, the walks
+        (K12), their distinct nodes, ``saint_subgraph`` on the host, the
+        features gathered on the card, one GraphSAGE step."""
+        n_roots, wl, n_batches = SAINT
+        m = make_sage_p()
+        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+        gen = torch.Generator(device=device).manual_seed(83)
+        res = dict(batches=[], saint_s=[], step_ms=[], losses=[])
+        for b in range(n_batches):
+            roots = torch.randint(0, Mp, (n_roots,), generator=gen,
+                                  device=device)
+            walk_state = gen.get_state()
+            walks = A_p.random_walk(roots, wl, generator=gen)
+            node_idx = torch.unique(walks.view(-1))
+            t1 = time.time()
+            sub, e_id = A_p.saint_subgraph(node_idx)
+            res["saint_s"].append(time.time() - t1)
+            x_b, y_b = x_p[node_idx.long()], labels_p[node_idx.long()]
+            sync()
+            t1 = time.time()
+            opt.zero_grad()
+            loss = m.loss(sub, x_b, y_b)
+            loss.backward()
+            if b == 0:
+                res["grads0"] = [p_.grad.detach().clone()
+                                 for p_ in m.parameters()]
+            opt.step()
+            sync()
+            res["step_ms"].append((time.time() - t1) * 1e3)
+            res["losses"].append(loss.item())
+            res["batches"].append(dict(roots=roots, walk_state=walk_state,
+                                       walks=walks, node_idx=node_idx,
+                                       sub=sub, e_id=e_id, x=x_b, y=y_b))
+        return res
+
+    batch_p, fanouts_p, n_nb = NEIGHBOR
+    A_ids = A_p.set_value(torch.arange(A_p.nnz(), dtype=torch.int32,
+                                       device=device), layout="coo")
+
+    def make_batch(it):
+        """Batch ``it`` of phase 13 (PyG's ``ogbn_products_sage.py``:
+        1,024 targets, fanouts 15, 10, 5), every seed derived from ``it``
+        as ``examples/train_sage_minibatch.py:128-146`` derives them;
+        ``sample_adj`` per hop, innermost hop first, on the graph whose
+        values are the edge ids."""
+        brng = np.random.RandomState(100_000 + it)
+        targets = torch.from_numpy(
+            brng.choice(Mp, batch_p, replace=False)).to(device)
+        hops, hop_s, frontier = [], [], targets
+        for h, k in enumerate(fanouts_p):
+            t1 = time.time()
+            adj, n_id = ts.sample_adj(A_ids, frontier, k, replace=False,
+                                      seed=1000 + it * 10 + h)
+            hop_s.append(time.time() - t1)
+            hops.append((adj, n_id))
+            frontier = n_id
+        return dict(targets=targets, hops=hops, hop_s=hop_s,
+                    adjs=[a_.set_value(None) for a_, _ in hops],
+                    x=x_p[frontier.long()], y=labels_p[targets])
+
+    def sage_mb_logits(m, batch, agg=None, relu=torch.relu):
+        return sage_bipartite_forward(
+            m, batch["adjs"], batch["x"],
+            agg or (lambda a_, h_: ts.spmm_mean(a_, h_)), relu)
+
+    def sage_mb_loss(m, batch):
+        return nll_loss(sage_mb_logits(m, batch), batch["y"])
+
+    def neighbor_training():
+        """Phase 13: three batches sampled and stepped in turn, then the
+        same three through ``MinibatchPrefetcher(num_workers=2)``."""
+        m = make_sage_p()
+        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+        res = dict(sync_batches=[], sync_ms=[], step_ms=[], losses=[])
+        for it in range(n_nb):
+            t1 = time.time()
+            batch = make_batch(it)
+            sync()
+            t2 = time.time()
+            opt.zero_grad()
+            loss = sage_mb_loss(m, batch)
+            loss.backward()
+            if it == 0:
+                res["grads0"] = [p_.grad.detach().clone()
+                                 for p_ in m.parameters()]
+            opt.step()
+            sync()
+            res["sync_ms"].append((time.time() - t1) * 1e3)
+            res["step_ms"].append((time.time() - t2) * 1e3)
+            res["losses"].append(loss.item())
+            res["sync_batches"].append(batch)
+        t1 = time.time()
+        res["prefetch_batches"] = []
+        for batch in MinibatchPrefetcher(make_batch, n_nb, num_workers=2):
+            opt.zero_grad()
+            loss = sage_mb_loss(m, batch)
+            loss.backward()
+            opt.step()
+            res["losses"].append(loss.item())
+            res["prefetch_batches"].append(batch)
+        sync()
+        res["prefetch_ms"] = (time.time() - t1) * 1e3 / n_nb
+        return res
+
     outs = drive("4 forward legs", forward_legs) or []
     bwd_grads = drive("4b backward legs", backward_legs) or []
     mm_res = drive("4c min/max legs", minmax_legs) or []
@@ -1767,6 +2107,8 @@ def main(argv=None) -> int:
     gcn9 = drive("9 GCN training on the aligned hybrid", gcn_hybrid_training)
     gat10 = drive("10 GAT training", gat_training)
     models11 = drive("11 GraphSAGE and GIN training", sage_gin_training)
+    saint12 = drive("12 GraphSAINT-RW training", saint_training)
+    nb13 = drive("13 neighbour-sampled GraphSAGE", neighbor_training)
     launches = {n: sum(c[n] for c in phase_launches.values())
                 for n in counted}
     record("main_path", seconds=round(time.time() - t0, 2),
@@ -1788,6 +2130,12 @@ def main(argv=None) -> int:
     if gat_counts != {"edge_softmax": 2, "csr_spmm": gat_heads + 1}:
         failures.append(f"GAT launched {gat_counts} (want edge_softmax 2, "
                         f"csr_spmm {gat_heads + 1})")
+    for phase in ("12 GraphSAINT-RW training",
+                  "13 neighbour-sampled GraphSAGE"):
+        blk = {n: phase_launches[phase][n] for n in (
+            "block_spmm", "block_spmm_t", "block_spmm_dblocks")}
+        if any(blk.values()):
+            failures.append(f"phase {phase} launched a block kernel: {blk}")
     if phase_launches["9 GCN training on the aligned hybrid"]["edge_dot"]:
         failures.append("the hybrid GCN steps launched edge_dot (no value "
                         "gradient is needed)")
@@ -2316,9 +2664,192 @@ def main(argv=None) -> int:
                     f"errs {max(grad_errs):.3g} (gate {KERNEL_GATE}), ReLU "
                     f"flips {flips} (at most {max_flips})")
 
+    def plain_mean(adj, h):
+        deg = adj.storage.rowcount().clamp_min(1).float()[:, None]
+        return csr_spmm_plain(adj.storage.rowptr(), adj.storage.col(), None,
+                              h) / deg
+
+    def first_step_against_plain(loss_k, grads_k, fwd_kernel, fwd_plain,
+                                 labels_):
+        """A fresh model's first step: the loss and every gradient of the
+        plain CSR version with this run's ReLU decisions, against the
+        kernel run's; and the ReLU flips between the two runs."""
+        rm_ = make_sage_p()
+        kmasks, pmasks = [], []
+        with torch.no_grad():
+            fwd_kernel(rm_, relu_recorder(torch, kmasks))
+            fwd_plain(rm_, relu_recorder(torch, pmasks))
+        flips = sum(int((k_ != p_).sum()) for k_, p_ in zip(kmasks, pmasks))
+        max_flips = int(RELU_FLIP_SHARE * sum(k_.numel() for k_ in kmasks))
+        ref = nll_loss(fwd_plain(rm_, relu_replay(kmasks)), labels_)
+        ref.backward()
+        grad_errs = [errors(g, p_.grad)[1]
+                     for g, p_ in zip(grads_k, rm_.parameters())]
+        loss_err = abs(loss_k - ref.item()) / abs(ref.item())
+        ok = (np.isfinite(loss_k) and loss_err <= KERNEL_GATE
+              and max(grad_errs) <= KERNEL_GATE and flips <= max_flips)
+        return ok, dict(loss_rel_err_vs_plain=loss_err,
+                        grad_rel_errs_vs_plain=grad_errs, relu_flips=flips,
+                        max_relu_flips=max_flips)
+
+    # ---- 12. GraphSAINT-RW training: checks and times ----------------------
+    def check_saint12(r):
+        import scipy.sparse as sp
+
+        rowptr_h = A_p.storage.numpy_view("rowptr")
+        col_h = A_p.storage.numpy_view("col")
+        row_h = A_p.storage.numpy_view("row")
+        keys = row_h * Mp + col_h
+        deg_h = np.diff(rowptr_h)
+        S = sp.csr_matrix((np.ones(col_h.shape[0], np.float32), col_h,
+                           rowptr_h), shape=(Mp, Mp))
+        n_roots, wl, _ = SAINT
+        rp, cl = A_p.csr()[:2]
+        off_graph, struct_ok, eid_ok, nodes, edges = 0, True, True, [], []
+        walks_differing = 0
+        for bt in r["batches"]:
+            off_graph += walk_steps_off_graph(keys, deg_h, Mp,
+                                              bt["walks"].cpu().numpy())
+            # The plain walk on the uniforms the main path drew.
+            g_ = torch.Generator(device=device)
+            g_.set_state(bt["walk_state"])
+            rand_b = torch.rand((n_roots, wl), generator=g_, device=device)
+            walks_differing += int((random_walk_plain(
+                rp, cl, bt["roots"].to(torch.int32), rand_b)
+                != bt["walks"]).sum())
+            idx = bt["node_idx"].cpu().numpy().astype(np.int64)
+            sub = bt["sub"]
+            ref = S[idx][:, idx].tocsr()
+            ref.sort_indices()
+            struct_ok &= bool(
+                np.array_equal(sub.storage.numpy_view("rowptr"), ref.indptr)
+                and np.array_equal(sub.storage.numpy_view("col"),
+                                   ref.indices))
+            e = bt["e_id"].cpu().numpy().astype(np.int64)
+            eid_ok &= bool(
+                np.array_equal(row_h[e], idx[sub.storage.numpy_view("row")])
+                and np.array_equal(col_h[e],
+                                   idx[sub.storage.numpy_view("col")]))
+            nodes.append(int(idx.shape[0]))
+            edges.append(int(sub.nnz()))
+        del keys, S
+        b0 = r["batches"][0]
+        sub0 = b0["sub"]
+        ok, errs = first_step_against_plain(
+            r["losses"][0], r["grads0"],
+            lambda m, relu: sage_forward(
+                m, lambda h, red: ts.spmm_mean(sub0, h), b0["x"], relu),
+            lambda m, relu: sage_forward(
+                m, lambda h, red: plain_mean(sub0, h), b0["x"], relu),
+            b0["y"])
+        roots = b0["roots"].to(torch.int32)
+        rand = torch.rand((n_roots, wl), device=device,
+                          generator=torch.Generator(device=device).manual_seed(
+                              84))
+        got = random_walk_kernel(rp, cl, roots, rand)
+        k12_differing = int(
+            (got != random_walk_plain(rp, cl, roots, rand)).sum())
+        k12_ms = timer(lambda: random_walk_kernel(rp, cl, roots, rand))
+        k12_bound = random_walk_bounds(rp, got, rand)
+        del got
+        # The same step again on batch 0's subgraph, whose host views
+        # (row counts, the CSC view of the backward) are now built.
+        wm = make_sage_p()
+        wopt = torch.optim.Adam(wm.parameters(), lr=1e-3)
+        warm_ms = timer(lambda: step(wm, wopt, lambda m: m.loss(
+            sub0, b0["x"], b0["y"])))
+        record("saint_train", graph="products", nodes=Mp, nnz=A_p.nnz(),
+               scale=PRODUCTS_SCALE, roots=n_roots, walk_length=wl,
+               widths=[in_p] + [hid_p] * (nl_p - 1) + [out_p],
+               launches=phase_launches["12 GraphSAINT-RW training"],
+               subgraph_nodes=nodes, subgraph_edges=edges,
+               walk_steps_off_graph=off_graph,
+               walk_entries_differing_from_plain=walks_differing,
+               random_walk_entries_differing=k12_differing,
+               structure_equals_scipy=struct_ok,
+               e_id_ok=eid_ok, losses=r["losses"],
+               saint_subgraph_host_ms=[t_ * 1e3 for t_ in r["saint_s"]],
+               step_ms=r["step_ms"], step_ms_warm_views=warm_ms,
+               random_walk_ms=k12_ms, random_walk_bound_ms=k12_bound[0],
+               random_walk_bound_by=k12_bound[1], gate=KERNEL_GATE, **errs,
+               card=card)
+        if not (ok and off_graph == 0 and walks_differing == 0
+                and k12_differing == 0 and struct_ok and eid_ok
+                and all(np.isfinite(r["losses"]))):
+            failures.append(
+                f"GraphSAINT-RW training: first step vs plain {errs}, walk "
+                f"steps off the graph {off_graph}, walk entries differing "
+                f"from the plain version's {walks_differing} (main path) and "
+                f"{k12_differing} (seed-84 uniforms), structure equals scipy "
+                f"{struct_ok}, e_id consistent {eid_ok}")
+
+    # ---- 13. neighbour-sampled GraphSAGE: checks and times -----------------
+    def check_nb13(r):
+        rowptr_h = A_p.storage.numpy_view("rowptr")
+        col_h = A_p.storage.numpy_view("col")
+        faults = []
+        for bt in r["sync_batches"]:
+            frontier = bt["targets"].cpu().numpy().astype(np.int64)
+            for (adj, n_id), k in zip(bt["hops"], fanouts_p):
+                nid = n_id.cpu().numpy().astype(np.int64)
+                faults.append(sampled_hop_faults(
+                    rowptr_h, col_h, frontier, adj,
+                    adj.storage.value().cpu().numpy().astype(np.int64), nid,
+                    k))
+                frontier = nid
+        bad = [f_ for f_ in faults if f_["bad_edges"] or f_["duplicate_rows"]
+               or f_["wrong_size_rows"] or not f_["n_id_prefix_ok"]]
+
+        def same_batch(a_, b_):
+            return (torch.equal(a_["targets"], b_["targets"]) and all(
+                torch.equal(na, nb) and torch.equal(xa.storage.col(),
+                                                    xb.storage.col())
+                and torch.equal(xa.storage.rowptr(), xb.storage.rowptr())
+                and torch.equal(xa.storage.value(), xb.storage.value())
+                for (xa, na), (xb, nb) in zip(a_["hops"], b_["hops"])))
+
+        same = len(r["prefetch_batches"]) == len(r["sync_batches"]) and all(
+            same_batch(a_, b_) for a_, b_ in zip(r["sync_batches"],
+                                                 r["prefetch_batches"]))
+        b0 = r["sync_batches"][0]
+        ok, errs = first_step_against_plain(
+            r["losses"][0], r["grads0"],
+            lambda m, relu: sage_mb_logits(m, b0, None, relu),
+            lambda m, relu: sage_mb_logits(m, b0, plain_mean, relu),
+            b0["y"])
+        hop_edges = [[int(a_.nnz()) for a_, _ in bt["hops"]]
+                     for bt in r["sync_batches"]]
+        # The same step again on batch 0's hops, whose host views are
+        # now built.
+        wm = make_sage_p()
+        wopt = torch.optim.Adam(wm.parameters(), lr=1e-3)
+        warm_ms = timer(lambda: step(wm, wopt, lambda m: sage_mb_loss(m, b0)))
+        hop_nodes = [[int(n_.shape[0]) for _, n_ in bt["hops"]]
+                     for bt in r["sync_batches"]]
+        record("sage_minibatch", graph="products", nodes=Mp, nnz=A_p.nnz(),
+               batch=batch_p, fanouts=list(fanouts_p),
+               widths=[in_p] + [hid_p] * (nl_p - 1) + [out_p],
+               launches=phase_launches["13 neighbour-sampled GraphSAGE"],
+               hop_edges=hop_edges, hop_nodes=hop_nodes, hop_faults=bad,
+               prefetch_batches_equal=same, losses=r["losses"],
+               sample_host_ms=[sum(bt["hop_s"]) * 1e3
+                               for bt in r["sync_batches"]],
+               sample_host_ms_by_hop=[[t_ * 1e3 for t_ in bt["hop_s"]]
+                                      for bt in r["sync_batches"]],
+               ms_per_batch_sync=r["sync_ms"], step_ms=r["step_ms"],
+               step_ms_warm_views=warm_ms,
+               ms_per_batch_prefetch=r["prefetch_ms"], gate=KERNEL_GATE,
+               **errs, card=card)
+        if not (ok and not bad and same and all(np.isfinite(r["losses"]))):
+            failures.append(
+                f"neighbour-sampled GraphSAGE: first step vs plain {errs}, "
+                f"hop faults {bad}, prefetched batches equal {same}")
+
     for label, res, check in (("9", gcn9, check_gcn9),
                               ("10", gat10, check_gat10),
-                              ("11", models11, check_models11)):
+                              ("11", models11, check_models11),
+                              ("12", saint12, check_saint12),
+                              ("13", nb13, check_nb13)):
         if res is not None:
             try:
                 check(res)

@@ -11,7 +11,11 @@ kernels, forward and backward), GraphSAGE and GIN inference and
 training; SpSpMM (a hand-written plan-numeric kernel and block-pair
 kernel) with its chunked, streaming and block-split paths; and the
 structural ops of a SpSpMM pipeline (transpose, add, diagonal edits, the
-legacy tuple API).
+legacy tuple API); and the samplers: random walks (a hand-written walk
+kernel), with-replacement ``sample``, and on the host ``sample_adj``,
+``saint_subgraph``, ``relabel``, ``relabel_one_hop`` and the
+homogeneous ``neighbor_sample``, whose draws equal the JAX package's
+native sampler's.
 Names follow the JAX package.  Entry points run on ``cuda`` unless
 given ``device="cpu"``; the CPU runs each kernel's plain PyTorch
 version.
@@ -28,6 +32,10 @@ from .ops import (  # noqa
     build_hybrid_from_tensor, build_dense, hybrid_spmm, dense_spmm, t, transpose, coalesce, spspmm,
     spadd, add, add_, add_nnz, add_nnz_, remove_diag, set_diag, fill_diag,
     get_diag,
+)
+from .sample import (  # noqa
+    random_walk, sample, sample_adj, saint_subgraph, relabel,
+    relabel_one_hop, neighbor_sample,
 )
 from .utils import ind2ptr, ptr2ind  # noqa
 
@@ -66,6 +74,13 @@ __all__ = [
     "set_diag",
     "fill_diag",
     "get_diag",
+    "random_walk",
+    "sample",
+    "sample_adj",
+    "saint_subgraph",
+    "relabel",
+    "relabel_one_hop",
+    "neighbor_sample",
     "ind2ptr",
     "ptr2ind",
     "__version__",

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("csr_spmm", "block_spmm", "edge_dot", "spmm_minmax",
-           "edge_softmax", "plan_numeric", "block_spgemm")
+           "edge_softmax", "plan_numeric", "block_spgemm", "random_walk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -17,6 +17,7 @@ from .hybrid import (  # noqa
     hybrid_spmm_t,
 )
 from .plan_numeric import plan_numeric, plan_numeric_plain  # noqa
+from .random_walk import random_walk, random_walk_plain  # noqa
 from .spmm_minmax import (  # noqa
     csr_spmm_minmax, csr_spmm_minmax_plain, minmax_edge_dot,
     minmax_edge_dot_plain, minmax_spmm_t, minmax_spmm_t_plain,

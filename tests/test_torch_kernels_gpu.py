@@ -595,3 +595,86 @@ def test_model_train_step_matches_cpu(kind):
             t.grad.cpu() for t in list(model.parameters()) + extra])
     for got, ref in zip(res[1], res[0]):
         assert rel_err(got, ref) <= 1e-4
+
+
+def _walk_case(M, E, with_sinks, seed):
+    """A CSR graph on the card, with rows of degree 0 when
+    ``with_sinks`` (a fifth of the nodes have no out-edges)."""
+    rng = np.random.RandomState(seed)
+    hi = M - M // 5 if with_sinks else M
+    A = pts.SparseTensor(row=rng.randint(0, hi, E), col=rng.randint(0, M, E),
+                         sparse_sizes=(M, M))
+    return A.csr()[:2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 3, 20])
+@pytest.mark.parametrize("with_sinks", [False, True])
+def test_random_walk_matches_plain_on_gpu(L, with_sinks):
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        random_walk, random_walk_plain)
+
+    rowptr, col = _walk_case(5000, 60_000, with_sinks, 30 + L)
+    n = 20_000
+    start = torch.from_numpy(
+        np.random.RandomState(31).randint(0, 5000, n).astype(np.int32)).cuda()
+    rand = torch.rand((n, L), generator=torch.Generator(
+        device="cuda").manual_seed(L), device="cuda")
+    got = random_walk(rowptr, col, start, rand)
+    want = random_walk_plain(rowptr, col, start, rand)
+    torch.cuda.synchronize()
+    assert got.shape == (n, L + 1) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+    if with_sinks:  # walks that reach a sink stay there
+        sink = got[:, :-1] >= 4000
+        assert torch.equal(got[:, 1:][sink], got[:, :-1][sink])
+
+
+@pytest.mark.gpu
+def test_random_walk_launches_and_checks_rand_on_gpu():
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels import random_walk
+
+    rng = np.random.RandomState(32)
+    A = pts.SparseTensor(row=rng.randint(0, 500, 4000),
+                         col=rng.randint(0, 500, 4000), sparse_sizes=(500, 500))
+    before = random_walk.launches
+    walks = pts.random_walk(A, torch.arange(500), 7)
+    torch.cuda.synchronize()
+    assert random_walk.launches == before + 1
+    assert walks.is_cuda and walks.shape == (500, 8)
+    rp, c, _ = A.csr()
+    start = torch.arange(500, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        random_walk(rp, c, start, torch.rand((500, 7), dtype=torch.float64,
+                                             device="cuda"))
+    with pytest.raises(ValueError, match="shape"):
+        random_walk(rp, c, start, torch.rand((499, 7), device="cuda"))
+    with pytest.raises(ValueError, match="shape"):
+        pts.random_walk(A, torch.arange(500), 7,
+                        rand=torch.rand((500, 6), device="cuda"))
+    assert random_walk.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_random_walk_rejects_out_of_range_inputs_on_gpu():
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels import random_walk
+
+    rng = np.random.RandomState(33)
+    A = pts.SparseTensor(row=rng.randint(0, 500, 4000),
+                         col=rng.randint(0, 500, 4000), sparse_sizes=(500, 500))
+    before = random_walk.launches
+    for start in ([0, -1, 7], [499, 500], [10**7]):
+        with pytest.raises(ValueError, match="start nodes"):
+            pts.random_walk(A, torch.tensor(start, device="cuda"), 4)
+    rand = torch.rand((3, 4), device="cuda")
+    rand[1, 2] = 1.0
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        pts.random_walk(A, torch.arange(3), 4, rand=rand)
+    assert random_walk.launches == before
+    # The context is intact: a valid walk still launches and finishes.
+    pts.random_walk(A, torch.arange(3), 4)
+    torch.cuda.synchronize()
+    assert random_walk.launches == before + 1

@@ -3,6 +3,7 @@ its entry points run, what raises, and how its kernels are built."""
 
 import ast
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -126,7 +127,9 @@ def test_operand_checks():
 def test_kernel_sources_carry_their_notes():
     for name in _build.SOURCES:
         src = (PORT / "csrc" / f"{name}.cu").read_text()
-        assert "pytorch_sparse_tpu/ops/kernels/" in src  # what it replaces
+        # What it replaces: a routine of the JAX package's kernels or
+        # samplers.
+        assert re.search(r"pytorch_sparse_tpu/(ops/kernels|sample)/", src)
         assert "bounds it on an H100" in src
         assert "extern \"C\"" in src and "cudaGetLastError" in src
 
