@@ -40,7 +40,15 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    (``examples/node2vec.py``, p = q = 1: 10 walks of 20 steps from every
    node of the uniform graph, 1,693,430 walks), on the uniform graph with
    every third row emptied and on a small graph with 200 rows of degree
-   0; the walks must equal the plain version's exactly.
+   0; the walks must equal the plain version's exactly.  ``shard_spmm``
+   (K11a) and ``shard_spmm_minmax`` (K11b) on shard 0's groups of the
+   community hybrid graph split over 4 ranks (tables built in this
+   process), at K=128, 256 (the width of the GCN layers of phases
+   14-15, which runs the kernels' 8-columns-a-lane build) and 40: the
+   interior written, the halo frontier accumulated and ring group 1
+   accumulated (K11a, 1e-5), the interior's
+   max written, the frontier's max and ring group 1's min combined into
+   a running pair (K11b: ``out`` and ``arg`` exactly).
    Each is timed with CUDA events beside its plain version, a PyTorch
    library yardstick that the port never calls (none computes an
    argout), and its bound on an H100
@@ -143,8 +151,37 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    twice, each row must hold ``min(deg, k)`` edges, ``n_id`` must start
    with the frontier, and the first step must match the plain CSR
    version.
+14. The distributed schedules on four ranks sharing the card: four gloo
+   processes (:func:`spawn_ranks`; gloo moves host tensors, so every
+   collective is staged through the host, and the times are no scaling
+   result) split the community hybrid graph into 4 row blocks of
+   58,242.  Every schedule (all-gather, ring, halo) x every reduce at
+   K=128 with the ``x`` and ``value`` gradients, and the halo's hybrid
+   local format (sum, mean; ``x`` gradient).  That graph's dense
+   frontier (58,242 x 4H a shard) is over the 1 GiB cap, so the hybrid
+   with the dense frontier "always" runs on a smaller community graph
+   (``FRONTIER_DENSE``) whose frontier must be built.  Each case is
+   gathered to rank 0 and held against the CSR kernel
+   and K6 on the whole matrix (sums 1e-5, ``arg`` exactly) and the
+   float64 host gradient oracles of phase 4b.  Then one ``DistGCN`` Adam
+   step (phase 5's widths, halo schedule, local format "auto") on
+   phase 9's ``gcn_norm`` graph, its loss and every gradient against
+   the single-card GCN step on the CSR route (with the DistGCN run's
+   ReLU decisions); the parameters must be identical on every rank.  A
+   failure on any rank fails the run.
+15. The main path at full width on NCCL, world size 1: the products
+   graph of phases 12-13 permuted by its planted community (the
+   contiguous layout ``partition()`` aims at; not a METIS result, the
+   port has no partitioner yet), ``gcn_norm``, and three ``DistGCN``
+   steps at OGB's ogbn-products full-batch GCN
+   (``examples/nodeproppred/products/gnn.py``: 100 -> 256 -> 256 -> 47,
+   ``Adam(lr=0.01)``, no dropout) on the halo schedule with local format
+   "auto", each timed with CUDA events.  The local format taken, the
+   launches of K11a and K2 and the sharded matrix's host build are
+   reported; the first step's loss and gradients must match the same
+   step of the single-card GCN on the CSR route (timed too).
 
-The main path is phases 4 to 13, each driven once with every launch
+The main path is phases 4 to 15, each driven once with every launch
 count set to 0 just before it and read just after it.  Each phase must
 launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
 those and ``block_spmm_t`` and ``edge_dot``; 4c: ``csr_spmm_minmax``,
@@ -156,8 +193,12 @@ terms, ``block_spgemm_window`` in 8c and not in 8a; 9: ``block_spmm``,
 all in the second step, and no ``edge_dot``; 10: ``edge_softmax`` and
 ``edge_softmax_bwd`` twice each, ``csr_spmm`` 18 times and ``edge_dot``
 9 times; 11: ``csr_spmm``; 12: ``random_walk`` and ``csr_spmm``; 13:
-``csr_spmm``; 12 and 13 no block kernel), and the ``kernels`` line
-reports each kernel's launches summed over them.
+``csr_spmm``; 12 and 13 no block kernel; 14: ``shard_spmm``,
+``shard_spmm_minmax``, ``block_spmm``, ``block_spmm_t``, ``edge_dot``,
+``minmax_edge_dot`` and ``minmax_spmm_t``, counted in the four worker
+processes, each rank-0 oracle's launches left out; 15: ``shard_spmm``,
+and ``block_spmm`` when the hybrid format is taken), and the
+``kernels`` line reports each kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
 """
@@ -165,8 +206,10 @@ as its last line ``{"ok": true, "device": {...}}``.
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -203,6 +246,15 @@ PRODUCTS_SCALE = 1.0
 SAGE_WIDTHS = (100, 256, 47, 3)            # in, hidden, out, layers
 SAINT = (20_000, 3, 3)                     # roots, walk length, batches
 NEIGHBOR = (1024, (15, 10, 5), 3)          # batch, fanouts, batches
+# Phase 14: ranks sharing the one card on gloo (the community hybrid
+# graph's 232,965 rows make 4 blocks of 58,242).  Phase 15: OGB's
+# ogbn-products full-batch GCN (examples/nodeproppred/products/gnn.py:
+# 3 layers, hidden 256, Adam(lr=0.01)), without dropout as DistGCN has
+# none, three steps.
+DIST_WORLD = 4
+FRONTIER_DENSE = (16_384, 1_000_000, 16)   # nodes, draws, communities
+PRODUCTS_GCN = (100, 256, 47, 3)           # in, hidden, out, layers
+DIST_STEPS = 3
 REPS = 20
 PLAIN_REPS = 5                 # the slower plain versions of slice 3
 
@@ -934,6 +986,349 @@ def sage_bipartite_forward(model, adjs, x, agg, relu):
     return x
 
 
+def shard_bounds(R, E, K_, n_rows_read, out_rows, has_value, accumulate,
+                 has_map, minmax=False, has_pos=False):
+    """K11a's (and, with ``minmax``, K11b's) bound: each input read once
+    (the group's pointer, indices and values, the ``n_rows_read``
+    distinct buffer rows its edges reference, ``row_map`` and ``pos``),
+    the ``out_rows`` output rows written once, and read too when they
+    accumulate or combine; K11b adds the int32 argout beside ``out``."""
+    per_out = 4 * K_ * (2 if minmax else 1)
+    nbytes = 4 * (R + 1) + 4 * E + (4 * E if has_value else 0) \
+        + (4 * R if has_map else 0) + (4 * E if has_pos else 0) \
+        + 4 * K_ * n_rows_read + per_out * out_rows * (2 if accumulate
+                                                        else 1)
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, 2 * E * K_ / FP32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def shard_row_per_edge_ms(R, E, K_, out_rows, accumulate):
+    """The bytes count of one K-row of the buffer per edge (the index and
+    value, ``out`` read and written once), as a second yardstick beside
+    the operand-once bound."""
+    nbytes = 4 * (R + 1) + 8 * E + 4 * K_ * E \
+        + 4 * K_ * out_rows * (2 if accumulate else 1)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+class HostMesh:
+    """The size, rank and device of one shard of a mesh, without a
+    process group: all that ``ShardedSparseMatrix``'s host builder reads,
+    so that phase 3 can build shard 0's tables of a four-rank layout in
+    this process (no collective runs on it)."""
+
+    def __init__(self, size, rank, device):
+        self.size, self.rank, self.device = size, rank, device
+
+
+def _rank_main(rank, fn, world_size, backend, workdir, timeout, args):
+    import datetime
+
+    import torch
+    import torch.distributed as tdist
+
+    tdist.init_process_group(
+        backend, init_method=f"file://{workdir}/rdzv", rank=rank,
+        world_size=world_size, timeout=datetime.timedelta(seconds=timeout))
+    try:
+        torch.save(fn(rank, world_size, **args),
+                   os.path.join(workdir, f"result_{rank}.pt"))
+    finally:
+        tdist.destroy_process_group()
+    # The result is saved.  Leave without the interpreter's teardown,
+    # which a gloo group's threads can abort now and then under load.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def spawn_ranks(fn, world_size, backend, args, timeout):
+    """Run ``fn(rank, world_size, **args)`` on ``world_size`` fresh
+    processes (``torch.multiprocessing``, start method "spawn") joined in
+    one ``backend`` group through a rendezvous file in a new temporary
+    directory; return each rank's result in rank order.  A failed rank
+    raises with its exit code or traceback, and the others are stopped;
+    so are all of them when the time runs out."""
+    import torch
+    import torch.multiprocessing as mp
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        ctx = mp.start_processes(
+            _rank_main, (fn, world_size, backend, workdir, timeout, args),
+            nprocs=world_size, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    p.kill()
+                    p.join()
+                raise Failure(f"{world_size} ranks of {fn.__name__} timed "
+                              f"out after {timeout} s; exit codes "
+                              f"{[p.exitcode for p in ctx.processes]}")
+        return [torch.load(os.path.join(workdir, f"result_{r}.pt"),
+                           weights_only=True) for r in range(world_size)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def dist_gcn_forward(model, adj, x, dist_spmm, relu, schedule="halo",
+                     local_format="auto"):
+    """``DistGCN``'s forward written out, with the ReLU given."""
+    n = len(model.weights)
+    for i, (w, b) in enumerate(zip(model.weights, model.biases)):
+        x = dist_spmm(adj, x @ w, schedule, "sum", local_format) + b
+        if i < n - 1:
+            x = relu(x)
+    return x
+
+
+def products_communities(scale, seed=0):
+    """The planted community of each node of :func:`products_graph`: its
+    first draw, replayed."""
+    rng = np.random.RandomState(seed)
+    M = int(2_449_029 * scale)
+    n_comm = max(int(8000 * scale), 8)
+    return rng.randint(0, n_comm, M).astype(np.int32)
+
+
+def phase14_worker(rank, world_size, coo_path, K_, widths):
+    """Phase 14 on one of ``world_size`` gloo processes sharing the card:
+    every schedule x reduce with both gradients, the hybrid local format
+    and one DistGCN Adam step, on the community hybrid graph and its
+    ``gcn_norm``, and the hybrid with the dense frontier "always" on the
+    ``FRONTIER_DENSE`` graph (the big graph's is over the cap).  The
+    results are gathered to rank 0, which holds them against the
+    single-card CSR kernel (K1) and K6 on the whole matrix and float64
+    host oracles, and the DistGCN step against the single-card GCN step on the CSR route.
+    Every rank returns its kernel launches (rank 0's reference launches
+    excluded) and its staged bytes."""
+    import torch
+
+    import pytorch_sparse_tpu_torch as ts
+    from pytorch_sparse_tpu_torch.models import DistGCN, GCN
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        block_spmm, block_spmm_t, csr_spmm, csr_spmm_minmax, edge_dot,
+        minmax_edge_dot, minmax_spmm_t, shard_spmm, shard_spmm_minmax)
+    from pytorch_sparse_tpu_torch.ops.matmul import _CsrSum
+    from pytorch_sparse_tpu_torch.parallel import (
+        ShardedSparseMatrix, dist_spmm, make_mesh)
+    from pytorch_sparse_tpu_torch.parallel import _comm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    counted = {"shard_spmm": shard_spmm,
+               "shard_spmm_minmax": shard_spmm_minmax,
+               "block_spmm": block_spmm, "block_spmm_t": block_spmm_t,
+               "edge_dot": edge_dot, "minmax_edge_dot": minmax_edge_dot,
+               "minmax_spmm_t": minmax_spmm_t, "csr_spmm": csr_spmm,
+               "csr_spmm_minmax": csr_spmm_minmax}
+    for f in counted.values():
+        f.launches = 0
+    excluded = {n: 0 for n in counted}
+
+    def reference(fn):
+        """Run a rank-0 oracle without counting its launches."""
+        before = {n: f.launches for n, f in counted.items()}
+        out = fn()
+        for n, f in counted.items():
+            excluded[n] += f.launches - before[n]
+        return out
+
+    mesh = make_mesh(world_size, device=device)
+    data = np.load(coo_path)
+    M = int(data["M"])
+
+    def tensor(prefix):
+        M_ = int(data[prefix + "M"])
+        return ts.SparseTensor(
+            row=data[prefix + "row"], col=data[prefix + "col"],
+            value=torch.from_numpy(data[prefix + "val"]),
+            sparse_sizes=(M_, M_), is_sorted=True, trust_data=True,
+            device="cpu")
+
+    def graph(prefix, name, **kw):
+        """A graph of the file, sharded, with its operands and the CSR of
+        rank 0's oracles."""
+        A_ = tensor(prefix)
+        M_, st = A_.size(0), A_.storage
+        g = {"name": name, "A": A_,
+             "sh": ShardedSparseMatrix.from_sparse_tensor(A_, mesh, **kw),
+             "x_full": operand(torch, M_, K_, 2, device),
+             "gout_full": operand(torch, M_, K_, 8, device),
+             "value": st.value().to(device),
+             "deg": st.rowcount().to(device).clamp_min(1).float()[:, None],
+             "rp": torch.from_numpy(st.numpy_view("rowptr").astype(
+                 np.int32)).to(device),
+             "cl": torch.from_numpy(st.numpy_view("col").astype(
+                 np.int32)).to(device)}
+        g["x"] = g["sh"].shard_dense(g["x_full"])
+        g["gout"] = g["sh"].shard_dense(g["gout_full"])
+        return g
+
+    t0 = time.time()
+    big = graph("", "community hybrid")
+    res = {"rank": rank, "cases": [], "failures": []}
+    cases = [(big, s, "ell", r) for s in ("allgather", "ring", "halo")
+             for r in ("sum", "mean", "min", "max")]
+    cases += [(big, "halo", "hybrid", r) for r in ("sum", "mean")]
+    small = graph("s_", "frontier dense", frontier_dense="always")
+    if not small["sh"].has_frontier_dense():
+        res["failures"].append(
+            "phase 14: frontier_dense='always' built no dense frontier on "
+            "the FRONTIER_DENSE graph")
+    cases += [(small, "halo", "hybrid-always", r) for r in ("sum", "mean")]
+    for g, schedule, fmt, reduce in cases:
+        adj, A, value, deg = g["sh"], g["A"], g["value"], g["deg"]
+        x, gout, x_full, gout_full = (g["x"], g["gout"], g["x_full"],
+                                      g["gout_full"])
+        rp, cl = g["rp"], g["cl"]
+        minmax = reduce in ("min", "max")
+        xx = x.clone().requires_grad_(True)
+        vv = None if fmt != "ell" else value.clone().requires_grad_(True)
+        staged0 = mesh.staged_bytes
+        sync()
+        t1 = time.time()
+        out = dist_spmm(adj, xx, schedule, reduce,
+                        "hybrid" if fmt.startswith("hybrid") else fmt, vv)
+        out, arg = out if minmax else (out, None)
+        sync()
+        t2 = time.time()
+        grads = torch.autograd.grad(out, [xx] + ([vv] if vv is not None
+                                                 else []), gout)
+        sync()
+        t3 = time.time()
+        case = {"graph": g["name"], "schedule": schedule,
+                "local_format": fmt,
+                "reduce": reduce, "forward_ms": (t2 - t1) * 1e3,
+                "backward_ms": (t3 - t2) * 1e3,
+                "staged_bytes": mesh.staged_bytes - staged0,
+                "has_interior_blocks": adj.has_interior_blocks(),
+                "has_frontier_dense": adj.has_frontier_dense()}
+        out_f = adj.unshard_dense(out.detach())
+        gx_f = adj.unshard_dense(grads[0])
+        arg_f = adj.unshard_dense(arg) if minmax else None
+        gv = _comm.all_reduce_sum(mesh, grads[1]) if vv is not None else None
+        del out, grads, xx, vv
+        if rank == 0:
+            g_eff = gout_full / deg if reduce == "mean" else gout_full
+
+            def check():
+                if minmax:
+                    ref, ref_arg = csr_spmm_minmax(rp, cl, value, x_full,
+                                                   reduce == "min")
+                    case["arg_mismatches"] = int((arg_f != ref_arg).sum())
+                    case["out_max_abs_err"] = errors(out_f, ref)[0]
+                    ok = case["arg_mismatches"] == 0 and \
+                        case["out_max_abs_err"] == 0
+                else:
+                    ref = csr_spmm(rp, cl, value, x_full)
+                    if reduce == "mean":
+                        ref = ref / deg
+                    case["out_rel_err"] = errors(out_f, ref)[1]
+                    ok = case["out_rel_err"] <= GATE_F32
+                ok_x, case["grad_x_rel_err"] = grad_x_oracle_check(
+                    A, g_eff, gx_f, GATE_F32, arg=arg_f)
+                ok = ok and ok_x
+                if gv is not None:
+                    ok_v, case["grad_v_rel_err"] = grad_v_oracle_check(
+                        A, x_full, g_eff, gv, GATE_F32, arg=arg_f)
+                    ok = ok and ok_v
+                return ok
+
+            case["ok"] = reference(check)
+            if not case["ok"]:
+                res["failures"].append(
+                    f"phase 14 {schedule}/{fmt}/{reduce}: {case}")
+        res["cases"].append(case)
+        del out_f, gx_f, arg_f, gv
+    res["build_and_cases_s"] = time.time() - t0
+    del big, small, cases, g
+
+    # One DistGCN Adam step on gcn_norm of the graph, halo schedule.
+    An = tensor("n_")
+    Ahn = ShardedSparseMatrix.from_sparse_tensor(An, mesh)
+    in_dim, hid, out_dim, nl = widths
+    x_g = operand(torch, M, in_dim, 5, device)
+    labels = seeded_labels(torch, x_g, out_dim, 6, device)
+    xs, ls = Ahn.shard_dense(x_g), Ahn.shard_dense(labels)
+    mask = Ahn.shard_dense(torch.ones(M, device=device))
+
+    def make():
+        return DistGCN(in_dim, hid, out_dim, num_layers=nl,
+                       generator=torch.Generator().manual_seed(0),
+                       device=device)
+
+    model = make()
+    kmasks = []
+    with torch.no_grad():
+        dist_gcn_forward(model, Ahn, xs, dist_spmm,
+                         relu_recorder(torch, kmasks))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    staged0 = mesh.staged_bytes
+    sync()
+    t1 = time.time()
+    loss = model.train_step(opt, Ahn, xs, ls, mask, "halo", "auto")
+    sync()
+    step_ms = (time.time() - t1) * 1e3
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    every = _comm.all_gather(mesh, flat[None])
+    kmasks = [Ahn.unshard_dense(m_.to(torch.uint8)).bool() for m_ in kmasks]
+    gcn = {"step_ms": step_ms, "staged_bytes": mesh.staged_bytes - staged0,
+           "loss": float(loss),
+           "local_format": ("hybrid" if Ahn.has_interior_blocks()
+                            else "ell"),
+           "params_identical_on_every_rank": bool(
+               (every == every[:1]).all())}
+    if rank == 0:
+        An_dev = ts.SparseTensor(
+            row=data["n_row"], col=data["n_col"],
+            value=torch.from_numpy(data["n_val"]), sparse_sizes=(M, M),
+            is_sorted=True, trust_data=True, device=device)
+
+        def csr_route(rowptr, col, value_, h):
+            return _CsrSum.apply(An_dev.storage, value_, h)
+
+        def gcn_reference():
+            rm = GCN(in_dim, hid, out_dim, num_layers=nl,
+                     generator=torch.Generator().manual_seed(0),
+                     device=device)
+            cmasks = relu_masks(torch, lambda a, h: csr_route(*a.csr(), h),
+                                rm, An_dev, x_g)
+            flips = sum(int((k_ != c_).sum())
+                        for k_, c_ in zip(kmasks, cmasks))
+            ref = plain_loss(torch, csr_route, rm, An_dev, x_g, labels,
+                             kmasks)
+            ref.backward()
+            return ref.item(), [p.grad for p in rm.parameters()], flips
+
+        ref_loss, ref_grads, flips = reference(gcn_reference)
+        gcn["loss_rel_err_vs_csr"] = abs(gcn["loss"] - ref_loss) / abs(
+            ref_loss)
+        gcn["grad_rel_errs_vs_csr"] = [errors(g, r)[1]
+                                       for g, r in zip(grads, ref_grads)]
+        gcn["relu_flips"] = flips
+        gcn["max_relu_flips"] = int(RELU_FLIP_SHARE * M * hid * (nl - 1))
+        gcn["ok"] = bool(
+            np.isfinite(gcn["loss"])
+            and gcn["loss_rel_err_vs_csr"] <= KERNEL_GATE
+            and max(gcn["grad_rel_errs_vs_csr"]) <= KERNEL_GATE
+            and flips <= gcn["max_relu_flips"]
+            and gcn["params_identical_on_every_rank"])
+        if not gcn["ok"]:
+            res["failures"].append(f"phase 14 DistGCN step: {gcn}")
+    res["dist_gcn"] = gcn
+    res["launches"] = {n: f.launches - excluded[n]
+                       for n, f in counted.items()}
+    res["staged_bytes"] = mesh.staged_bytes
+    res["backend"] = mesh.backend
+    return res if rank == 0 else {"rank": rank,
+                                  "launches": res["launches"],
+                                  "staged_bytes": mesh.staged_bytes}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -948,7 +1343,9 @@ def main(argv=None) -> int:
     import pytorch_sparse_tpu_torch as ts
     from pytorch_sparse_tpu_torch import _build
     from pytorch_sparse_tpu_torch.models import (
-        GAT, GCN, GIN, GraphSAGE, gcn_norm, nll_loss)
+        GAT, GCN, GIN, DistGCN, GraphSAGE, gcn_norm, nll_loss)
+    from pytorch_sparse_tpu_torch.parallel import (
+        ShardedSparseMatrix, dist_spmm, make_mesh)
     from pytorch_sparse_tpu_torch.ops.kernels import (
         block_spmm, block_spmm_dblocks, block_spmm_dblocks_plain,
         block_spmm_plain, block_spmm_t, block_spmm_t_plain,
@@ -959,7 +1356,8 @@ def main(argv=None) -> int:
         minmax_edge_dot_plain, minmax_spmm_t, minmax_spmm_t_plain,
         block_spgemm_plan, block_spgemm_stream, block_spgemm_window,
         block_spgemm_window_plain, block_spgemm_windows, plan_numeric,
-        plan_numeric_plain, random_walk_plain)
+        plan_numeric_plain, random_walk_plain, shard_spmm, shard_spmm_minmax,
+        shard_spmm_minmax_plain, shard_spmm_plain)
     from pytorch_sparse_tpu_torch.ops.kernels import (
         random_walk as random_walk_kernel)
     from pytorch_sparse_tpu_torch.sample import MinibatchPrefetcher
@@ -984,7 +1382,8 @@ def main(argv=None) -> int:
                "block_spgemm_window": block_spgemm_window,
                "block_spmm_dblocks": block_spmm_dblocks,
                "edge_softmax_bwd": edge_softmax_bwd,
-               "random_walk": random_walk_kernel}
+               "random_walk": random_walk_kernel, "shard_spmm": shard_spmm,
+               "shard_spmm_minmax": shard_spmm_minmax}
 
     def record(phase, **kw):
         results["phases"].setdefault(phase, []).append(kw)
@@ -1715,6 +2114,153 @@ def main(argv=None) -> int:
             f"{Mu * per_node} walks of {L_w} steps on M={Mu} E={Eu}"))
     except Exception:
         failures.append("phase 3 (random_walk): " + traceback.format_exc())
+
+    # K11a and K11b on shard 0's groups of the community hybrid graph at
+    # P = 4 (its tables built in this process: the host builder reads only
+    # the layout's size, rank and device): the interior against the
+    # shard's block of x, the halo frontier against a received buffer,
+    # and ring group q = 1 against block 1, written, accumulated and
+    # combined, at K = 128 and 256 (timed; 256 is the width of the GCN
+    # layers of phases 14-15) and 40.
+    try:
+        shard0 = ShardedSparseMatrix.from_sparse_tensor(
+            A_h, HostMesh(DIST_WORLD, 0, device))
+        hl0 = shard0._halo
+        it0, fr0, rg0 = hl0.interior, hl0.frontier, shard0._ring[1]
+        Mb0, Nb0, PH0 = shard0.Mb, shard0.Nb, DIST_WORLD * hl0.H
+
+        def n_read(grp):
+            return int(torch.unique(grp.col).numel())
+
+        def csr_of(grp, n_cols):
+            R_ = grp.rowptr.shape[0] - 1
+            return torch.sparse_csr_tensor(grp.rowptr, grp.col, grp.value,
+                                           (R_, n_cols))
+
+        sum_cases, mm_cases = [], []
+        for k in (128, 256, 40):
+            xb0 = operand(torch, Nb0, k, 31, device)
+            halo0 = operand(torch, PH0, k, 32, device)
+            base = operand(torch, Mb0, k, 33, device)
+            timed = k != 40
+            specs = [("interior, write", it0, xb0, None, Nb0),
+                     ("halo frontier, accumulate", fr0, halo0, base, PH0),
+                     ("ring group q=1, accumulate", rg0, xb0, base, Nb0)]
+            for label, grp, buf, acc, n_cols in specs:
+                sargs = (grp.rowptr, grp.col, grp.value, buf)
+                kw = dict(row_map=grp.row_map, n_rows=Mb0)
+
+                def run(fn, acc=acc, sargs=sargs, kw=kw):
+                    if acc is None:
+                        return fn(*sargs, **kw)
+                    return fn(*sargs, out=acc.clone(), row_map=kw["row_map"])
+
+                got, ref = run(shard_spmm), run(shard_spmm_plain)
+                sync()
+                timing = {}
+                if timed and label != "ring group q=1, accumulate":
+                    A_csr = csr_of(grp, n_cols)
+                    R_, E_ = grp.rowptr.shape[0] - 1, grp.nnz
+                    acc_ = acc is not None
+                    if acc_:
+                        out_t = acc.clone()
+                        rm_l = grp.row_map.long()
+
+                        def library(A_csr=A_csr, buf=buf, out_t=out_t,
+                                    rm_l=rm_l):
+                            return out_t.index_add_(0, rm_l, A_csr @ buf)
+
+                        def kernel(sargs=sargs, out_t=out_t, grp=grp):
+                            return shard_spmm(*sargs, out=out_t,
+                                              row_map=grp.row_map)
+
+                        def plain(sargs=sargs, out_t=out_t, grp=grp):
+                            return shard_spmm_plain(*sargs, out=out_t,
+                                                    row_map=grp.row_map)
+                    else:
+                        def library(A_csr=A_csr, buf=buf):
+                            return A_csr @ buf
+
+                        def kernel(sargs=sargs):
+                            return shard_spmm(*sargs)
+
+                        def plain(sargs=sargs):
+                            return shard_spmm_plain(*sargs)
+                    timing = {"ms": timer(kernel), "plain_ms": timer(plain),
+                              "library_ms": timer(library)}
+                    timing["bound_ms"], timing["bound_by"] = shard_bounds(
+                        R_, E_, k, n_read(grp), R_, True, acc_,
+                        grp.row_map is not None)
+                    timing["bound_ms_row_per_edge"] = shard_row_per_edge_ms(
+                        R_, E_, k, R_, acc_)
+                    timing["rows"], timing["edges"] = R_, E_
+                sum_cases.append(kernel_case(
+                    torch, f"{label} K={k}", got, ref, failures,
+                    "shard_spmm", **timing))
+                del got, ref
+            # K11b: the interior's max written, the frontier's max
+            # combined into it, and ring group 1's min combined into the
+            # interior's min: out and arg exactly equal to the plain
+            # version's.
+            e0 = shard0.e0
+            for label, grp, buf, is_min, into in [
+                    ("interior max, write", it0, xb0, False, None),
+                    ("halo frontier max, combine", fr0, halo0, False, "max"),
+                    ("ring group q=1 min, combine", rg0, xb0, True, "min")]:
+                sargs = (grp.rowptr, grp.col, grp.value, buf, is_min, e0)
+                if into is None:
+                    kw = dict(pos=grp.pos, row_map=grp.row_map, n_rows=Mb0)
+                    got = shard_spmm_minmax(*sargs, **kw)
+                    ref = shard_spmm_minmax_plain(*sargs, **kw)
+                else:
+                    o_, a_ = shard_spmm_minmax(
+                        it0.rowptr, it0.col, it0.value, xb0, into == "min",
+                        e0, pos=it0.pos)
+                    got = shard_spmm_minmax(
+                        *sargs, pos=grp.pos, out=o_.clone(), arg=a_.clone(),
+                        row_map=grp.row_map)
+                    ref = shard_spmm_minmax_plain(
+                        *sargs, pos=grp.pos, out=o_.clone(), arg=a_.clone(),
+                        row_map=grp.row_map)
+                sync()
+                mism = int((got[1] != ref[1]).sum())
+                if mism:
+                    failures.append(f"shard_spmm_minmax {label} K={k}: "
+                                    f"{mism} argout entries differ")
+                timing = {}
+                if timed and into is None:
+                    R_, E_ = grp.rowptr.shape[0] - 1, grp.nnz
+                    timing = {
+                        "ms": timer(lambda: shard_spmm_minmax(*sargs, **kw)),
+                        "plain_ms": plain_timer(
+                            lambda: shard_spmm_minmax_plain(*sargs, **kw)),
+                        "library_ms": None}
+                    timing["bound_ms"], timing["bound_by"] = shard_bounds(
+                        R_, E_, k, n_read(grp), R_, True, False, False,
+                        minmax=True, has_pos=True)
+                    timing["rows"], timing["edges"] = R_, E_
+                case = kernel_case(torch, f"{label} K={k}", got[0], ref[0],
+                                   failures, "shard_spmm_minmax", **timing)
+                case["arg_mismatches"] = mism
+                if case["max_abs_err"] != 0:
+                    failures.append(f"shard_spmm_minmax {label} K={k}: out "
+                                    "differs from the plain version's")
+                mm_cases.append(case)
+                del got, ref
+            del xb0, halo0, base
+        shape = (f"shard 0 of {DIST_WORLD}: Mb={Mb0} interior E="
+                 f"{it0.nnz} frontier E={fr0.nnz} (P*H={PH0}) ring q=1 "
+                 f"E={rg0.nnz}")
+        kernels.append(kernel_entry(
+            "shard_spmm", "shard_spmm.cu", "parallel/dist.py:337", sum_cases,
+            "torch.sparse_csr_tensor(group) @ buf (cuSPARSE), plus "
+            "index_add_ into out when it accumulates", shape))
+        kernels.append(kernel_entry(
+            "shard_spmm_minmax", "shard_spmm.cu", "parallel/dist.py:369",
+            mm_cases, "none (no PyTorch call computes an argout)", shape))
+        del shard0, hl0, it0, fr0, rg0
+    except Exception:
+        failures.append("phase 3 (shard_spmm): " + traceback.format_exc())
     record("kernel_phase", seconds=round(time.time() - t0, 2))
 
     # ---- 4, 4b, 5 and 6: the main path, with launch counts ---------------
@@ -1791,6 +2337,10 @@ def main(argv=None) -> int:
         "11 GraphSAGE and GIN training": ("csr_spmm",),
         "12 GraphSAINT-RW training": ("random_walk", "csr_spmm"),
         "13 neighbour-sampled GraphSAGE": ("csr_spmm",),
+        "14 four ranks on one card (gloo)": (
+            "shard_spmm", "shard_spmm_minmax", "block_spmm", "block_spmm_t",
+            "edge_dot", "minmax_edge_dot", "minmax_spmm_t"),
+        "15 DistGCN on products (world size 1, NCCL)": ("shard_spmm",),
     }
     phase_launches = {}
 
@@ -2109,6 +2659,117 @@ def main(argv=None) -> int:
     models11 = drive("11 GraphSAGE and GIN training", sage_gin_training)
     saint12 = drive("12 GraphSAINT-RW training", saint_training)
     nb13 = drive("13 neighbour-sampled GraphSAGE", neighbor_training)
+
+    # Phase 14: four ranks on the card, gloo, collectives staged through
+    # the host.  The workers load the community hybrid graph and its
+    # gcn_norm from a file of this run's arrays.
+    def dist_four_ranks():
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_p14_")
+        try:
+            path = os.path.join(tmp, "graphs.npz")
+            Mf, Ef, nf = FRONTIER_DENSE
+            A_f = community_graph(Mf, Ef, n_comm=nf, seed=2,
+                                  equal_sizes=True, device="cpu")
+            arrays = {}
+            for prefix, A_ in (("", A_h), ("n_", A_hn), ("s_", A_f)):
+                st = A_.storage
+                arrays.update({
+                    prefix + "M": A_.size(0),
+                    prefix + "row": st.numpy_view("row"),
+                    prefix + "col": st.numpy_view("col"),
+                    prefix + "val": st.value().cpu().numpy()})
+            np.savez(path, **arrays)
+            del A_f, arrays
+            t1 = time.time()
+            ranks = spawn_ranks(phase14_worker, DIST_WORLD, "gloo",
+                                args=dict(coo_path=path, K_=K,
+                                          widths=GCN_WIDTHS), timeout=900)
+            return ranks, time.time() - t1
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    # Phase 15: DistGCN at OGB's products full-batch GCN widths on the
+    # products graph, world size 1 on NCCL.
+    def dist_products():
+        import torch.distributed as tdist
+
+        r = {}
+        t1 = time.time()
+        order = np.argsort(products_communities(PRODUCTS_SCALE),
+                           kind="stable")
+        inv = np.empty_like(order)
+        inv[order] = np.arange(order.size)
+        A_perm = ts.SparseTensor(
+            row=inv[A_p.storage.numpy_view("row")],
+            col=inv[A_p.storage.numpy_view("col")], sparse_sizes=(Mp, Mp),
+            device=device)
+        r["A"] = gcn_norm(A_perm)
+        r["A"].storage.rowptr()
+        del A_perm
+        order_d = torch.from_numpy(order).to(device)
+        r["x"], r["y"] = x_p[order_d], labels_p[order_d]
+        r["permute_norm_s"] = time.time() - t1
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_p15_")
+        tdist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv",
+                                 rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, device=device)
+            t1 = time.time()
+            Ash = ShardedSparseMatrix.from_sparse_tensor(r["A"], mesh)
+            r["local_format"] = ("hybrid" if Ash.has_interior_blocks()
+                                 else "ell")
+            Ash._halo.frontier
+            sync()
+            r["sharded_build_s"] = time.time() - t1
+            hy = Ash._hybrid
+            if hy is not None:
+                r["blocks"] = hy.blocks.shape[0] - 1
+                r["block_bytes"] = hy.blocks.numel() * \
+                    hy.blocks.element_size()
+                r["rest_nnz"] = 0 if hy.rest is None else hy.rest.nnz
+            in_, hid_, out_, nl_ = PRODUCTS_GCN
+            model = DistGCN(in_, hid_, out_, num_layers=nl_,
+                            generator=torch.Generator().manual_seed(0),
+                            device=device)
+            r["kmasks"] = []
+            with torch.no_grad():
+                dist_gcn_forward(model, Ash, r["x"], dist_spmm,
+                                 relu_recorder(torch, r["kmasks"]))
+            opt = torch.optim.Adam(model.parameters(), lr=0.01)
+            mask = torch.ones(Mp, device=device)
+            r["losses"], r["step_ms"] = [], []
+            for s in range(DIST_STEPS):
+                before = {n: f.launches for n, f in counted.items()}
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                loss = model.train_step(opt, Ash, r["x"], r["y"], mask,
+                                        "halo", "auto")
+                end.record()
+                end.synchronize()
+                r["step_ms"].append(start.elapsed_time(end))
+                r["losses"].append(loss.item())
+                if s == 0:
+                    r["grads0"] = [p_.grad.detach().clone()
+                                   for p_ in model.parameters()]
+                    r["launches_step1"] = {
+                        n: f.launches - before[n]
+                        for n, f in counted.items()
+                        if f.launches - before[n]}
+            r["peak_bytes"] = torch.cuda.max_memory_allocated()
+            del Ash, model, opt
+        finally:
+            tdist.destroy_process_group()
+            shutil.rmtree(tmp, ignore_errors=True)
+        return r
+
+    p14 = drive("14 four ranks on one card (gloo)", dist_four_ranks)
+    if p14 is not None:
+        for rank_res in p14[0]:
+            for n, c_ in rank_res["launches"].items():
+                phase_launches["14 four ranks on one card (gloo)"][n] += c_
+    dist15 = drive("15 DistGCN on products (world size 1, NCCL)",
+                   dist_products)
     launches = {n: sum(c[n] for c in phase_launches.values())
                 for n in counted}
     record("main_path", seconds=round(time.time() - t0, 2),
@@ -2845,11 +3506,96 @@ def main(argv=None) -> int:
                 f"neighbour-sampled GraphSAGE: first step vs plain {errs}, "
                 f"hop faults {bad}, prefetched batches equal {same}")
 
+    # ---- 14. four ranks on one card: checks ------------------------------
+    def check_dist14(p):
+        ranks, secs = p
+        r0 = ranks[0]
+        failures.extend(r0["failures"])
+        label = (f"{DIST_WORLD} processes share one card; collectives "
+                 f"staged through the host by {r0['backend']}: not a "
+                 "scaling result")
+        for case in r0["cases"]:
+            record("dist_four_ranks", **case, backend=r0["backend"],
+                   times=label, card=card)
+        record("dist_gcn_four_ranks", **r0["dist_gcn"],
+               backend=r0["backend"], times=label,
+               widths=[in_dim, hid, hid, out_dim],
+               spawn_s=secs, worker_s=r0["build_and_cases_s"],
+               staged_bytes_by_rank=[r_["staged_bytes"] for r_ in ranks],
+               launches_by_rank=[r_["launches"] for r_ in ranks],
+               card=card)
+
+    # ---- 15. DistGCN on products: checks and times -------------------------
+    def check_dist15(r):
+        A_pn, x_pp, y_pp, kmasks = r["A"], r["x"], r["y"], r["kmasks"]
+        st = A_pn.storage
+
+        def csr_route(rowptr, col, value, h):
+            return _CsrSum.apply(st, value, h)
+
+        in_, hid_, out_, nl_ = PRODUCTS_GCN
+
+        def make():
+            return GCN(in_, hid_, out_, num_layers=nl_,
+                       generator=torch.Generator().manual_seed(0),
+                       device=device)
+
+        rm = make()
+        cmasks = relu_masks(torch, lambda a, h: csr_route(*a.csr(), h), rm,
+                            A_pn, x_pp)
+        flips = sum(int((k_ != c_).sum()) for k_, c_ in zip(kmasks, cmasks))
+        del cmasks
+        ref = plain_loss(torch, csr_route, rm, A_pn, x_pp, y_pp, kmasks)
+        ref.backward()
+        grad_errs = [errors(g, p_.grad)[1]
+                     for g, p_ in zip(r["grads0"], rm.parameters())]
+        loss_err = abs(r["losses"][0] - ref.item()) / abs(ref.item())
+        ropt = torch.optim.Adam(rm.parameters(), lr=0.01)
+        csr_ms = time_ms(torch, lambda: step(rm, ropt, lambda m: plain_loss(
+            torch, csr_route, m, A_pn, x_pp, y_pp)), reps=DIST_STEPS)
+        max_flips = int(RELU_FLIP_SHARE * Mp * hid_ * (nl_ - 1))
+        launches15 = phase_launches[
+            "15 DistGCN on products (world size 1, NCCL)"]
+        record("dist_gcn_products", world_size=1, backend="nccl",
+               nodes=Mp, nnz=A_pn.nnz(), scale=PRODUCTS_SCALE,
+               layout="permuted by the generator's planted community "
+               "(the contiguous layout partition() aims at; not a METIS "
+               "result: the port has no partitioner yet)",
+               widths=[in_] + [hid_] * (nl_ - 1) + [out_],
+               local_format=r["local_format"],
+               blocks=r.get("blocks"), block_bytes=r.get("block_bytes"),
+               rest_nnz=r.get("rest_nnz"),
+               permute_and_gcn_norm_host_s=r["permute_norm_s"],
+               launches_step1=r["launches_step1"],
+               shard_spmm_launches=launches15["shard_spmm"],
+               block_spmm_launches=launches15["block_spmm"],
+               losses=r["losses"], step_ms=r["step_ms"],
+               csr_route_gcn_step_ms=csr_ms,
+               loss_rel_err_vs_csr=loss_err,
+               grad_rel_errs_vs_csr=grad_errs, relu_flips=flips,
+               max_relu_flips=max_flips, gate=KERNEL_GATE,
+               peak_device_bytes=r["peak_bytes"], card=card)
+        record("dist_sharded_build", nodes=Mp, nnz=A_pn.nnz(),
+               host_s=r["sharded_build_s"], local_format=r["local_format"],
+               card=card)
+        ok = (np.isfinite(r["losses"]).all() and loss_err <= KERNEL_GATE
+              and max(grad_errs) <= KERNEL_GATE and flips <= max_flips
+              and launches15["shard_spmm"] > 0
+              and (r["local_format"] != "hybrid"
+                   or launches15["block_spmm"] > 0))
+        if not ok:
+            failures.append(
+                f"phase 15: loss err {loss_err}, grad errs {grad_errs}, "
+                f"flips {flips} (max {max_flips}), format "
+                f"{r['local_format']}, launches {launches15}")
+
     for label, res, check in (("9", gcn9, check_gcn9),
                               ("10", gat10, check_gat10),
                               ("11", models11, check_models11),
                               ("12", saint12, check_saint12),
-                              ("13", nb13, check_nb13)):
+                              ("13", nb13, check_nb13),
+                              ("14", p14, check_dist14),
+                              ("15", dist15, check_dist15)):
         if res is not None:
             try:
                 check(res)

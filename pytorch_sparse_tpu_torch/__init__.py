@@ -15,7 +15,10 @@ legacy tuple API); and the samplers: random walks (a hand-written walk
 kernel), with-replacement ``sample``, and on the host ``sample_adj``,
 ``saint_subgraph``, ``relabel``, ``relabel_one_hop`` and the
 homogeneous ``neighbor_sample``, whose draws equal the JAX package's
-native sampler's.
+native sampler's; and the distribution layer (``parallel``): row shards
+over a ``torch.distributed`` process group with the all-gather, ring and
+halo SpMM schedules (hand-written shard kernels), forward and backward,
+and ``models.DistGCN``.
 Names follow the JAX package.  Entry points run on ``cuda`` unless
 given ``device="cpu"``; the CPU runs each kernel's plain PyTorch
 version.

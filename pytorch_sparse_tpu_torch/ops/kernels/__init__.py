@@ -18,6 +18,9 @@ from .hybrid import (  # noqa
 )
 from .plan_numeric import plan_numeric, plan_numeric_plain  # noqa
 from .random_walk import random_walk, random_walk_plain  # noqa
+from .shard_spmm import (  # noqa
+    shard_spmm, shard_spmm_minmax, shard_spmm_minmax_plain, shard_spmm_plain,
+)
 from .spmm_minmax import (  # noqa
     csr_spmm_minmax, csr_spmm_minmax_plain, minmax_edge_dot,
     minmax_edge_dot_plain, minmax_spmm_t, minmax_spmm_t_plain,

@@ -127,9 +127,10 @@ def test_operand_checks():
 def test_kernel_sources_carry_their_notes():
     for name in _build.SOURCES:
         src = (PORT / "csrc" / f"{name}.cu").read_text()
-        # What it replaces: a routine of the JAX package's kernels or
-        # samplers.
-        assert re.search(r"pytorch_sparse_tpu/(ops/kernels|sample)/", src)
+        # What it replaces: a routine of the JAX package's kernels,
+        # samplers or distributed schedules.
+        assert re.search(r"pytorch_sparse_tpu/(ops/kernels|sample|parallel)/",
+                         src)
         assert "bounds it on an H100" in src
         assert "extern \"C\"" in src and "cudaGetLastError" in src
 
