@@ -48,7 +48,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    interior written, the halo frontier accumulated and ring group 1
    accumulated (K11a, 1e-5), the interior's
    max written, the frontier's max and ring group 1's min combined into
-   a running pair (K11b: ``out`` and ``arg`` exactly).
+   a running pair (K11b: ``out`` and ``arg`` exactly).  On shard 0 of the
+   same graph's hierarchical layout at (S, C) = (2, 2), at K=256 and 20
+   (the columns a feature rank holds of a 40-wide operand on two feature
+   ranks, the kernels' narrow build): K11a accumulated over the
+   intra-slice halo (C*Hi rows) and over the cross-slice union (C*S*Hx
+   rows), K11b combined over the union.
    Each is timed with CUDA events beside its plain version, a PyTorch
    library yardstick that the port never calls (none computes an
    argout), and its bound on an H100
@@ -179,9 +184,27 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    "auto", each timed with CUDA events.  The local format taken, the
    launches of K11a and K2 and the sharded matrix's host build are
    reported; the first step's loss and gradients must match the same
-   step of the single-card GCN on the CSR route (timed too).
+   step of the single-card GCN on the CSR route (timed too).  Then one
+   step of the same model on a (1, 1) hierarchical grid of the same
+   graph, also on NCCL, so that the sub-group collectives run on the
+   card: its loss and gradients must equal the halo schedule's first
+   step.
+16. The hierarchical and 2-D layouts, in phase 14's four gloo processes
+   (each holds the graph once): the community hybrid graph on a (2, 2)
+   ``make_mesh_hier`` grid, every reduce on the group format with the
+   ``x`` and ``value`` gradients and sum and mean on "auto" (the
+   interior blocks) with the ``x`` gradient; both dense frontier tiers
+   "always" on the ``FRONTIER_DENSE`` graph, which must build both; one
+   ``DistGCN`` Adam step on the hierarchical layout of phase 9's
+   ``gcn_norm`` graph against the single-card GCN step, parameters
+   identical on every rank; then the same graph on a (2, 2)
+   ``make_mesh2d`` grid at K=256 (128 columns a feature rank): every
+   schedule x sum and max and the halo's hybrid sum, with the ``x``
+   gradient.  Every case is gathered to rank 0 and held against K1/K6
+   and the float64 oracles as in phase 14; the layout's wire report (the
+   DCN deduplication factor) and staged bytes are reported.
 
-The main path is phases 4 to 15, each driven once with every launch
+The main path is phases 4 to 16, each driven once with every launch
 count set to 0 just before it and read just after it.  Each phase must
 launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
 those and ``block_spmm_t`` and ``edge_dot``; 4c: ``csr_spmm_minmax``,
@@ -197,7 +220,8 @@ all in the second step, and no ``edge_dot``; 10: ``edge_softmax`` and
 ``shard_spmm_minmax``, ``block_spmm``, ``block_spmm_t``, ``edge_dot``,
 ``minmax_edge_dot`` and ``minmax_spmm_t``, counted in the four worker
 processes, each rank-0 oracle's launches left out; 15: ``shard_spmm``,
-and ``block_spmm`` when the hybrid format is taken), and the
+and ``block_spmm`` when the hybrid format is taken; 16: as 14, counted
+in the same processes from 0 at the phase's start), and the
 ``kernels`` line reports each kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -253,6 +277,12 @@ NEIGHBOR = (1024, (15, 10, 5), 3)          # batch, fanouts, batches
 # none, three steps.
 DIST_WORLD = 4
 FRONTIER_DENSE = (16_384, 1_000_000, 16)   # nodes, draws, communities
+# Phase 16, in phase 14's processes: the (S, C) hierarchical grid and the
+# (data, feat) grid of the same shape, the 2-D grid at K=256 (128
+# columns a feature rank).  Phase 3 also runs K11a/K11b at K2D_SLICE, the
+# columns a feature rank holds of a 40-wide operand.
+HIER_GRID = (2, 2)
+K2D, K2D_SLICE = 256, 20
 PRODUCTS_GCN = (100, 256, 47, 3)           # in, hidden, out, layers
 DIST_STEPS = 3
 REPS = 20
@@ -1021,6 +1051,18 @@ class HostMesh:
         self.size, self.rank, self.device = size, rank, device
 
 
+class HostGrid:
+    """The axis names, shape, rank and device of one process of a grid,
+    without a process group: all that ``HierShardedSparseMatrix``'s host
+    builder reads, so that phase 3 can build shard 0's hierarchical
+    tables in this process."""
+
+    def __init__(self, names, shape, rank, device):
+        self.names, self.shape = names, dict(zip(names, shape))
+        self.mesh = HostMesh(shape[0] * shape[1], rank, device)
+        self.device = device
+
+
 def _rank_main(rank, fn, world_size, backend, workdir, timeout, args):
     import datetime
 
@@ -1072,12 +1114,12 @@ def spawn_ranks(fn, world_size, backend, args, timeout):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-def dist_gcn_forward(model, adj, x, dist_spmm, relu, schedule="halo",
-                     local_format="auto"):
-    """``DistGCN``'s forward written out, with the ReLU given."""
+def dist_gcn_forward(model, x, agg, relu):
+    """``DistGCN``'s forward written out, with the aggregation
+    ``agg(h)`` and the ReLU given."""
     n = len(model.weights)
     for i, (w, b) in enumerate(zip(model.weights, model.biases)):
-        x = dist_spmm(adj, x @ w, schedule, "sum", local_format) + b
+        x = agg(x @ w) + b
         if i < n - 1:
             x = relu(x)
     return x
@@ -1092,17 +1134,24 @@ def products_communities(scale, seed=0):
     return rng.randint(0, n_comm, M).astype(np.int32)
 
 
-def phase14_worker(rank, world_size, coo_path, K_, widths):
-    """Phase 14 on one of ``world_size`` gloo processes sharing the card:
-    every schedule x reduce with both gradients, the hybrid local format
-    and one DistGCN Adam step, on the community hybrid graph and its
-    ``gcn_norm``, and the hybrid with the dense frontier "always" on the
-    ``FRONTIER_DENSE`` graph (the big graph's is over the cap).  The
-    results are gathered to rank 0, which holds them against the
-    single-card CSR kernel (K1) and K6 on the whole matrix and float64
-    host oracles, and the DistGCN step against the single-card GCN step on the CSR route.
-    Every rank returns its kernel launches (rank 0's reference launches
-    excluded) and its staged bytes."""
+def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
+    """Phases 14 and 16 on one of ``world_size`` gloo processes sharing
+    the card.  Phase 14, the flat layout: every schedule x reduce with
+    both gradients, the hybrid local format and one DistGCN Adam step, on
+    the community hybrid graph and its ``gcn_norm``, and the hybrid with
+    the dense frontier "always" on the ``FRONTIER_DENSE`` graph (the big
+    graph's is over the cap).  Phase 16, on the ``grid`` (S, C) =
+    (data, feat) shape: the hierarchical schedule for every reduce
+    ("ell" with both gradients, "auto" with the ``x`` gradient), both
+    dense frontier tiers "always" on the ``FRONTIER_DENSE`` graph, one
+    DistGCN Adam step on the hierarchical layout, and the flat schedules
+    on the 2-D (data, feat) grid at ``K2d`` (sum and max, ``x``
+    gradient).  The results are gathered to rank 0, which holds them
+    against the single-card CSR kernel (K1) and K6 on the whole matrix
+    and float64 host oracles, and each DistGCN step against the
+    single-card GCN step on the CSR route.  Every rank returns each
+    phase's kernel launches (counts set to 0 at the phase's start, rank
+    0's reference launches excluded) and its staged bytes."""
     import torch
 
     import pytorch_sparse_tpu_torch as ts
@@ -1112,7 +1161,8 @@ def phase14_worker(rank, world_size, coo_path, K_, widths):
         minmax_edge_dot, minmax_spmm_t, shard_spmm, shard_spmm_minmax)
     from pytorch_sparse_tpu_torch.ops.matmul import _CsrSum
     from pytorch_sparse_tpu_torch.parallel import (
-        ShardedSparseMatrix, dist_spmm, make_mesh)
+        HierShardedSparseMatrix, ShardedSparseMatrix, dist_spmm,
+        dist_spmm_hier, make_mesh, make_mesh2d, make_mesh_hier)
     from pytorch_sparse_tpu_torch.parallel import _comm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1124,9 +1174,15 @@ def phase14_worker(rank, world_size, coo_path, K_, widths):
                "edge_dot": edge_dot, "minmax_edge_dot": minmax_edge_dot,
                "minmax_spmm_t": minmax_spmm_t, "csr_spmm": csr_spmm,
                "csr_spmm_minmax": csr_spmm_minmax}
-    for f in counted.values():
-        f.launches = 0
-    excluded = {n: 0 for n in counted}
+    excluded = {}
+
+    def reset_counts():
+        for n, f in counted.items():
+            f.launches = 0
+            excluded[n] = 0
+
+    def read_counts():
+        return {n: f.launches - excluded[n] for n, f in counted.items()}
 
     def reference(fn):
         """Run a rank-0 oracle without counting its launches."""
@@ -1136,7 +1192,10 @@ def phase14_worker(rank, world_size, coo_path, K_, widths):
             excluded[n] += f.launches - before[n]
         return out
 
+    reset_counts()
     mesh = make_mesh(world_size, device=device)
+    hier = make_mesh_hier(*grid, device=device)
+    mesh2d = make_mesh2d(*grid, device=device)
     data = np.load(coo_path)
     M = int(data["M"])
 
@@ -1148,15 +1207,18 @@ def phase14_worker(rank, world_size, coo_path, K_, widths):
             sparse_sizes=(M_, M_), is_sorted=True, trust_data=True,
             device="cpu")
 
-    def graph(prefix, name, **kw):
-        """A graph of the file, sharded, with its operands and the CSR of
-        rank 0's oracles."""
+    def graph(prefix, name, layout, k=K_, **kw):
+        """A graph of the file on ``layout`` (the flat mesh, the
+        hierarchical or the 2-D grid), with its ``(M, k)`` operands and
+        the CSR of rank 0's oracles."""
         A_ = tensor(prefix)
         M_, st = A_.size(0), A_.storage
-        g = {"name": name, "A": A_,
-             "sh": ShardedSparseMatrix.from_sparse_tensor(A_, mesh, **kw),
-             "x_full": operand(torch, M_, K_, 2, device),
-             "gout_full": operand(torch, M_, K_, 8, device),
+        make = (HierShardedSparseMatrix if layout is hier
+                else ShardedSparseMatrix)
+        g = {"name": name, "A": A_, "layout": layout,
+             "sh": make.from_sparse_tensor(A_, layout, **kw),
+             "x_full": operand(torch, M_, k, 2, device),
+             "gout_full": operand(torch, M_, k, 8, device),
              "value": st.value().to(device),
              "deg": st.rowcount().to(device).clamp_min(1).float()[:, None],
              "rp": torch.from_numpy(st.numpy_view("rowptr").astype(
@@ -1167,166 +1229,238 @@ def phase14_worker(rank, world_size, coo_path, K_, widths):
         g["gout"] = g["sh"].shard_dense(g["gout_full"])
         return g
 
+    def run_cases(cases, phase, res):
+        """Each ``(graph, schedule, local format, reduce, value grad)``
+        case: forward and gradients on every rank, gathered and checked
+        on rank 0."""
+        for g, schedule, fmt, reduce, with_value in cases:
+            adj, A, value, deg = g["sh"], g["A"], g["value"], g["deg"]
+            x, gout, x_full, gout_full = (g["x"], g["gout"], g["x_full"],
+                                          g["gout_full"])
+            rp, cl = g["rp"], g["cl"]
+            minmax = reduce in ("min", "max")
+            xx = x.clone().requires_grad_(True)
+            vv = value.clone().requires_grad_(True) if with_value else None
+            local_format = "hybrid" if fmt.startswith("hybrid") else fmt
+            staged0 = g["layout"].staged_bytes
+            sync()
+            t1 = time.time()
+            if schedule == "hier":
+                out = dist_spmm_hier(adj, xx, reduce, local_format, vv)
+            else:
+                out = dist_spmm(adj, xx, schedule, reduce, local_format, vv)
+            out, arg = out if minmax else (out, None)
+            sync()
+            t2 = time.time()
+            grads = torch.autograd.grad(out, [xx] + ([vv] if with_value
+                                                     else []), gout)
+            sync()
+            t3 = time.time()
+            case = {"graph": g["name"], "schedule": schedule,
+                    "local_format": fmt, "reduce": reduce,
+                    "K": x_full.shape[1], "K_per_rank": x.shape[1],
+                    "forward_ms": (t2 - t1) * 1e3,
+                    "backward_ms": (t3 - t2) * 1e3,
+                    "staged_bytes": g["layout"].staged_bytes - staged0,
+                    "has_interior_blocks": adj.has_interior_blocks(),
+                    "has_frontier_dense": (
+                        [adj.fi_dense is not None, adj.fx_dense is not None]
+                        if schedule == "hier" else adj.has_frontier_dense())}
+            out_f = adj.unshard_dense(out.detach())
+            gx_f = adj.unshard_dense(grads[0])
+            arg_f = adj.unshard_dense(arg) if minmax else None
+            gv = (_comm.all_reduce_sum(adj.world, grads[1]) if with_value
+                  else None)
+            del out, grads, xx, vv
+            if rank == 0:
+                g_eff = gout_full / deg if reduce == "mean" else gout_full
+
+                def check():
+                    if minmax:
+                        ref, ref_arg = csr_spmm_minmax(rp, cl, value, x_full,
+                                                       reduce == "min")
+                        case["arg_mismatches"] = int((arg_f != ref_arg).sum())
+                        case["out_max_abs_err"] = errors(out_f, ref)[0]
+                        ok = case["arg_mismatches"] == 0 and \
+                            case["out_max_abs_err"] == 0
+                    else:
+                        ref = csr_spmm(rp, cl, value, x_full)
+                        if reduce == "mean":
+                            ref = ref / deg
+                        case["out_rel_err"] = errors(out_f, ref)[1]
+                        ok = case["out_rel_err"] <= GATE_F32
+                    ok_x, case["grad_x_rel_err"] = grad_x_oracle_check(
+                        A, g_eff, gx_f, GATE_F32, arg=arg_f)
+                    ok = ok and ok_x
+                    if gv is not None:
+                        ok_v, case["grad_v_rel_err"] = grad_v_oracle_check(
+                            A, x_full, g_eff, gv, GATE_F32, arg=arg_f)
+                        ok = ok and ok_v
+                    return ok
+
+                case["ok"] = reference(check)
+                if not case["ok"]:
+                    res["failures"].append(
+                        f"phase {phase} {schedule}/{fmt}/{reduce}: {case}")
+            res["cases"].append(case)
+            del out_f, gx_f, arg_f, gv
+
+    in_dim, hid, out_dim, nl = widths
+    x_g = operand(torch, M, in_dim, 5, device)
+    labels = seeded_labels(torch, x_g, out_dim, 6, device)
+
+    def gcn_step(adj, layout, agg, schedule, phase, res):
+        """One DistGCN Adam step on ``adj`` (``gcn_norm`` of the graph),
+        its loss and gradients against the single-card GCN step on the
+        CSR route with this run's ReLU decisions (rank 0), and the
+        parameters compared across ranks."""
+        xs, ls = adj.shard_dense(x_g), adj.shard_dense(labels)
+        mask = adj.shard_dense(torch.ones(M, device=device))
+        model = DistGCN(in_dim, hid, out_dim, num_layers=nl,
+                        generator=torch.Generator().manual_seed(0),
+                        device=device)
+        kmasks = []
+        with torch.no_grad():
+            dist_gcn_forward(model, xs, agg, relu_recorder(torch, kmasks))
+        opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+        staged0 = layout.staged_bytes
+        sync()
+        t1 = time.time()
+        loss = model.train_step(opt, adj, xs, ls, mask, schedule, "auto")
+        sync()
+        step_ms = (time.time() - t1) * 1e3
+        grads = [p.grad.detach().clone() for p in model.parameters()]
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        every = _comm.all_gather(adj.world, flat[None])
+        kmasks = [adj.unshard_dense(m_.to(torch.uint8)).bool()
+                  for m_ in kmasks]
+        gcn = {"step_ms": step_ms, "staged_bytes": layout.staged_bytes
+               - staged0, "loss": float(loss),
+               "local_format": ("hybrid" if adj.has_interior_blocks()
+                                else "ell"),
+               "params_identical_on_every_rank": bool(
+                   (every == every[:1]).all())}
+        if rank == 0:
+            An_dev = ts.SparseTensor(
+                row=data["n_row"], col=data["n_col"],
+                value=torch.from_numpy(data["n_val"]), sparse_sizes=(M, M),
+                is_sorted=True, trust_data=True, device=device)
+
+            def csr_route(rowptr, col, value_, h):
+                return _CsrSum.apply(An_dev.storage, value_, h)
+
+            def gcn_reference():
+                rm = GCN(in_dim, hid, out_dim, num_layers=nl,
+                         generator=torch.Generator().manual_seed(0),
+                         device=device)
+                cmasks = relu_masks(torch,
+                                    lambda a, h: csr_route(*a.csr(), h),
+                                    rm, An_dev, x_g)
+                flips = sum(int((k_ != c_).sum())
+                            for k_, c_ in zip(kmasks, cmasks))
+                ref = plain_loss(torch, csr_route, rm, An_dev, x_g, labels,
+                                 kmasks)
+                ref.backward()
+                return ref.item(), [p.grad for p in rm.parameters()], flips
+
+            ref_loss, ref_grads, flips = reference(gcn_reference)
+            gcn["loss_rel_err_vs_csr"] = abs(gcn["loss"] - ref_loss) / abs(
+                ref_loss)
+            gcn["grad_rel_errs_vs_csr"] = [errors(g, r)[1]
+                                           for g, r in zip(grads, ref_grads)]
+            gcn["relu_flips"] = flips
+            gcn["max_relu_flips"] = int(RELU_FLIP_SHARE * M * hid * (nl - 1))
+            gcn["ok"] = bool(
+                np.isfinite(gcn["loss"])
+                and gcn["loss_rel_err_vs_csr"] <= KERNEL_GATE
+                and max(gcn["grad_rel_errs_vs_csr"]) <= KERNEL_GATE
+                and flips <= gcn["max_relu_flips"]
+                and gcn["params_identical_on_every_rank"])
+            if not gcn["ok"]:
+                res["failures"].append(f"phase {phase} DistGCN step: {gcn}")
+        return gcn
+
+    # ---- phase 14: the flat layout --------------------------------------
     t0 = time.time()
-    big = graph("", "community hybrid")
     res = {"rank": rank, "cases": [], "failures": []}
-    cases = [(big, s, "ell", r) for s in ("allgather", "ring", "halo")
+    big = graph("", "community hybrid", mesh)
+    cases = [(big, s, "ell", r, True) for s in ("allgather", "ring", "halo")
              for r in ("sum", "mean", "min", "max")]
-    cases += [(big, "halo", "hybrid", r) for r in ("sum", "mean")]
-    small = graph("s_", "frontier dense", frontier_dense="always")
+    cases += [(big, "halo", "hybrid", r, False) for r in ("sum", "mean")]
+    small = graph("s_", "frontier dense", mesh, frontier_dense="always")
     if not small["sh"].has_frontier_dense():
         res["failures"].append(
             "phase 14: frontier_dense='always' built no dense frontier on "
             "the FRONTIER_DENSE graph")
-    cases += [(small, "halo", "hybrid-always", r) for r in ("sum", "mean")]
-    for g, schedule, fmt, reduce in cases:
-        adj, A, value, deg = g["sh"], g["A"], g["value"], g["deg"]
-        x, gout, x_full, gout_full = (g["x"], g["gout"], g["x_full"],
-                                      g["gout_full"])
-        rp, cl = g["rp"], g["cl"]
-        minmax = reduce in ("min", "max")
-        xx = x.clone().requires_grad_(True)
-        vv = None if fmt != "ell" else value.clone().requires_grad_(True)
-        staged0 = mesh.staged_bytes
-        sync()
-        t1 = time.time()
-        out = dist_spmm(adj, xx, schedule, reduce,
-                        "hybrid" if fmt.startswith("hybrid") else fmt, vv)
-        out, arg = out if minmax else (out, None)
-        sync()
-        t2 = time.time()
-        grads = torch.autograd.grad(out, [xx] + ([vv] if vv is not None
-                                                 else []), gout)
-        sync()
-        t3 = time.time()
-        case = {"graph": g["name"], "schedule": schedule,
-                "local_format": fmt,
-                "reduce": reduce, "forward_ms": (t2 - t1) * 1e3,
-                "backward_ms": (t3 - t2) * 1e3,
-                "staged_bytes": mesh.staged_bytes - staged0,
-                "has_interior_blocks": adj.has_interior_blocks(),
-                "has_frontier_dense": adj.has_frontier_dense()}
-        out_f = adj.unshard_dense(out.detach())
-        gx_f = adj.unshard_dense(grads[0])
-        arg_f = adj.unshard_dense(arg) if minmax else None
-        gv = _comm.all_reduce_sum(mesh, grads[1]) if vv is not None else None
-        del out, grads, xx, vv
-        if rank == 0:
-            g_eff = gout_full / deg if reduce == "mean" else gout_full
-
-            def check():
-                if minmax:
-                    ref, ref_arg = csr_spmm_minmax(rp, cl, value, x_full,
-                                                   reduce == "min")
-                    case["arg_mismatches"] = int((arg_f != ref_arg).sum())
-                    case["out_max_abs_err"] = errors(out_f, ref)[0]
-                    ok = case["arg_mismatches"] == 0 and \
-                        case["out_max_abs_err"] == 0
-                else:
-                    ref = csr_spmm(rp, cl, value, x_full)
-                    if reduce == "mean":
-                        ref = ref / deg
-                    case["out_rel_err"] = errors(out_f, ref)[1]
-                    ok = case["out_rel_err"] <= GATE_F32
-                ok_x, case["grad_x_rel_err"] = grad_x_oracle_check(
-                    A, g_eff, gx_f, GATE_F32, arg=arg_f)
-                ok = ok and ok_x
-                if gv is not None:
-                    ok_v, case["grad_v_rel_err"] = grad_v_oracle_check(
-                        A, x_full, g_eff, gv, GATE_F32, arg=arg_f)
-                    ok = ok and ok_v
-                return ok
-
-            case["ok"] = reference(check)
-            if not case["ok"]:
-                res["failures"].append(
-                    f"phase 14 {schedule}/{fmt}/{reduce}: {case}")
-        res["cases"].append(case)
-        del out_f, gx_f, arg_f, gv
+    cases += [(small, "halo", "hybrid-always", r, False)
+              for r in ("sum", "mean")]
+    run_cases(cases, 14, res)
     res["build_and_cases_s"] = time.time() - t0
-    del big, small, cases, g
-
-    # One DistGCN Adam step on gcn_norm of the graph, halo schedule.
-    An = tensor("n_")
-    Ahn = ShardedSparseMatrix.from_sparse_tensor(An, mesh)
-    in_dim, hid, out_dim, nl = widths
-    x_g = operand(torch, M, in_dim, 5, device)
-    labels = seeded_labels(torch, x_g, out_dim, 6, device)
-    xs, ls = Ahn.shard_dense(x_g), Ahn.shard_dense(labels)
-    mask = Ahn.shard_dense(torch.ones(M, device=device))
-
-    def make():
-        return DistGCN(in_dim, hid, out_dim, num_layers=nl,
-                       generator=torch.Generator().manual_seed(0),
-                       device=device)
-
-    model = make()
-    kmasks = []
-    with torch.no_grad():
-        dist_gcn_forward(model, Ahn, xs, dist_spmm,
-                         relu_recorder(torch, kmasks))
-    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
-    staged0 = mesh.staged_bytes
-    sync()
-    t1 = time.time()
-    loss = model.train_step(opt, Ahn, xs, ls, mask, "halo", "auto")
-    sync()
-    step_ms = (time.time() - t1) * 1e3
-    grads = [p.grad.detach().clone() for p in model.parameters()]
-    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
-    every = _comm.all_gather(mesh, flat[None])
-    kmasks = [Ahn.unshard_dense(m_.to(torch.uint8)).bool() for m_ in kmasks]
-    gcn = {"step_ms": step_ms, "staged_bytes": mesh.staged_bytes - staged0,
-           "loss": float(loss),
-           "local_format": ("hybrid" if Ahn.has_interior_blocks()
-                            else "ell"),
-           "params_identical_on_every_rank": bool(
-               (every == every[:1]).all())}
-    if rank == 0:
-        An_dev = ts.SparseTensor(
-            row=data["n_row"], col=data["n_col"],
-            value=torch.from_numpy(data["n_val"]), sparse_sizes=(M, M),
-            is_sorted=True, trust_data=True, device=device)
-
-        def csr_route(rowptr, col, value_, h):
-            return _CsrSum.apply(An_dev.storage, value_, h)
-
-        def gcn_reference():
-            rm = GCN(in_dim, hid, out_dim, num_layers=nl,
-                     generator=torch.Generator().manual_seed(0),
-                     device=device)
-            cmasks = relu_masks(torch, lambda a, h: csr_route(*a.csr(), h),
-                                rm, An_dev, x_g)
-            flips = sum(int((k_ != c_).sum())
-                        for k_, c_ in zip(kmasks, cmasks))
-            ref = plain_loss(torch, csr_route, rm, An_dev, x_g, labels,
-                             kmasks)
-            ref.backward()
-            return ref.item(), [p.grad for p in rm.parameters()], flips
-
-        ref_loss, ref_grads, flips = reference(gcn_reference)
-        gcn["loss_rel_err_vs_csr"] = abs(gcn["loss"] - ref_loss) / abs(
-            ref_loss)
-        gcn["grad_rel_errs_vs_csr"] = [errors(g, r)[1]
-                                       for g, r in zip(grads, ref_grads)]
-        gcn["relu_flips"] = flips
-        gcn["max_relu_flips"] = int(RELU_FLIP_SHARE * M * hid * (nl - 1))
-        gcn["ok"] = bool(
-            np.isfinite(gcn["loss"])
-            and gcn["loss_rel_err_vs_csr"] <= KERNEL_GATE
-            and max(gcn["grad_rel_errs_vs_csr"]) <= KERNEL_GATE
-            and flips <= gcn["max_relu_flips"]
-            and gcn["params_identical_on_every_rank"])
-        if not gcn["ok"]:
-            res["failures"].append(f"phase 14 DistGCN step: {gcn}")
-    res["dist_gcn"] = gcn
-    res["launches"] = {n: f.launches - excluded[n]
-                       for n, f in counted.items()}
+    del big, small, cases
+    Ahn = ShardedSparseMatrix.from_sparse_tensor(tensor("n_"), mesh)
+    res["dist_gcn"] = gcn_step(
+        Ahn, mesh, lambda h: dist_spmm(Ahn, h, "halo", "sum", "auto"),
+        "halo", 14, res)
+    del Ahn
+    res["launches"] = read_counts()
     res["staged_bytes"] = mesh.staged_bytes
+
+    # ---- phase 16: the hierarchical layout and the 2-D grid -------------
+    reset_counts()
+    t0 = time.time()
+    r16 = {"cases": [], "failures": []}
+    big = graph("", "community hybrid", hier)
+    t1 = time.time()
+    big["sh"]._tables
+    r16["hier_tables_s"] = time.time() - t1
+    hb = big["sh"]
+    r16["hier"] = {"S": hb.S, "C": hb.C, "Hi": hb.Hi, "Hx": hb.Hx,
+                   "wire_stats": hb.wire_stats,
+                   "wire_report": hb.wire_report(K=K_),
+                   "has_interior_blocks": hb.has_interior_blocks(),
+                   "fi_dense": hb.fi_dense is not None,
+                   "fx_dense": hb.fx_dense is not None}
+    cases = [(big, "hier", "ell", r, True)
+             for r in ("sum", "mean", "min", "max")]
+    cases += [(big, "hier", "auto", r, False) for r in ("sum", "mean")]
+    small = graph("s_", "frontier dense", hier, frontier_dense="always")
+    r16["always_tiers"] = {"fi_dense": small["sh"].fi_dense is not None,
+                           "fx_dense": small["sh"].fx_dense is not None}
+    if not all(r16["always_tiers"].values()):
+        r16["failures"].append(
+            "phase 16: frontier_dense='always' did not build both dense "
+            f"frontier tiers on the FRONTIER_DENSE graph: "
+            f"{r16['always_tiers']}")
+    cases += [(small, "hier", "hybrid-always", r, False)
+              for r in ("sum", "mean")]
+    run_cases(cases, 16, r16)
+    del big, small, cases, hb
+    Ahn = HierShardedSparseMatrix.from_sparse_tensor(tensor("n_"), hier)
+    r16["dist_gcn"] = gcn_step(
+        Ahn, hier, lambda h: dist_spmm_hier(Ahn, h, "sum", "auto"), "hier",
+        16, r16)
+    del Ahn
+    r16["launches_hier"] = read_counts()
+    g2 = graph("", "community hybrid", mesh2d, k=K2d)
+    cases = [(g2, s, "ell", r, False) for s in ("allgather", "ring", "halo")
+             for r in ("sum", "max")]
+    cases += [(g2, "halo", "hybrid", "sum", False)]
+    run_cases(cases, 16, r16)
+    del g2, cases
+    r16["seconds"] = time.time() - t0
+    r16["launches"] = read_counts()
+    r16["staged_bytes"] = {"hier": hier.staged_bytes,
+                           "2d": mesh2d.staged_bytes}
+    res["phase16"] = r16
     res["backend"] = mesh.backend
-    return res if rank == 0 else {"rank": rank,
-                                  "launches": res["launches"],
-                                  "staged_bytes": mesh.staged_bytes}
+    if rank == 0:
+        return res
+    return {"rank": rank, "launches": res["launches"],
+            "staged_bytes": res["staged_bytes"],
+            "phase16": {"launches": r16["launches"],
+                        "launches_hier": r16["launches_hier"],
+                        "staged_bytes": r16["staged_bytes"],
+                        "hier_tables_s": r16["hier_tables_s"]}}
 
 
 def main(argv=None) -> int:
@@ -1345,7 +1479,8 @@ def main(argv=None) -> int:
     from pytorch_sparse_tpu_torch.models import (
         GAT, GCN, GIN, DistGCN, GraphSAGE, gcn_norm, nll_loss)
     from pytorch_sparse_tpu_torch.parallel import (
-        ShardedSparseMatrix, dist_spmm, make_mesh)
+        HierShardedSparseMatrix, ShardedSparseMatrix, data_axis, dcn_axis,
+        dist_spmm, make_mesh, make_mesh_hier)
     from pytorch_sparse_tpu_torch.ops.kernels import (
         block_spmm, block_spmm_dblocks, block_spmm_dblocks_plain,
         block_spmm_plain, block_spmm_t, block_spmm_t_plain,
@@ -2248,9 +2383,89 @@ def main(argv=None) -> int:
                 mm_cases.append(case)
                 del got, ref
             del xb0, halo0, base
+        # The hierarchical schedule's buffers: shard 0 of the (2, 2) grid
+        # (its tables built in this process), K11a accumulating over the
+        # intra-slice halo (C*Hi rows) and over the cross-slice union
+        # (C*S*Hx rows), K11b combining the union's max into the
+        # interior's, at K=256 and at K2D_SLICE.
+        hs0 = HierShardedSparseMatrix.from_sparse_tensor(
+            A_h, HostGrid((dcn_axis, data_axis), HIER_GRID, 0, device))
+        ht0 = hs0._tables
+        hint = ht0.group(0)
+        for k in (256, K2D_SLICE):
+            base = operand(torch, hs0.Mb, k, 33, device)
+            xb0 = operand(torch, hs0.Nb, k, 31, device)
+            bufs = {i: operand(torch, ht0.sizes[i], k, 34 + i, device)
+                    for i in (1, 2)}
+            for label, i in (("hier intra-slice halo, accumulate", 1),
+                             ("hier cross-slice union, accumulate", 2)):
+                grp, buf = ht0.group(i), bufs[i]
+                sargs = (grp.rowptr, grp.col, grp.value, buf)
+                got = shard_spmm(*sargs, out=base.clone(),
+                                 row_map=grp.row_map)
+                ref = shard_spmm_plain(*sargs, out=base.clone(),
+                                       row_map=grp.row_map)
+                sync()
+                R_, E_ = grp.rowptr.shape[0] - 1, grp.nnz
+                out_t, rm_l = base.clone(), grp.row_map.long()
+                A_csr = csr_of(grp, ht0.sizes[i])
+                timing = {
+                    "ms": timer(lambda: shard_spmm(
+                        *sargs, out=out_t, row_map=grp.row_map)),
+                    "plain_ms": timer(lambda: shard_spmm_plain(
+                        *sargs, out=out_t, row_map=grp.row_map)),
+                    "library_ms": timer(lambda: out_t.index_add_(
+                        0, rm_l, A_csr @ buf))}
+                timing["bound_ms"], timing["bound_by"] = shard_bounds(
+                    R_, E_, k, n_read(grp), R_, True, True, True)
+                timing["rows"], timing["edges"] = R_, E_
+                timing["buffer_rows"] = ht0.sizes[i]
+                sum_cases.append(kernel_case(
+                    torch, f"{label} K={k}", got, ref, failures,
+                    "shard_spmm", **timing))
+                del got, ref, out_t, A_csr
+            grp, buf = ht0.group(2), bufs[2]
+            o_, a_ = shard_spmm_minmax(hint.rowptr, hint.col, hint.value,
+                                       xb0, False, hs0.e0, pos=hint.pos)
+            sargs = (grp.rowptr, grp.col, grp.value, buf, False, hs0.e0)
+            kw = dict(pos=grp.pos, row_map=grp.row_map)
+            got = shard_spmm_minmax(*sargs, out=o_.clone(), arg=a_.clone(),
+                                    **kw)
+            ref = shard_spmm_minmax_plain(*sargs, out=o_.clone(),
+                                          arg=a_.clone(), **kw)
+            sync()
+            label = f"hier cross-slice union max, combine K={k}"
+            mism = int((got[1] != ref[1]).sum())
+            if mism:
+                failures.append(f"shard_spmm_minmax {label}: {mism} argout "
+                                "entries differ")
+            R_, E_ = grp.rowptr.shape[0] - 1, grp.nnz
+            o_t, a_t = o_.clone(), a_.clone()
+            timing = {
+                "ms": timer(lambda: shard_spmm_minmax(
+                    *sargs, out=o_t, arg=a_t, **kw)),
+                "plain_ms": plain_timer(lambda: shard_spmm_minmax_plain(
+                    *sargs, out=o_t, arg=a_t, **kw)),
+                "library_ms": None}
+            timing["bound_ms"], timing["bound_by"] = shard_bounds(
+                R_, E_, k, n_read(grp), R_, True, True, True, minmax=True,
+                has_pos=True)
+            timing["rows"], timing["edges"] = R_, E_
+            timing["buffer_rows"] = ht0.sizes[2]
+            case = kernel_case(torch, label, got[0], ref[0], failures,
+                               "shard_spmm_minmax", **timing)
+            case["arg_mismatches"] = mism
+            if case["max_abs_err"] != 0:
+                failures.append(f"shard_spmm_minmax {label}: out differs "
+                                "from the plain version's")
+            mm_cases.append(case)
+            del got, ref, o_, a_, o_t, a_t, base, xb0, bufs
         shape = (f"shard 0 of {DIST_WORLD}: Mb={Mb0} interior E="
                  f"{it0.nnz} frontier E={fr0.nnz} (P*H={PH0}) ring q=1 "
-                 f"E={rg0.nnz}")
+                 f"E={rg0.nnz}; hierarchical {HIER_GRID} shard 0: "
+                 f"intra-slice E={ht0.group(1).nnz} (C*Hi={ht0.sizes[1]}), "
+                 f"cross-slice E={ht0.group(2).nnz} "
+                 f"(C*S*Hx={ht0.sizes[2]})")
         kernels.append(kernel_entry(
             "shard_spmm", "shard_spmm.cu", "parallel/dist.py:337", sum_cases,
             "torch.sparse_csr_tensor(group) @ buf (cuSPARSE), plus "
@@ -2258,7 +2473,7 @@ def main(argv=None) -> int:
         kernels.append(kernel_entry(
             "shard_spmm_minmax", "shard_spmm.cu", "parallel/dist.py:369",
             mm_cases, "none (no PyTorch call computes an argout)", shape))
-        del shard0, hl0, it0, fr0, rg0
+        del shard0, hl0, it0, fr0, rg0, hs0, ht0, hint
     except Exception:
         failures.append("phase 3 (shard_spmm): " + traceback.format_exc())
     record("kernel_phase", seconds=round(time.time() - t0, 2))
@@ -2341,6 +2556,9 @@ def main(argv=None) -> int:
             "shard_spmm", "shard_spmm_minmax", "block_spmm", "block_spmm_t",
             "edge_dot", "minmax_edge_dot", "minmax_spmm_t"),
         "15 DistGCN on products (world size 1, NCCL)": ("shard_spmm",),
+        "16 hierarchical and 2-D layouts on four ranks (gloo)": (
+            "shard_spmm", "shard_spmm_minmax", "block_spmm", "block_spmm_t",
+            "edge_dot", "minmax_edge_dot", "minmax_spmm_t"),
     }
     phase_launches = {}
 
@@ -2681,9 +2899,10 @@ def main(argv=None) -> int:
             np.savez(path, **arrays)
             del A_f, arrays
             t1 = time.time()
-            ranks = spawn_ranks(phase14_worker, DIST_WORLD, "gloo",
-                                args=dict(coo_path=path, K_=K,
-                                          widths=GCN_WIDTHS), timeout=900)
+            ranks = spawn_ranks(dist_worker, DIST_WORLD, "gloo",
+                                args=dict(coo_path=path, K_=K, K2d=K2D,
+                                          widths=GCN_WIDTHS,
+                                          grid=HIER_GRID), timeout=900)
             return ranks, time.time() - t1
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -2733,8 +2952,10 @@ def main(argv=None) -> int:
                             device=device)
             r["kmasks"] = []
             with torch.no_grad():
-                dist_gcn_forward(model, Ash, r["x"], dist_spmm,
-                                 relu_recorder(torch, r["kmasks"]))
+                dist_gcn_forward(
+                    model, r["x"],
+                    lambda h: dist_spmm(Ash, h, "halo", "sum", "auto"),
+                    relu_recorder(torch, r["kmasks"]))
             opt = torch.optim.Adam(model.parameters(), lr=0.01)
             mask = torch.ones(Mp, device=device)
             r["losses"], r["step_ms"] = [], []
@@ -2758,16 +2979,58 @@ def main(argv=None) -> int:
                         if f.launches - before[n]}
             r["peak_bytes"] = torch.cuda.max_memory_allocated()
             del Ash, model, opt
+            # One step of the same model on a (1, 1) hierarchical grid
+            # over NCCL: its sub-group collectives run on the card, and
+            # its loss and gradients must equal the halo schedule's first
+            # step.
+            t1 = time.time()
+            Ahh = HierShardedSparseMatrix.from_sparse_tensor(
+                r["A"], make_mesh_hier(1, 1, device=device))
+            h = {"local_format": ("hybrid" if Ahh.has_interior_blocks()
+                                  else "ell")}
+            sync()
+            h["build_s"] = time.time() - t1
+            model = DistGCN(in_, hid_, out_, num_layers=nl_,
+                            generator=torch.Generator().manual_seed(0),
+                            device=device)
+            opt = torch.optim.Adam(model.parameters(), lr=0.01)
+            before = {n: f.launches for n, f in counted.items()}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = model.train_step(opt, Ahh, Ahh.shard_dense(r["x"]),
+                                    Ahh.shard_dense(r["y"]), mask, "hier",
+                                    "auto")
+            end.record()
+            end.synchronize()
+            h["step_ms"] = start.elapsed_time(end)
+            h["loss"] = loss.item()
+            h["grads"] = [p_.grad.detach().clone()
+                          for p_ in model.parameters()]
+            h["launches"] = {n: f.launches - before[n]
+                             for n, f in counted.items()
+                             if f.launches - before[n]}
+            h["staged_bytes"] = Ahh.grid.staged_bytes
+            r["hier"] = h
+            del Ahh, model, opt
         finally:
             tdist.destroy_process_group()
             shutil.rmtree(tmp, ignore_errors=True)
         return r
 
+    # Phases 14 and 16 run in the same four processes (each rank holds
+    # the whole COO of the 15.6M-edge graph once); each rank sets its
+    # counts to 0 at the start of each phase and reads them at its end.
     p14 = drive("14 four ranks on one card (gloo)", dist_four_ranks)
+    phase_launches["16 hierarchical and 2-D layouts on four ranks (gloo)"] \
+        = {n: 0 for n in counted}
     if p14 is not None:
         for rank_res in p14[0]:
             for n, c_ in rank_res["launches"].items():
                 phase_launches["14 four ranks on one card (gloo)"][n] += c_
+            for n, c_ in rank_res["phase16"]["launches"].items():
+                phase_launches["16 hierarchical and 2-D layouts on four "
+                               "ranks (gloo)"][n] += c_
     dist15 = drive("15 DistGCN on products (world size 1, NCCL)",
                    dist_products)
     launches = {n: sum(c[n] for c in phase_launches.values())
@@ -3524,6 +3787,25 @@ def main(argv=None) -> int:
                staged_bytes_by_rank=[r_["staged_bytes"] for r_ in ranks],
                launches_by_rank=[r_["launches"] for r_ in ranks],
                card=card)
+        # Phase 16, from the same processes.
+        r16 = r0["phase16"]
+        failures.extend(r16["failures"])
+        for case in r16["cases"]:
+            record("dist_hier_2d_four_ranks", **case, grid=list(HIER_GRID),
+                   backend=r0["backend"], times=label, card=card)
+        record("dist_hier_layout", **r16["hier"],
+               always_tiers=r16["always_tiers"], grid=list(HIER_GRID),
+               hier_tables_host_s=[r_["phase16"]["hier_tables_s"]
+                                   for r_ in ranks],
+               staged_bytes_by_rank=[r_["phase16"]["staged_bytes"]
+                                     for r_ in ranks],
+               launches_by_rank=[r_["phase16"]["launches"] for r_ in ranks],
+               hier_launches_by_rank=[r_["phase16"]["launches_hier"]
+                                      for r_ in ranks],
+               seconds=r16["seconds"], card=card)
+        record("dist_gcn_hier_four_ranks", **r16["dist_gcn"],
+               grid=list(HIER_GRID), backend=r0["backend"], times=label,
+               widths=[in_dim, hid, hid, out_dim], card=card)
 
     # ---- 15. DistGCN on products: checks and times -------------------------
     def check_dist15(r):
@@ -3578,16 +3860,33 @@ def main(argv=None) -> int:
         record("dist_sharded_build", nodes=Mp, nnz=A_pn.nnz(),
                host_s=r["sharded_build_s"], local_format=r["local_format"],
                card=card)
+        h = r["hier"]
+        h_loss_err = abs(h["loss"] - r["losses"][0]) / abs(r["losses"][0])
+        h_grad_errs = [errors(g, g0)[1]
+                       for g, g0 in zip(h["grads"], r["grads0"])]
+        record("dist_gcn_products_hier", grid=[1, 1], backend="nccl",
+               graph="phase 15's products graph", widths=[in_] + [hid_] * (
+                   nl_ - 1) + [out_], local_format=h["local_format"],
+               host_build_s=h["build_s"], step_ms=h["step_ms"],
+               loss=h["loss"], loss_rel_err_vs_halo_step=h_loss_err,
+               grad_rel_errs_vs_halo_step=h_grad_errs,
+               launches=h["launches"], staged_bytes=h["staged_bytes"],
+               gate=KERNEL_GATE, card=card)
         ok = (np.isfinite(r["losses"]).all() and loss_err <= KERNEL_GATE
               and max(grad_errs) <= KERNEL_GATE and flips <= max_flips
               and launches15["shard_spmm"] > 0
               and (r["local_format"] != "hybrid"
-                   or launches15["block_spmm"] > 0))
+                   or launches15["block_spmm"] > 0)
+              and h_loss_err <= KERNEL_GATE
+              and max(h_grad_errs) <= KERNEL_GATE
+              and h["launches"].get("shard_spmm", 0) > 0)
         if not ok:
             failures.append(
                 f"phase 15: loss err {loss_err}, grad errs {grad_errs}, "
                 f"flips {flips} (max {max_flips}), format "
-                f"{r['local_format']}, launches {launches15}")
+                f"{r['local_format']}, launches {launches15}; hierarchical "
+                f"step loss err {h_loss_err}, grad errs {h_grad_errs}, "
+                f"launches {h['launches']}")
 
     for label, res, check in (("9", gcn9, check_gcn9),
                               ("10", gat10, check_gat10),

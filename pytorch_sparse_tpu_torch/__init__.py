@@ -16,9 +16,11 @@ kernel), with-replacement ``sample``, and on the host ``sample_adj``,
 ``saint_subgraph``, ``relabel``, ``relabel_one_hop`` and the
 homogeneous ``neighbor_sample``, whose draws equal the JAX package's
 native sampler's; and the distribution layer (``parallel``): row shards
-over a ``torch.distributed`` process group with the all-gather, ring and
-halo SpMM schedules (hand-written shard kernels), forward and backward,
-and ``models.DistGCN``.
+over ``torch.distributed`` process groups with the all-gather, ring and
+halo SpMM schedules, also on a ``(data, feat)`` grid, and the
+hierarchical (DCN x ICI) schedule (hand-written shard kernels), forward
+and backward, and ``models.DistGCN`` on the flat and hierarchical
+layouts.
 Names follow the JAX package.  Entry points run on ``cuda`` unless
 given ``device="cpu"``; the CPU runs each kernel's plain PyTorch
 version.

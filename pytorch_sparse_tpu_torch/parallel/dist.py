@@ -19,6 +19,15 @@ Three schedules compute the shard's rows of ``A @ x``:
   runs the interior's dense ``(B, B)`` blocks on the block kernel
   (``block_spmm``) and, when built, the frontier as one dense product.
 
+On a ``(data, feat)`` :class:`~.mesh.Grid` (``make_mesh2d``) the row
+block is the data coordinate's, and each process runs the same
+schedules over its data sub-mesh on its ``K/Pf`` columns of the operand;
+the processes of one feature coordinate hold the same tables.  The
+halo schedule and the hierarchical one (``hier.py``) are both exchange
+schedules: the shard's edges split into tiers by the buffer each reads
+(:class:`_Tiers`), and one ``autograd.Function`` (:class:`_ExchangeSpmm`,
+:class:`_ExchangeHybridSpmm`) runs the tiers as their buffers arrive.
+
 Each schedule takes ``reduce`` of sum, mean, min or max (min/max also
 return the argout, a global edge id in CSR order, ``nnz`` on empty
 rows) and an optional edge-space ``value`` override whose gradient comes
@@ -32,8 +41,9 @@ Gradients follow ``torch.distributed``'s data-parallel convention.  The
 gradient of a rank's shard ``x`` is that of the sum of every rank's
 objective (the backward collectives carry the other ranks' parts); the
 gradient of the replicated ``value`` is this rank's share, nonzero on
-its own edges only: all-reduce it with SUM, as for any replicated
-parameter, to get the gradient of the sum.  Every rank must run the same
+its own edges only (on a grid, from its own columns): all-reduce it with
+SUM over every process of the layout (``A.world``), as for any
+replicated parameter, to get the gradient of the sum.  Every rank must run the same
 schedules, forward and backward, in the same order.
 
 Local compute runs on the shard kernels K11a/K11b (``shard_spmm``,
@@ -70,7 +80,7 @@ from ..ops.kernels.spmm_minmax import minmax_edge_dot, minmax_spmm_t
 from ..utils.convert import INDEX_DTYPE
 from ..utils.host_sort import lexsort2, stable_argsort
 from . import _comm
-from .mesh import Mesh
+from .mesh import Grid, Mesh, data_axis, feat_axis
 
 # Per-shard dense frontier store cap, as the JAX package's
 # ``_FR_DENSE_SHARD_CAP`` (the boundary itself is excluded).
@@ -186,74 +196,140 @@ class _View:
         return _Csc(A._r, self._cols, A._v, self.n_cols, A.device)
 
 
-class _HaloTables:
-    """The halo width ``H``, the rows this rank serves (``serve``,
-    ``(P*H,)``: ``P`` packets of ``H`` local rows) and the shard's
-    columns into ``[x ; halo]`` (``cols``, host; the frontier's past
-    ``Nb``).  The groups, their transposes and the merged view are built
-    at first use."""
+class _Tiers:
+    """The shard's edges split by the buffer each reads.  Tier 0 reads
+    ``x``; tier ``i > 0`` reads the ``sizes[i]``-row buffer that an
+    exchange delivers.  ``cols`` (host) are the shard's columns into the
+    merged buffer ``[x ; buf_1 ; buf_2 ...]``, where tier ``i`` starts at
+    ``offsets[i]``.  The groups (tier 0 over every shard row, the others
+    over the rows they touch), their transposes and the merged view are
+    built at first use.
 
-    def __init__(self, A, H, serve, cols):
-        self.H, self.serve, self.cols = H, serve, cols
-        self._A = A
-        own = A._c // A.Nb == A.rank
-        self._ipos, self._fpos = np.flatnonzero(own), np.flatnonzero(~own)
+    A subclass says how the buffers move: :meth:`exchange` posts the
+    forward collectives and returns one waiter per tier ``i > 0``, to be
+    called in tier order; :meth:`exchange_back` posts the transposed
+    collectives of the buffers' gradients and returns the function that
+    adds what comes back into ``grad_x``."""
 
-    def _edges(self, pos, shift):
-        A = self._A
-        return A._r[pos], self.cols[pos] - shift, A._v[pos]
+    def __init__(self, A, cols, tier, sizes):
+        self._A, self.cols, self.sizes = A, cols, tuple(sizes)
+        self.offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        self.pos = [np.flatnonzero(tier == i) for i in range(len(sizes))]
+        self._groups, self._transposes = {}, {}
 
-    @cached_property
-    def interior(self) -> _Group:
-        return _Group.build(*self._edges(self._ipos, 0), self._ipos,
-                            self._A.Mb, False, self._A.device)
+    def edges(self, i):
+        """Tier ``i``'s ``(shard rows, buffer rows, values)`` on the
+        host."""
+        A, pos = self._A, self.pos[i]
+        return A._r[pos], self.cols[pos] - self.offsets[i], A._v[pos]
 
-    @cached_property
-    def frontier(self) -> _Group:
-        return _Group.build(*self._edges(self._fpos, self._A.Nb), self._fpos,
-                            self._A.Mb, True, self._A.device)
+    def group(self, i) -> _Group:
+        if i not in self._groups:
+            A = self._A
+            self._groups[i] = _Group.build(*self.edges(i), self.pos[i], A.Mb,
+                                           i > 0, A.device)
+        return self._groups[i]
 
-    @cached_property
-    def interior_t(self) -> _Csc:
-        A = self._A
-        return _Csc(*self._edges(self._ipos, 0), A.Nb, A.device, self._ipos)
-
-    @cached_property
-    def frontier_t(self) -> _Csc:
-        A = self._A
-        return _Csc(*self._edges(self._fpos, A.Nb), A.P * self.H, A.device,
-                    self._fpos)
+    def transpose(self, i) -> _Csc:
+        if i not in self._transposes:
+            self._transposes[i] = _Csc(*self.edges(i), self.sizes[i],
+                                       self._A.device, self.pos[i])
+        return self._transposes[i]
 
     @cached_property
     def view(self) -> _View:
-        return _View(self._A, self.cols, self._A.Nb + self._A.P * self.H)
+        return _View(self._A, self.cols, int(sum(self.sizes)))
+
+
+class _HaloTables(_Tiers):
+    """The flat halo: the halo width ``H``, the rows this rank serves
+    (``serve``, ``(P*H,)``: ``P`` packets of ``H`` local rows) and one
+    buffer tier, the received ``(P*H, K)`` halo."""
+
+    def __init__(self, A, H, serve, cols):
+        super().__init__(A, cols, (A._c // A.Nb != A.rank).astype(np.int8),
+                         (A.Nb, A.P * H))
+        self.H, self.serve = H, serve
+
+    @property
+    def interior(self) -> _Group:
+        return self.group(0)
+
+    @property
+    def frontier(self) -> _Group:
+        return self.group(1)
+
+    def exchange(self, x: torch.Tensor):
+        pending = _comm.all_to_all(self._A.mesh, x.index_select(0, self.serve),
+                                   async_op=True)
+        return [pending.wait]
+
+    def exchange_back(self, gbufs):
+        pending = _comm.all_to_all(self._A.mesh, gbufs[0].contiguous(),
+                                   async_op=True)
+
+        def finish(grad_x):
+            grad_x.index_add_(0, self.serve, pending.wait())
+        return finish
 
 
 class _Hybrid:
+    """The interior's dense blocks and their remainder group, and one
+    dense frontier store (or None) per buffer tier, ``fr_dense[i - 1]``
+    for tier ``i``."""
+
     def __init__(self, blocks, slot_row, slot_col, rb_ptr, order_t, cb_ptr,
-                 rest, rest_t, fr_dense):
+                 rest, rest_t, fr_dense=()):
         self.blocks, self.slot_row, self.slot_col = blocks, slot_row, slot_col
         self.rb_ptr, self.order_t, self.cb_ptr = rb_ptr, order_t, cb_ptr
         self.rest, self.rest_t, self.fr_dense = rest, rest_t, fr_dense
 
 
-class ShardedSparseMatrix:
-    """This rank's row shard of a sparse matrix on a :class:`Mesh`.
+def _build_frontier_dense(mode: str, worst: int, vals: np.ndarray, Mb: int,
+                          L: int, edges, device) -> Optional[torch.Tensor]:
+    """The JAX package's ``_build_frontier_dense``: the ``(Mb, L)`` dense
+    store of one buffer tier against its ``L``-row buffer, or None.
+    ``worst`` is the most tier edges any shard holds and ``vals`` every
+    shard's tier values (the store dtype's rule); ``edges`` this rank's
+    ``(shard rows, buffer rows, values)``.  ``mode`` "always" still
+    builds nothing for an empty tier or a store at the 1 GiB cap."""
+    if mode == "never" or worst == 0 or Mb * L == 0:
+        return None
+    store_bf16 = quantization_rel_err(vals) <= get_store_budget()
+    elem = 2 if store_bf16 else 4
+    passes = 1.0 if store_bf16 else 3.0
+    if Mb * L * elem >= _FR_DENSE_SHARD_CAP:
+        return None
+    if mode != "always":
+        t_dense = passes * Mb * L * elem / _HBM_BW
+        t_ell = worst * _ELL_NS_PER_NNZ * 1e-9
+        if t_dense >= t_ell:
+            return None
+    r, c, v = edges
+    slab = np.zeros(Mb * L, np.float32)
+    np.add.at(slab, r * L + c, v)
+    return _upload(slab.reshape(Mb, L), device,
+                   torch.bfloat16 if store_bf16 else torch.float32)
 
-    ``M, N`` the matrix size, ``Mb, Nb = ceil(M/P), ceil(N/P)`` the row
-    and column block sizes, ``nnz`` the matrix's edge count, ``e0`` the
-    global id of the shard's first edge (edges are numbered in CSR
-    order, so the shard's edges are ``[e0, e0 + E_p)``), ``rowcount``
-    ``(Mb,)`` int32 the shard's row lengths.  ``halo_width`` and
-    ``serve_idx`` (``(P, H)``: row ``p`` lists the local rows of this
-    rank's block that rank ``p`` reads, padded with 0) build the halo
-    tables on first use.
-    """
 
-    def __init__(self, A, mesh: Mesh, interior_blocks: str = "auto",
-                 block_B: int = 512, frontier_dense: str = "auto"):
-        self.mesh = mesh
-        self.P, self.rank, self.device = mesh.size, mesh.rank, mesh.device
+def _worst(owner: np.ndarray, P: int) -> int:
+    """The most edges any shard holds, given each edge's owner."""
+    return int(np.bincount(owner, minlength=P).max()) if owner.size else 0
+
+
+class _RowShard:
+    """This rank's row block ``p`` of ``P`` of a sparse matrix: rows
+    ``[p*Mb, (p+1)*Mb)`` of ``A`` and of the dense operand's ``[p*Nb,
+    (p+1)*Nb)``, with ``Mb, Nb = ceil(M/P), ceil(N/P)``.  ``nnz`` is the
+    matrix's edge count, ``e0`` the global id of the shard's first edge
+    (edges are numbered in CSR order, so the shard's edges are ``[e0,
+    e0 + E_p)``), ``rowcount`` ``(Mb,)`` int32 the shard's row lengths.
+    Every layout builds its tables from these host arrays and the whole
+    matrix's COO, which every rank holds."""
+
+    def __init__(self, A, P: int, rank: int, device, interior_blocks: str,
+                 block_B: int, frontier_dense: str):
+        self.P, self.rank, self.device = P, rank, device
         self.M, self.N = A.sparse_sizes()
         self.Mb, self.Nb = _cdiv(self.M, self.P), _cdiv(self.N, self.P)
         self.block_B = block_B
@@ -273,19 +349,124 @@ class ShardedSparseMatrix:
         self._rowptr = _idx(local_ptr, self.device)
         self.rowcount = _idx(np.diff(local_ptr), self.device)
 
+    @cached_property
+    def _values(self) -> torch.Tensor:
+        """The shard's baked values in CSR order, on the device."""
+        return _f32(self._v, self.device)
+
+    def has_interior_blocks(self) -> bool:
+        return self._hybrid is not None
+
+    def _build_interior_blocks(self) -> Optional[_Hybrid]:
+        """The JAX package's ``_build_interior_blocks``, deciding from
+        every shard's interior (own-block columns) and this rank building
+        only its own blocks and remainder; no frontier store yet."""
+        P, me, Mb, Nb, B = self.P, self.rank, self.Mb, self.Nb, self.block_B
+        row, col, val = self._coo
+        owner = row // Mb
+        inter = owner == col // Nb
+        tot = int(inter.sum())
+        if tot == 0 or min(Mb, Nb) < 2 * B:
+            return None
+        store_bf16 = quantization_rel_err(val[inter]) <= get_store_budget()
+        be = block_break_even(B, elem=2 if store_bf16 else 4,
+                              passes=1.0 if store_bf16 else 3.0)
+        thresh = max(int(be * B * B), 1)
+        Rb, Cb = _cdiv(Mb, B), _cdiv(Nb, B)
+        RC = Rb * Cb
+        o_i = owner[inter]
+        gkey = (o_i * RC + ((row[inter] - o_i * Mb) // B) * Cb
+                + (col[inter] - o_i * Nb) // B)
+        keys, counts = np.unique(gkey, return_counts=True)
+        dense = counts >= thresh
+        nbm = int(np.bincount(keys[dense] // RC, minlength=P).max())
+        if nbm == 0 or counts[dense].sum() / tot < 0.3:
+            return None
+        # This rank's blocks and remainder.
+        own_keys = keys[dense & (keys // RC == me)] - me * RC
+        ipos = np.flatnonzero(self._c // Nb == me)
+        r, c, v = self._r[ipos], self._c[ipos] - me * Nb, self._v[ipos]
+        bkey = (r // B) * Cb + c // B
+        slot = np.searchsorted(own_keys, bkey)
+        dmask = slot < own_keys.size
+        dmask[dmask] = own_keys[slot[dmask]] == bkey[dmask]
+        nb = own_keys.size
+        blocks = np.zeros((nb + 1) * B * B, np.float32)
+        d = np.flatnonzero(dmask)
+        np.add.at(blocks, (slot[d] * B + r[d] % B) * B + c[d] % B, v[d])
+        slot_row, slot_col = own_keys // Cb, own_keys % Cb
+        order_t = stable_argsort(slot_col)
+        dev = self.device
+        rest = np.flatnonzero(~dmask)
+        rest_g = rest_t = None
+        if rest.size:
+            rest_g = _Group.build(r[rest], c[rest], v[rest], None, Mb, False,
+                                  dev)
+            rest_t = _Csc(r[rest], c[rest], v[rest], Nb, dev).group(None)
+        return _Hybrid(
+            _upload(blocks.reshape(nb + 1, B, B), dev,
+                    torch.bfloat16 if store_bf16 else torch.float32),
+            _idx(slot_row, dev), _idx(slot_col, dev),
+            _idx(np.searchsorted(slot_row, np.arange(Rb + 1)), dev),
+            _idx(order_t, dev),
+            _idx(np.searchsorted(slot_col[order_t], np.arange(Cb + 1)), dev),
+            rest_g, rest_t)
+
+    def _shard_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's ``(Nb, ...)`` rows of ``x``, zero rows past ``N``,
+        on the mesh's device."""
+        lo = self.rank * self.Nb
+        blk = x[lo:lo + self.Nb].to(self.device)
+        pad = self.Nb - blk.shape[0]
+        if pad:
+            blk = torch.cat([blk, blk.new_zeros((pad, *blk.shape[1:]))])
+        return blk.contiguous()
+
+
+class ShardedSparseMatrix(_RowShard):
+    """This rank's row shard of a sparse matrix on a :class:`Mesh` (one
+    row shard a process) or on a ``(data, feat)`` :class:`Grid`
+    (:func:`make_mesh2d`).
+
+    On a grid, ``P`` and the row block come from the data axis: the
+    ``Pf`` processes of data shard ``d`` hold the same tables, as the
+    JAX package replicates them over ``"f"``, and each runs the row
+    schedules on its own ``K/Pf`` columns of the operand over its data
+    sub-mesh.  ``mesh`` is the mesh the schedules' collectives run on
+    (the data sub-mesh on a grid), ``world`` the mesh over every process
+    of the layout.  ``halo_width`` and ``serve_idx`` (``(P, H)``: row
+    ``p`` lists the local rows of this rank's block that rank ``p``
+    reads, padded with 0) build the halo tables on first use.
+    """
+
+    def __init__(self, A, mesh, interior_blocks: str = "auto",
+                 block_B: int = 512, frontier_dense: str = "auto"):
+        if isinstance(mesh, Grid):
+            if set(mesh.names) != {data_axis, feat_axis}:
+                raise ValueError("a ShardedSparseMatrix takes a 1-D mesh or "
+                                 "a (data, feat) grid (make_mesh2d)")
+            self.grid, self.world = mesh, mesh.mesh
+            self.Pf, self.f = mesh.shape[feat_axis], mesh.coords[1]
+            mesh = mesh.axis(data_axis)
+        else:
+            self.grid, self.world, self.Pf, self.f = None, mesh, 1, 0
+        self.mesh = mesh
+        super().__init__(A, mesh.size, mesh.rank, mesh.device,
+                         interior_blocks, block_B, frontier_dense)
+
     @classmethod
-    def from_sparse_tensor(cls, A, mesh: Mesh, interior_blocks: str = "auto",
+    def from_sparse_tensor(cls, A, mesh, interior_blocks: str = "auto",
                            block_B: int = 512,
                            frontier_dense: str = "auto"
                            ) -> "ShardedSparseMatrix":
         """Partition ``A``'s rows into contiguous blocks of
-        ``ceil(M/P)``; this rank keeps block ``mesh.rank``.  Every rank
-        passes the same ``A`` (host arrays are read; ``A`` may lie on any
-        device).  For a low-cut layout permute ``A`` first so that block
-        boundaries match cluster boundaries.  ``interior_blocks``
-        ("auto"/"never") and ``frontier_dense`` ("auto"/"never"/
-        "always") decide the hybrid local format as the JAX package
-        does."""
+        ``ceil(M/P)``; this rank keeps block ``mesh.rank`` (on a grid,
+        its data coordinate).  Every rank passes the same ``A`` (host
+        arrays are read; ``A`` may lie on any device).  For a low-cut
+        layout permute ``A`` first so that block boundaries match
+        cluster boundaries.  ``interior_blocks`` ("auto"/"never") and
+        ``frontier_dense`` ("auto"/"never"/"always") decide the hybrid
+        local format as the JAX package does."""
         return cls(A, mesh, interior_blocks, block_B, frontier_dense)
 
     # ------------------------------------------------------------------
@@ -348,13 +529,23 @@ class ShardedSparseMatrix:
 
     @cached_property
     def _hybrid(self) -> Optional[_Hybrid]:
-        """The interior's dense blocks (and the dense frontier), or None
+        """The interior's dense blocks and the dense frontier, or None
         when the JAX package's rule does not build them."""
         hyb = None
         if self._interior_blocks != "never":
-            hyb = self._build_hybrid()
+            hyb = self._build_interior_blocks()
+        if hyb is not None:
+            # The dense frontier only pays once the interior is off the
+            # gather path: it is built alongside the blocks.
+            row, col, val = self._coo
+            owner = row // self.Mb
+            fr = owner != col // self.Nb
+            hl = self._halo
+            hyb.fr_dense = (_build_frontier_dense(
+                self._frontier_dense, _worst(owner[fr], self.P), val[fr],
+                self.Mb, self.P * hl.H, hl.edges(1), self.device),)
         if self._frontier_dense == "always" and (
-                hyb is None or hyb.fr_dense is None):
+                hyb is None or hyb.fr_dense[0] is None):
             warnings.warn(
                 "frontier_dense='always' not honored: the dense frontier "
                 "is gated on the interior blocks clearing their break-even "
@@ -363,121 +554,43 @@ class ShardedSparseMatrix:
                 "this matrix keeps the frontier group.")
         return hyb
 
-    def has_interior_blocks(self) -> bool:
-        return self._hybrid is not None
-
     def has_frontier_dense(self) -> bool:
-        return self._hybrid is not None and self._hybrid.fr_dense is not None
-
-    def _build_hybrid(self) -> Optional[_Hybrid]:
-        """``_build_interior_blocks`` and ``_build_frontier_dense`` of
-        the JAX package, deciding from every shard's interior and this
-        rank building only its own blocks."""
-        P, me, Mb, Nb, B = self.P, self.rank, self.Mb, self.Nb, self.block_B
-        row, col, val = self._coo
-        owner = row // Mb
-        inter = owner == col // Nb
-        tot = int(inter.sum())
-        if tot == 0 or min(Mb, Nb) < 2 * B:
-            return None
-        store_bf16 = quantization_rel_err(val[inter]) <= get_store_budget()
-        be = block_break_even(B, elem=2 if store_bf16 else 4,
-                              passes=1.0 if store_bf16 else 3.0)
-        thresh = max(int(be * B * B), 1)
-        Rb, Cb = _cdiv(Mb, B), _cdiv(Nb, B)
-        RC = Rb * Cb
-        o_i = owner[inter]
-        gkey = (o_i * RC + ((row[inter] - o_i * Mb) // B) * Cb
-                + (col[inter] - o_i * Nb) // B)
-        keys, counts = np.unique(gkey, return_counts=True)
-        dense = counts >= thresh
-        nbm = int(np.bincount(keys[dense] // RC, minlength=P).max())
-        if nbm == 0 or counts[dense].sum() / tot < 0.3:
-            return None
-        # This rank's blocks and remainder.
-        own_keys = keys[dense & (keys // RC == me)] - me * RC
-        ipos = np.flatnonzero(self._c // Nb == me)
-        r, c, v = self._r[ipos], self._c[ipos] - me * Nb, self._v[ipos]
-        bkey = (r // B) * Cb + c // B
-        slot = np.searchsorted(own_keys, bkey)
-        dmask = slot < own_keys.size
-        dmask[dmask] = own_keys[slot[dmask]] == bkey[dmask]
-        nb = own_keys.size
-        blocks = np.zeros((nb + 1) * B * B, np.float32)
-        d = np.flatnonzero(dmask)
-        np.add.at(blocks, (slot[d] * B + r[d] % B) * B + c[d] % B, v[d])
-        slot_row, slot_col = own_keys // Cb, own_keys % Cb
-        order_t = stable_argsort(slot_col)
-        dev = self.device
-        rest = np.flatnonzero(~dmask)
-        rest_g = rest_t = None
-        if rest.size:
-            rest_g = _Group.build(r[rest], c[rest], v[rest], None, Mb, False,
-                                  dev)
-            rest_t = _Csc(r[rest], c[rest], v[rest], Nb, dev).group(None)
-        return _Hybrid(
-            _upload(blocks.reshape(nb + 1, B, B), dev,
-                    torch.bfloat16 if store_bf16 else torch.float32),
-            _idx(slot_row, dev), _idx(slot_col, dev),
-            _idx(np.searchsorted(slot_row, np.arange(Rb + 1)), dev),
-            _idx(order_t, dev),
-            _idx(np.searchsorted(slot_col[order_t], np.arange(Cb + 1)), dev),
-            rest_g, rest_t, self._build_frontier_dense(owner, inter))
-
-    def _build_frontier_dense(self, owner, inter) -> Optional[torch.Tensor]:
-        if self._frontier_dense == "never":
-            return None
-        P, Mb = self.P, self.Mb
-        halo = self._halo
-        PH = P * halo.H
-        worst = int(np.bincount(owner[~inter], minlength=P).max()) if (
-            ~inter).any() else 0
-        if worst == 0 or Mb * PH == 0:
-            return None
-        store_bf16 = (quantization_rel_err(self._coo[2][~inter])
-                      <= get_store_budget())
-        elem = 2 if store_bf16 else 4
-        passes = 1.0 if store_bf16 else 3.0
-        if Mb * PH * elem >= _FR_DENSE_SHARD_CAP:
-            return None
-        if self._frontier_dense != "always":
-            t_dense = passes * Mb * PH * elem / _HBM_BW
-            t_ell = worst * _ELL_NS_PER_NNZ * 1e-9
-            if t_dense >= t_ell:
-                return None
-        fpos = halo._fpos
-        slab = np.zeros(Mb * PH, np.float32)
-        np.add.at(slab, self._r[fpos] * PH + halo.cols[fpos] - self.Nb,
-                  self._v[fpos])
-        return _upload(slab.reshape(Mb, PH), self.device,
-                       torch.bfloat16 if store_bf16 else torch.float32)
-
-    @cached_property
-    def _values(self) -> torch.Tensor:
-        """The shard's baked values in CSR order, on the device."""
-        return _f32(self._v, self.device)
+        return (self._hybrid is not None
+                and self._hybrid.fr_dense[0] is not None)
 
     # ------------------------------------------------------------------
     # Dense operands
     # ------------------------------------------------------------------
     def shard_dense(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's ``(Nb, K)`` block of the ``(N, K)`` operand ``x``,
-        zero rows past ``N``, on the mesh's device."""
-        lo = self.rank * self.Nb
-        blk = x[lo:lo + self.Nb].to(self.device)
-        pad = self.Nb - blk.shape[0]
-        if pad:
-            blk = torch.cat([blk, blk.new_zeros((pad, *blk.shape[1:]))])
-        return blk.contiguous()
+        zero rows past ``N``, on the mesh's device.  On a ``(data,
+        feat)`` grid, columns ``[f*K/Pf, (f+1)*K/Pf)`` of it; ``K`` must
+        divide by ``Pf``."""
+        if self.Pf > 1 and x.dim() > 1:
+            K = x.shape[1]
+            if K % self.Pf:
+                raise ValueError(
+                    f"K={K} must be divisible by the feature-axis size "
+                    f"{self.Pf}; pad the feature dimension.")
+            Kf = K // self.Pf
+            x = x[:, self.f * Kf:(self.f + 1) * Kf]
+        return self._shard_rows(x)
 
     def unshard_dense(self, y: torch.Tensor) -> torch.Tensor:
         """Every rank's ``(Mb, K)`` block gathered into the ``(M, K)``
-        result (a collective: every rank calls it)."""
-        return _comm.all_gather(self.mesh, y)[:self.M]
+        result (a collective: every rank calls it); on a grid, with
+        every feature rank's columns."""
+        y = _comm.all_gather(self.mesh, y)[:self.M]
+        if self.Pf > 1 and y.dim() > 1:
+            parts = _comm.all_gather(self.grid.axis(feat_axis), y)
+            y = parts.view(self.Pf, self.M, -1).transpose(0, 1).reshape(
+                self.M, -1)
+        return y
 
     def __repr__(self) -> str:
         return (f"ShardedSparseMatrix(M={self.M}, N={self.N}, nnz={self.nnz}"
-                f", P={self.P}, rank={self.rank}, Mb={self.Mb}, Nb={self.Nb})")
+                f", P={self.P}, Pf={self.Pf}, rank={self.rank}, "
+                f"Mb={self.Mb}, Nb={self.Nb})")
 
 
 # ----------------------------------------------------------------------
@@ -494,7 +607,7 @@ def _is_min_of(reduce: str):
     raise ValueError(f"Unknown reduce mode: {reduce!r}")
 
 
-def _local_values(A: ShardedSparseMatrix,
+def _local_values(A: _RowShard,
                   value: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """This shard's slice of an edge-space override.  Unlike the JAX
     package's ``_vtabs_from_value`` (which clamps silently), a value
@@ -511,15 +624,15 @@ def _local_values(A: ShardedSparseMatrix,
     return value[A.e0:A.e0 + A._r.shape[0]]
 
 
-def _check_x(A: ShardedSparseMatrix, x: torch.Tensor) -> None:
+def _check_x(A: _RowShard, x: torch.Tensor) -> None:
     if x.dim() != 2 or x.shape[0] != A.Nb:
         raise ValueError(f"x must be this rank's ({A.Nb}, K) block "
-                         "(ShardedSparseMatrix.shard_dense)")
+                         "(the layout's shard_dense)")
     if x.device != A.device:
         raise ValueError("x lies on another device than the mesh's")
 
 
-def _arg_local(A: ShardedSparseMatrix, arg: torch.Tensor) -> torch.Tensor:
+def _arg_local(A: _RowShard, arg: torch.Tensor) -> torch.Tensor:
     """Global argout -> positions in the shard's CSR (rows without a
     winner map past every position)."""
     return (arg - A.e0).contiguous()
@@ -677,133 +790,131 @@ class _RingSpmm(torch.autograd.Function):
         return None, None, grad_x, grad_v
 
 
-def _serve(A, x: torch.Tensor):
-    """Post the halo exchange: the rows each client reads from this
-    rank's block, one ``(H, K)`` packet per client."""
-    halo = A._halo
-    return _comm.all_to_all(A.mesh, x.index_select(0, halo.serve),
-                            async_op=True)
+def _run_group(A, grp: _Group, buf, is_min, v_loc, out=None, arg=None):
+    """K11a (sum) or K11b (min/max) of one group against ``buf``:
+    written when ``out`` is None (a group over every shard row), else
+    accumulated or combined into ``out`` (and ``arg``) in place.
+    Returns ``(out, arg)``, ``arg`` None for a sum."""
+    value = grp.values(v_loc)
+    if out is None:
+        if is_min is None:
+            return shard_spmm(grp.rowptr, grp.col, value, buf), None
+        return shard_spmm_minmax(grp.rowptr, grp.col, value, buf, is_min,
+                                 A.e0, pos=grp.pos)
+    if grp.nnz:
+        if is_min is None:
+            shard_spmm(grp.rowptr, grp.col, value, buf, out=out,
+                       row_map=grp.row_map)
+        else:
+            shard_spmm_minmax(grp.rowptr, grp.col, value, buf, is_min, A.e0,
+                              pos=grp.pos, out=out, arg=arg,
+                              row_map=grp.row_map)
+    return out, arg
 
 
-def _unserve(A, grad_buf: torch.Tensor):
-    """Post the reverse halo exchange: each received packet's gradient
-    goes back to the rank that served it."""
-    return _comm.all_to_all(A.mesh, grad_buf.contiguous(), async_op=True)
-
-
-class _HaloSpmm(torch.autograd.Function):
-    """The halo schedule over the shard's groups: the interior against
-    ``x`` while the halo packets move, then the frontier against the
-    received buffer (accumulated, or combined for min/max).  Backward:
-    the transpose over the merged view ``[x ; halo]``; the halo rows'
-    gradient rides the reverse ``all_to_all`` to the serving rank, which
-    adds it at its served rows."""
+class _ExchangeSpmm(torch.autograd.Function):
+    """A schedule of exchanged buffers (the flat halo, the hierarchical
+    ICI halo and DCN union) over the shard's tiers: the exchanges are
+    posted, the interior runs against ``x`` while they move, then each
+    buffer tier is accumulated (or combined for min/max) as its buffer
+    arrives, in tier order.  Backward: the transpose over the merged
+    view ``[x ; buffers]``; the buffers' gradients ride the transposed
+    collectives back to the serving ranks, which add them at their
+    served rows."""
 
     @staticmethod
-    def forward(ctx, A, is_min, x, value):
-        hl = A._halo
+    def forward(ctx, A, tables, is_min, x, value):
         v_loc = _local_values(A, value)
-        pending = _serve(A, x)
-        it, fr = hl.interior, hl.frontier
-        if is_min is None:
-            out = shard_spmm(it.rowptr, it.col, it.values(v_loc), x)
-            arg = None
-        else:
-            out, arg = shard_spmm_minmax(it.rowptr, it.col, it.values(v_loc),
-                                         x, is_min, A.e0, pos=it.pos)
-        halo = pending.wait()
-        if fr.nnz:
-            if is_min is None:
-                shard_spmm(fr.rowptr, fr.col, fr.values(v_loc), halo,
-                           out=out, row_map=fr.row_map)
-            else:
-                shard_spmm_minmax(fr.rowptr, fr.col, fr.values(v_loc), halo,
-                                  is_min, A.e0, pos=fr.pos, out=out, arg=arg,
-                                  row_map=fr.row_map)
-        ctx.A, ctx.is_min = A, is_min
-        buf = torch.cat([x, halo]) if ctx.needs_input_grad[3] else None
+        waiters = tables.exchange(x)
+        out, arg = _run_group(A, tables.group(0), x, is_min, v_loc)
+        bufs = [x]
+        for i, wait in enumerate(waiters, 1):
+            bufs.append(wait())
+            out, arg = _run_group(A, tables.group(i), bufs[i], is_min, v_loc,
+                                  out, arg)
+        ctx.A, ctx.tables, ctx.is_min = A, tables, is_min
+        buf = torch.cat(bufs) if ctx.needs_input_grad[4] else None
         ctx.save_for_backward(buf, v_loc, arg)
         return _outputs(ctx, out, arg)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g, _garg=None):
-        A, Nb = ctx.A, ctx.A.Nb
-        hl = A._halo
+        A, tables = ctx.A, ctx.tables
         buf, v_loc, arg = ctx.saved_tensors
         g = g.contiguous()
         grad_x = grad_v = None
-        if ctx.needs_input_grad[2]:
-            if ctx.is_min is None:
-                fr = hl.frontier_t.group(v_loc)
-                pending = _unserve(A, shard_spmm(fr.rowptr, fr.col, fr.value,
-                                                 g))
-                it = hl.interior_t.group(v_loc)
-                grad_x = shard_spmm(it.rowptr, it.col, it.value, g)
-            else:
-                gbuf = _minmax_grad_buf(A, hl.view, v_loc, g, arg)
-                pending = _unserve(A, gbuf[Nb:])
-                grad_x = gbuf[:Nb].contiguous()
-            grad_x.index_add_(0, hl.serve, pending.wait())
         if ctx.needs_input_grad[3]:
-            grad_v = _value_grad(A, hl.view, buf, g, arg)
-        return None, None, grad_x, grad_v
+            n = len(tables.sizes)
+            if ctx.is_min is None:
+                def gbuf(i):
+                    t = tables.transpose(i).group(v_loc)
+                    return shard_spmm(t.rowptr, t.col, t.value, g)
+                finish = tables.exchange_back([gbuf(i) for i in range(1, n)])
+                grad_x = gbuf(0)
+            else:
+                full = _minmax_grad_buf(A, tables.view, v_loc, g, arg)
+                parts = full.split(tables.sizes)
+                finish = tables.exchange_back(parts[1:])
+                grad_x = parts[0].contiguous()
+            finish(grad_x)
+        if ctx.needs_input_grad[4]:
+            grad_v = _value_grad(A, tables.view, buf, g, arg)
+        return None, None, None, grad_x, grad_v
 
 
-class _HaloHybridSpmm(torch.autograd.Function):
-    """The halo schedule with the hybrid local format (sum only; values
-    are baked): the interior's dense blocks on ``block_spmm`` plus the
-    remainder group, then the frontier group or the dense frontier
-    product over the received buffer.  Backward: ``block_spmm_t`` plus
-    the remainder's transpose, and the frontier's transpose sent back
-    through the reverse ``all_to_all``."""
+class _ExchangeHybridSpmm(torch.autograd.Function):
+    """An exchange schedule with the hybrid local format (sum only;
+    values are baked): the interior's dense blocks on ``block_spmm``
+    plus the remainder group, then each buffer tier as its group or, when
+    its store is built, one dense product against the buffer.  Backward:
+    ``block_spmm_t`` plus the remainder's transpose, and each tier's
+    transpose sent back through the transposed collectives."""
 
     @staticmethod
-    def forward(ctx, A, x):
-        hl, hy = A._halo, A._hybrid
-        pending = _serve(A, x)
-        B = A.block_B
-        xb = _pad_to_blocks(x, B)
+    def forward(ctx, A, tables, hy, x):
+        waiters = tables.exchange(x)
+        xb = _pad_to_blocks(x, A.block_B)
         out = block_spmm(hy.blocks, hy.slot_col, hy.rb_ptr, xb)[:A.Mb]
         out = out.to(x.dtype).contiguous()
         if hy.rest is not None:
             r = hy.rest
             shard_spmm(r.rowptr, r.col, r.value, x, out=out)
-        halo = pending.wait()
-        if hy.fr_dense is not None:
-            out = out + _dense_matmul(hy.fr_dense, halo).to(x.dtype)
-        elif hl.frontier.nnz:
-            fr = hl.frontier
-            shard_spmm(fr.rowptr, fr.col, fr.value, halo, out=out,
-                       row_map=fr.row_map)
-        ctx.A = A
+        for i, wait in enumerate(waiters, 1):
+            buf = wait()
+            store = hy.fr_dense[i - 1]
+            if store is not None:
+                out = out + _dense_matmul(store, buf).to(x.dtype)
+            else:
+                out, _ = _run_group(A, tables.group(i), buf, None, None, out)
+        ctx.A, ctx.tables, ctx.hy = A, tables, hy
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        A, Nb = ctx.A, ctx.A.Nb
-        hl, hy = A._halo, A._hybrid
+        A, tables, hy = ctx.A, ctx.tables, ctx.hy
         g = g.contiguous()
-        if hy.fr_dense is not None:
-            g_halo = _dense_matmul(hy.fr_dense.t(), g).to(g.dtype)
-        elif hl.frontier.nnz:
-            fr = hl.frontier_t.group(None)
-            g_halo = shard_spmm(fr.rowptr, fr.col, fr.value, g)
-        else:  # the exchange runs on every rank all the same
-            g_halo = g.new_zeros((A.P * hl.H, g.shape[1]))
-        pending = _unserve(A, g_halo)
+        gbufs = []
+        for i in range(1, len(tables.sizes)):
+            store = hy.fr_dense[i - 1]
+            if store is not None:
+                gbufs.append(_dense_matmul(store.t(), g).to(g.dtype))
+            else:  # the exchange runs on every rank all the same
+                t = tables.transpose(i).group(None)
+                gbufs.append(shard_spmm(t.rowptr, t.col, t.value, g))
+        finish = tables.exchange_back(gbufs)
         gb = _pad_to_blocks(g, A.block_B)
         grad_x = block_spmm_t(hy.blocks, hy.slot_row, hy.order_t, hy.cb_ptr,
-                              gb)[:Nb].to(g.dtype).contiguous()
+                              gb)[:A.Nb].to(g.dtype).contiguous()
         if hy.rest_t is not None:
             r = hy.rest_t
             shard_spmm(r.rowptr, r.col, r.value, g, out=grad_x)
-        grad_x.index_add_(0, hl.serve, pending.wait())
-        return None, grad_x
+        finish(grad_x)
+        return None, None, None, grad_x
 
 
-def _postprocess(A: ShardedSparseMatrix, res, reduce: str):
+def _postprocess(A: _RowShard, res, reduce: str):
     """Empty-row and mean fix-up from the shard's rowcount: mean divides
     by ``max(count, 1)``; min/max write 0 and the sentinel ``arg ==
     nnz`` on empty rows."""
@@ -867,8 +978,11 @@ def dist_spmm_halo(A: ShardedSparseMatrix, x: torch.Tensor,
             "edge-space value override (blocks bake values); use 'auto' "
             "to fall back silently")
     if use_hyb:
-        return _postprocess(A, _HaloHybridSpmm.apply(A, x), reduce)
-    return _postprocess(A, _HaloSpmm.apply(A, is_min, x, value), reduce)
+        return _postprocess(A, _ExchangeHybridSpmm.apply(A, A._halo,
+                                                         A._hybrid, x),
+                            reduce)
+    return _postprocess(A, _ExchangeSpmm.apply(A, A._halo, is_min, x, value),
+                        reduce)
 
 
 def dist_spmm(A: ShardedSparseMatrix, x: torch.Tensor,

@@ -1,7 +1,8 @@
 """Worker functions of the port's distributed tests, and :func:`spawn`,
 which runs one on several processes that form a process group.
 
-``tests/test_torch_dist.py``, ``tests/test_torch_dist_gcn.py`` and
+``tests/test_torch_dist.py``, ``tests/test_torch_dist_gcn.py``,
+``tests/test_torch_hier.py``, ``tests/test_torch_dist2d.py`` and
 ``tests/test_torch_dist_gpu.py`` run them on several gloo (or NCCL)
 processes.  The spawned processes import this module and nothing of the
 test modules, so it imports neither JAX nor the JAX package (nor the
@@ -24,7 +25,8 @@ import torch.multiprocessing as mp
 import pytorch_sparse_tpu_torch as pts
 from pytorch_sparse_tpu_torch.models import DistGCN
 from pytorch_sparse_tpu_torch.parallel import (
-    ShardedSparseMatrix, dist_spmm, make_mesh)
+    HierShardedSparseMatrix, ShardedSparseMatrix, dist_spmm, dist_spmm_hier,
+    make_mesh, make_mesh2d, make_mesh_hier)
 from pytorch_sparse_tpu_torch.parallel import _comm
 
 def _rank_main(rank, fn, world_size, backend, workdir, timeout, threads,
@@ -145,13 +147,17 @@ def _tensor(row, col, val, M):
 
 def _run_case(A, mesh, x_np, gout_np, value_np, schedule, fmt, reduce):
     """Forward and both gradients on every rank; rank results gathered
-    (outputs, x gradient) or all-reduced (value gradient), on the
-    host."""
+    (outputs, x gradient) or all-reduced over every process of the
+    layout (value gradient), on the host.  ``schedule`` "hier" runs
+    ``dist_spmm_hier``."""
     x = A.shard_dense(torch.from_numpy(x_np)).requires_grad_(True)
     gout = A.shard_dense(torch.from_numpy(gout_np))
     v = (None if value_np is None else
          torch.from_numpy(value_np).to(mesh.device).requires_grad_(True))
-    res = dist_spmm(A, x, schedule, reduce, fmt, v)
+    if schedule == "hier":
+        res = dist_spmm_hier(A, x, reduce, fmt, v)
+    else:
+        res = dist_spmm(A, x, schedule, reduce, fmt, v)
     out, arg = res if reduce in ("min", "max") else (res, None)
     inputs = [x] + ([] if v is None else [v])
     grads = torch.autograd.grad(out, inputs, gout)
@@ -160,7 +166,7 @@ def _run_case(A, mesh, x_np, gout_np, value_np, schedule, fmt, reduce):
     if arg is not None:
         got["arg"] = A.unshard_dense(arg)
     if v is not None:
-        got["gv"] = _comm.all_reduce_sum(mesh, grads[1])
+        got["gv"] = _comm.all_reduce_sum(A.world, grads[1])
     return {k: t.cpu() for k, t in got.items()}
 
 
@@ -219,16 +225,22 @@ def run_schedules(rank, world_size, M, K, graph, block_B, seed,
 
 
 def run_dist_gcn(rank, world_size, M, graph, layers, n_classes, seed,
-                 schedules, lr):
+                 schedules, lr, hier=None):
     """One ``DistGCN.train_step`` (Adam) from the given parameters on
     ``gcn_norm`` of ``community_coo(M, *graph)``'s pattern, per
     schedule: the global loss, the all-reduced gradients and the
-    parameters after the step, from every rank."""
-    mesh = make_mesh(world_size, device="cpu")
+    parameters after the step, from every rank.  With ``hier = (S,
+    C)`` the layout is hierarchical."""
     row, col, _ = community_coo(M, *graph)
     row, col, val = gcn_norm_coo(row, col, M)
-    A = ShardedSparseMatrix.from_sparse_tensor(_tensor(row, col, val, M),
-                                               mesh, block_B=8)
+    if hier is None:
+        A = ShardedSparseMatrix.from_sparse_tensor(
+            _tensor(row, col, val, M), make_mesh(world_size, device="cpu"),
+            block_B=8)
+    else:
+        A = HierShardedSparseMatrix.from_sparse_tensor(
+            _tensor(row, col, val, M), make_mesh_hier(*hier, device="cpu"),
+            block_B=8)
     params = {"layers": [{"w": w.numpy(), "b": b.numpy()}
                          for w, b in layers]}
     in_dim = layers[0][0].shape[0]
@@ -242,9 +254,99 @@ def run_dist_gcn(rank, world_size, M, graph, layers, n_classes, seed,
         model = DistGCN.from_jax_params(params, device="cpu")
         opt = torch.optim.Adam(model.parameters(), lr=lr)
         loss = model.train_step(opt, A, x, labels, mask, schedule, fmt)
-        res[f"{schedule}-{fmt}"] = {
+        res[f"{schedule or 'default'}-{fmt}"] = {
             "loss": loss,
             "grads": [p.grad.detach().clone() for p in model.parameters()],
             "params": [p.detach().clone() for p in model.parameters()]}
     res["has_interior_blocks"] = A.has_interior_blocks()
     return res
+
+
+HIER_FORMATS = ("ell", "auto")
+
+
+def _hier_structure(A, grid):
+    """The hierarchical layout's global decisions (every rank's served
+    rows gathered) and this rank's buffer layout: the global id, tier and
+    buffer row of each of its edges."""
+    t = A._tables
+    hyb = A._hybrid
+    return {"Mb": A.Mb, "Nb": A.Nb, "Hi": A.Hi, "Hx": A.Hx,
+            "serve_ici": _comm.all_gather(grid.mesh, A.serve_ici[None]).cpu(),
+            "serve_dcn": _comm.all_gather(grid.mesh, A.serve_dcn[None]).cpu(),
+            "rowcount": _comm.all_gather(grid.mesh, A.rowcount).cpu(),
+            "wire_stats": dict(A.wire_stats),
+            "wire_report": A.wire_report(K=8),
+            "has_interior_blocks": hyb is not None,
+            "fi_dense": A.fi_dense is not None,
+            "fx_dense": A.fx_dense is not None,
+            "edges": [(torch.from_numpy(A.e0 + t.pos[i]),
+                       torch.from_numpy(t.edges(i)[1])) for i in (1, 2)]}
+
+
+def run_hier(rank, world_size, S, C, M, K, graph, block_B, seed,
+             device="cpu"):
+    """The hierarchical schedule on an ``(S, C)`` grid: every reduce x
+    {ell, auto}, forward and both gradients (``value=`` on "ell"), the
+    tie-heavy min/max, the hybrid with the frontier groups
+    (``frontier_dense="never"``), the structure; every rank returns its
+    structure, rank 0 also the results."""
+    grid = make_mesh_hier(S, C, device=device)
+    row, col, val = community_coo(M, *graph)
+    A = HierShardedSparseMatrix.from_sparse_tensor(
+        _tensor(row, col, val, M), grid, block_B=block_B)
+    x_np, gout_np = operand(seed, M, K), operand(seed + 1, M, K)
+    res = {"structure": _hier_structure(A, grid)}
+    for fmt in HIER_FORMATS:
+        for reduce in REDUCES:
+            value = val if fmt == "ell" else None
+            res[f"hier-{fmt}-{reduce}"] = _run_case(
+                A, grid.mesh, x_np, gout_np, value, "hier", fmt, reduce)
+    x_tie, v_tie = tie_operand(seed + 2, M, K), np.sign(val)
+    for reduce in ("min", "max"):
+        res[f"ties-{reduce}"] = _run_case(A, grid.mesh, x_tie, gout_np,
+                                          v_tie, "hier", "ell", reduce)
+    try:
+        dist_spmm_hier(A, A.shard_dense(torch.from_numpy(x_np)), "max",
+                       "hybrid")
+        res["hybrid_max_raises"] = False
+    except ValueError:
+        res["hybrid_max_raises"] = True
+    # The interior blocks with the frontier groups (no dense tier).
+    Ang = HierShardedSparseMatrix.from_sparse_tensor(
+        _tensor(row, col, val, M), grid, block_B=block_B,
+        frontier_dense="never")
+    res["never_structure"] = _hier_structure(Ang, grid)
+    for reduce in ("sum", "mean"):
+        res[f"never-{reduce}"] = _run_case(
+            Ang, grid.mesh, x_np, gout_np, None, "hier", "hybrid", reduce)
+    res["staged_bytes"] = grid.staged_bytes
+    return res if rank == 0 else {"structure": res["structure"]}
+
+
+def run_2d(rank, world_size, P, Pf, M, K, graph, block_B, seed,
+           device="cpu"):
+    """Every flat schedule x reduce on a ``(P, Pf)`` data x feature
+    grid, forward and both gradients; the indivisible-``K`` check and
+    the structure.  Rank 0 returns the results."""
+    grid = make_mesh2d(P, Pf, device=device)
+    row, col, val = community_coo(M, *graph)
+    A = ShardedSparseMatrix.from_sparse_tensor(_tensor(row, col, val, M),
+                                               grid, block_B=block_B)
+    x_np, gout_np = operand(seed, M, K), operand(seed + 1, M, K)
+    res = {"structure": _structure(A, A.mesh), "Pf": A.Pf,
+           "x_cols": A.shard_dense(torch.from_numpy(x_np)).shape[1]}
+    for schedule, fmt in SCHEDULES:
+        for reduce in REDUCES:
+            if fmt == "hybrid" and reduce in ("min", "max"):
+                continue
+            value = None if fmt == "hybrid" else val
+            res[f"{schedule}-{fmt}-{reduce}"] = _run_case(
+                A, grid.mesh, x_np, gout_np, value, schedule, fmt, reduce)
+    try:
+        A.shard_dense(torch.zeros(M, Pf * 2 + 1))
+        res["indivisible_raises"] = False
+    except ValueError as e:
+        res["indivisible_raises"] = "divisible" in str(e)
+    res["staged_bytes"] = grid.staged_bytes
+    return res if rank == 0 else {}

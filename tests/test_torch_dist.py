@@ -74,37 +74,40 @@ def graph():
     return row, col, val, _jax_tensor(row, col, val)
 
 
+def jax_reference(A, x_np, v_np, gout_np, reduce):
+    """JAX's single-device forward of ``A`` with values ``v_np`` on
+    ``x_np``, and the gradients of ``<out, gout>`` in the values and
+    ``x``: numpy ``out``, ``arg`` (None for sums), ``gx``, ``gv``."""
+    def f(v, xx):
+        a = A.set_value(v, layout="coo")
+        if reduce in ("min", "max"):
+            return JFN[reduce](a, xx)
+        return jts.matmul(a, xx, reduce), None
+
+    out, arg = f(jnp.asarray(v_np), jnp.asarray(x_np))
+    gv, gx = jax.grad(lambda v, xx: (f(v, xx)[0] * gout_np).sum(),
+                      argnums=(0, 1))(jnp.asarray(v_np), jnp.asarray(x_np))
+    return {"out": np.asarray(out), "gx": np.asarray(gx),
+            "gv": np.asarray(gv),
+            "arg": None if arg is None else np.asarray(arg)}
+
+
 @pytest.fixture(scope="module")
 def oracle(graph):
     """JAX's single-device forward and gradients, by (operand, values,
     reduce)."""
-    row, col, val, A = graph
     cache = {}
 
     def get(x_np, v_np, reduce):
         key = (x_np.tobytes(), v_np.tobytes(), reduce)
-        if key in cache:
-            return cache[key]
-        gout = W.operand(SEED + 1, M, K)
-
-        def f(v, xx):
-            a = A.set_value(v, layout="coo")
-            if reduce in ("min", "max"):
-                return JFN[reduce](a, xx)
-            return jts.matmul(a, xx, reduce), None
-
-        out, arg = f(jnp.asarray(v_np), jnp.asarray(x_np))
-        gv, gx = jax.grad(lambda v, xx: (f(v, xx)[0] * gout).sum(),
-                          argnums=(0, 1))(jnp.asarray(v_np),
-                                          jnp.asarray(x_np))
-        cache[key] = {"out": np.asarray(out), "gx": np.asarray(gx),
-                      "gv": np.asarray(gv),
-                      "arg": None if arg is None else np.asarray(arg)}
+        if key not in cache:
+            cache[key] = jax_reference(graph[3], x_np, v_np,
+                                       W.operand(SEED + 1, M, K), reduce)
         return cache[key]
     return get
 
 
-def _check(got, ref, reduce, value_grad=True):
+def check_case(got, ref, reduce, value_grad=True):
     if reduce in ("min", "max"):
         np.testing.assert_array_equal(got["arg"].numpy(), ref["arg"])
         np.testing.assert_array_equal(got["out"].numpy(), ref["out"])
@@ -125,7 +128,7 @@ def test_schedule_matches_jax_single_device(port, oracle, graph, ws,
     val = graph[2]
     got = port(ws)[f"{schedule}-{fmt}-{reduce}"]
     ref = oracle(W.operand(SEED, M, K), val, reduce)
-    _check(got, ref, reduce, value_grad=fmt != "hybrid")
+    check_case(got, ref, reduce, value_grad=fmt != "hybrid")
     if reduce in ("min", "max"):
         empty = np.bincount(graph[0], minlength=M) == 0
         assert empty.any()
@@ -143,14 +146,14 @@ def test_minmax_ties_go_to_the_lower_edge_id(port, oracle, graph, ws,
     one (the first CSR edge)."""
     got = port(ws)[f"ties-{schedule}-{reduce}"]
     ref = oracle(W.tie_operand(SEED + 2, M, K), np.sign(graph[2]), reduce)
-    _check(got, ref, reduce)
+    check_case(got, ref, reduce)
 
 
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
 @pytest.mark.parametrize("ws", WORLD_SIZES)
 def test_dense_frontier_matches_jax(port, oracle, graph, ws, reduce):
     got = port(ws)[f"frontier_dense-{reduce}"]
-    _check(got, oracle(W.operand(SEED, M, K), graph[2], reduce), reduce,
+    check_case(got, oracle(W.operand(SEED, M, K), graph[2], reduce), reduce,
            value_grad=False)
 
 

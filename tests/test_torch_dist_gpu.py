@@ -1,8 +1,10 @@
 """The shard kernels K11a/K11b against their plain versions on the
 card, and the distributed schedules on CUDA shards against the same
-schedules on CPU shards (plain versions): world size 1 on NCCL, and 4
-processes sharing one card on gloo, which stages every collective
-through the host.
+schedules on CPU shards (plain versions): the flat schedules at world
+size 1 on NCCL and on 4 processes sharing one card on gloo, which stages
+every collective through the host; the hierarchical schedule on a (1,
+1) grid on NCCL and a (2, 2) grid on gloo; the flat schedules on a (2,
+2) data x feature grid on gloo.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip without them; they
 import neither JAX nor the JAX package:
@@ -108,14 +110,10 @@ def _schedules(ws, backend, device):
                    timeout=300)[0]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("ws,backend", [(1, "nccl"), (4, "gloo")])
-def test_schedules_on_cuda_match_the_cpu(ws, backend):
-    _need_gpu()
-    got = _schedules(ws, backend, "cuda")
-    ref = _schedules(ws, "gloo", "cpu")
-    assert got["value_length_raises"]
-    assert (got["staged_bytes"] > 0) == (backend == "gloo")
+def _compare(got, ref):
+    """Every case of a CUDA run against the CPU run: ``arg`` and the
+    min/max ``out`` exactly, sums and gradients to 1e-5."""
+    cases = 0
     for key, r in ref.items():
         if not (isinstance(r, dict) and "out" in r):
             continue
@@ -128,3 +126,49 @@ def test_schedules_on_cuda_match_the_cpu(ws, backend):
         assert rel_err(g["gx"], r["gx"]) <= 1e-5, key
         if "gv" in r:
             assert rel_err(g["gv"], r["gv"]) <= 1e-5, key
+        cases += 1
+    assert cases
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ws,backend", [(1, "nccl"), (4, "gloo")])
+def test_schedules_on_cuda_match_the_cpu(ws, backend):
+    _need_gpu()
+    got = _schedules(ws, backend, "cuda")
+    ref = _schedules(ws, "gloo", "cpu")
+    assert got["value_length_raises"]
+    assert (got["staged_bytes"] > 0) == (backend == "gloo")
+    _compare(got, ref)
+
+
+def _grid_run(fn, grid, backend, device, **kw):
+    return W.spawn(fn, grid[0] * grid[1], backend,
+                   args=dict(M=118, K=40, graph=(12, 1600, 150, 3, 7),
+                             block_B=8, seed=5, device=device, **kw),
+                   timeout=300)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid,backend", [((1, 1), "nccl"), ((2, 2), "gloo")])
+def test_hier_on_cuda_matches_the_cpu(grid, backend):
+    """The hierarchical schedule on CUDA shards (sub-group collectives on
+    NCCL at one process, host-staged gloo on four) against the CPU."""
+    _need_gpu()
+    kw = dict(S=grid[0], C=grid[1])
+    got = _grid_run(W.run_hier, grid, backend, "cuda", **kw)
+    ref = _grid_run(W.run_hier, grid, "gloo", "cpu", **kw)
+    assert got["hybrid_max_raises"]
+    assert (got["staged_bytes"] > 0) == (backend == "gloo")
+    _compare(got, ref)
+
+
+@pytest.mark.gpu
+def test_2d_on_cuda_matches_the_cpu():
+    """The row schedules on a (2, 2) data x feature grid at K=40, so each
+    feature rank runs the shard kernels on 20 columns."""
+    _need_gpu()
+    kw = dict(P=2, Pf=2)
+    got = _grid_run(W.run_2d, (2, 2), "gloo", "cuda", **kw)
+    ref = _grid_run(W.run_2d, (2, 2), "gloo", "cpu", **kw)
+    assert got["indivisible_raises"] and got["x_cols"] == 20
+    _compare(got, ref)

@@ -12,7 +12,9 @@ import torch
 import pytorch_sparse_tpu as jts
 import pytorch_sparse_tpu_torch as pts
 from pytorch_sparse_tpu_torch import _build
-from pytorch_sparse_tpu_torch.models import GCN
+from pytorch_sparse_tpu_torch.models import GCN, DistGCN
+from pytorch_sparse_tpu_torch.parallel import (
+    HierShardedSparseMatrix, make_mesh2d, make_mesh_hier)
 from pytorch_sparse_tpu_torch.ops.matmul import spmm
 from pytorch_sparse_tpu_torch.testing import community_graph
 
@@ -63,6 +65,46 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         pts.SparseTensor.from_dense(torch.eye(3))
     A = pts.SparseTensor(row=[0, 1], col=[1, 0], device="cpu")
     assert A.device().type == "cpu"
+
+
+@pytest.fixture
+def one_process_group(tmp_path):
+    """A gloo group of this process alone (file rendezvous), destroyed
+    after the test."""
+    import torch.distributed as tdist
+
+    tdist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                             rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_grids_raise_without_cuda(monkeypatch, one_process_group):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (make_mesh2d, make_mesh_hier):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(1, 1)
+        grid = make(1, 1, device="cpu")
+        assert grid.device.type == "cpu" and grid.mesh.size == 1
+    with pytest.raises(ValueError, match="processes"):
+        make_mesh_hier(2, 1, device="cpu")
+
+
+def test_dist_gcn_rejects_a_flat_schedule_on_the_hier_layout(
+        one_process_group):
+    """As the JAX package's ``DistGCN.apply``: a hierarchical matrix runs
+    its own schedule, and another name raises ``ValueError``."""
+    A = pts.SparseTensor(row=[0, 1, 2], col=[1, 2, 0], device="cpu")
+    adj = HierShardedSparseMatrix.from_sparse_tensor(
+        A, make_mesh_hier(1, 1, device="cpu"))
+    model = DistGCN(4, 4, 2, num_layers=2, device="cpu")
+    x = adj.shard_dense(torch.randn(3, 4))
+    for schedule in ("ring", "halo", "allgather"):
+        with pytest.raises(ValueError, match="HierShardedSparseMatrix"):
+            model(adj, x, schedule)
+    assert model(adj, x, "hier").shape == model(adj, x).shape == (3, 2)
 
 
 def test_spmm_refuses_grad_inputs():
