@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ``csr_spmm`` on the ogbn-arxiv-scale uniform graph (M=169,343,
    E=1,166,243) at K=128, 256 and 40, with values and implicit ones, and
    on a matrix with empty rows; ``block_spmm`` and ``block_spmm_t`` on
-   the community hybrid graph with f32 and bf16 stores; ``edge_dot`` on
+   the community hybrid graph with f32 and bf16 stores (``block_spmm``
+   also at K=47, phase 15's last width, and with the last row block's
+   slots taken away, a row block with no slot); ``edge_dot`` on
    the uniform graph at K=128, 256 and 40, on the empty-rows matrix, and
    at K=128 on the community hybrid and Reddit-10% graphs of phase 4b.
    ``csr_spmm_minmax`` (min and max; ``out`` and ``arg`` must equal the
@@ -59,7 +61,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    argout), and its bound on an H100
    SXM (3.35 TB/s; 67 TFLOP/s FP32 outside the tensor cores for f32
    inputs, 989 TFLOP/s dense bf16 tensor cores for a bf16 store times
-   the split f32 operand).
+   the split f32 operand).  The block products of f32 operands (K2, K5,
+   K5b, K10) carry two bounds: ``bound_ms`` on the tensor cores (495
+   TFLOP/s TF32, three products a product for f32 accuracy, as 3xTF32
+   runs) and ``bound_fp32_ms`` on the FP32 units, each with the share of
+   the kernel's time it makes.
 4. The main path: routed ``spmm_sum`` through the public API, one leg per
    route, each held against a host CSR-walk oracle (head + tail + 512
    random rows): the uniform graph (CSR kernel), a Reddit-10%-density
@@ -245,6 +251,7 @@ K = 128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, FP32 without tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
 KERNEL_GATE = 1e-5             # kernel vs plain version, relative to max |ref|
 GATE_F32 = 1e-5                # route legs vs host oracle, f32 stores
 GATE_BF16 = 2e-3               # bf16 dense store at store budget 2e-3
@@ -382,25 +389,40 @@ def csr_bounds(M, E, K_, ncols, has_value):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
+def f32_product_bounds(nbytes, flops):
+    """The two bounds of f32-accurate products that move ``nbytes``:
+    ``bound_ms`` on the tensor cores, three TF32 products a product
+    (3xTF32) at 495 TFLOP/s, and ``bound_fp32_ms`` on the FP32 units at
+    67 TFLOP/s, each the larger of its operations time and the bytes
+    time."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    out = {}
+    for key, t_f in (("bound", 3 * flops / TF32_FLOPS_PER_S),
+                     ("bound_fp32", flops / FP32_FLOPS_PER_S)):
+        out[f"{key}_ms"] = max(t_b, t_f) * 1e3
+        out[f"{key}_by"] = "bytes" if t_b >= t_f else "operations"
+    return out
+
+
 def block_bounds(torch, blocks, nb, nout, nsrc, n_index, K_, split_parts):
-    """A block pass's bound: ``nb`` blocks of ``blocks``' size and dtype,
-    ``nsrc`` source blocks of the operand read and ``nout`` output blocks
-    written (``K_`` wide), and ``n_index`` int32 schedule entries.  f32
-    blocks price the products at the FP32 rate; bf16 blocks at the bf16
-    tensor-core rate, times the bf16 terms an f32 operand splits into
-    for the same accuracy (``split_parts``, as the bf16 dense store
-    runs)."""
+    """A block pass's bounds: ``nb`` blocks of ``blocks``' size and
+    dtype, ``nsrc`` source blocks of the operand read and ``nout`` output
+    blocks written (``K_`` wide), and ``n_index`` int32 schedule entries.
+    f32 blocks: :func:`f32_product_bounds`.  bf16 blocks: the products at
+    the bf16 tensor-core rate, times the bf16 terms an f32 operand splits
+    into for the same accuracy (``split_parts``, as the bf16 dense store
+    runs), as ``bound_ms``."""
     B = blocks.shape[1]
     elem = blocks.element_size()
     nbytes = nb * B * B * elem + 4 * K_ * B * nsrc + 4 * n_index \
         + 4 * nout * B * K_
     flops = 2 * nb * B * B * K_
-    if blocks.dtype == torch.bfloat16:
-        t_f = split_parts * flops / BF16_FLOPS_PER_S
-    else:
-        t_f = flops / FP32_FLOPS_PER_S
+    if blocks.dtype != torch.bfloat16:
+        return f32_product_bounds(nbytes, flops)
+    t_f = split_parts * flops / BF16_FLOPS_PER_S
     t_b = nbytes / HBM_BYTES_PER_S
-    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+    return {"bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations"}
 
 
 def forward_block_bounds(torch, h, blocks, K_, split_parts):
@@ -422,7 +444,8 @@ def transpose_block_bounds(torch, h, blocks, K_, split_parts):
 
 def route_bound_ms(torch, A, h, K_, split_parts):
     """Least time of one routed SpMM on an H100 SXM: the CSR bound, the
-    dense product's bound, or the block pass's plus the remainder's."""
+    dense product's bound, or the block pass's plus the remainder's; f32
+    products priced on the FP32 units, as in every slice before."""
     def csr_of(M, col, has_value):
         return csr_bounds(M, col.shape[0], K_, int(np.unique(col).size),
                           has_value)[0]
@@ -438,7 +461,8 @@ def route_bound_ms(torch, A, h, K_, split_parts):
         else:
             t_f = 2 * M * N * K_ / FP32_FLOPS_PER_S
         return max(nbytes / HBM_BYTES_PER_S, t_f) * 1e3
-    ms = forward_block_bounds(torch, h, h.blocks, K_, split_parts)[0]
+    b = forward_block_bounds(torch, h, h.blocks, K_, split_parts)
+    ms = b.get("bound_fp32_ms", b["bound_ms"])
     if h.rest is not None:
         ms += csr_of(h.M, h.rest[1].cpu().numpy(), True)
     return ms
@@ -639,15 +663,14 @@ def gat_plain(torch, model, adj, x, edge_softmax_plain, csr_spmm_plain):
 
 
 def dblocks_bounds(torch, nb, B, K_, n_rows_p, n_rows_q, dtype):
-    """K5b's bound: ``2 B^2 K`` flops a slot at the FP32 rate (the kernel
-    multiplies f32 operands for either store), against the
-    ``(nb+1, B, B)`` store-dtype output written once and ``p``, ``q`` and
-    the two int32 slot arrays read once."""
+    """K5b's bounds (:func:`f32_product_bounds`): ``2 B^2 K`` flops a slot
+    of f32 operands for either store, against the ``(nb+1, B, B)``
+    store-dtype output written once and ``p``, ``q`` and the two int32
+    slot arrays read once."""
     elem = 2 if dtype == torch.bfloat16 else 4
     nbytes = (nb + 1) * B * B * elem + 4 * K_ * (n_rows_p + n_rows_q) \
         + 8 * nb
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, 2 * B * B * K_ * nb / FP32_FLOPS_PER_S
-    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+    return f32_product_bounds(nbytes, 2 * B * B * K_ * nb)
 
 
 def relu_recorder(torch, log):
@@ -725,12 +748,14 @@ def kernel_case(torch, label, got, ref, failures, name, **timing):
             "ok": ok, **timing}
 
 
-def kernel_entry(name, source, replaces, cases, library, shape):
+def kernel_entry(name, source, replaces, cases, library, shape, units=None):
     """The ``kernels`` line entry of a kernel: the first case's times,
     the largest error over all cases.  ``launches`` is filled in from
-    the main path's run."""
+    the main path's run.  A kernel with both bounds of f32-accurate
+    products also carries the FP32 one, the share of its time that each
+    makes, and the units it runs on."""
     head = cases[0]
-    return {
+    entry = {
         "name": name, "route": "cuda",
         "source": f"pytorch_sparse_tpu_torch/csrc/{source}",
         "replaces": f"pytorch_sparse_tpu/{replaces}", "launches": None,
@@ -741,6 +766,13 @@ def kernel_entry(name, source, replaces, cases, library, shape):
         "library_ms": head["library_ms"], "library": library,
         "shape": shape, "cases": cases,
     }
+    if "bound_fp32_ms" in head:
+        entry.update(
+            bound_fp32_ms=head["bound_fp32_ms"],
+            bound_fp32_by=head["bound_fp32_by"], units=units,
+            bound_share_tensor_cores=head["bound_ms"] / head["ms"],
+            bound_share_fp32_units=head["bound_fp32_ms"] / head["ms"])
+    return entry
 
 
 def plan_numeric_bounds(n_x, n_y, T, n_out, elem, has_y):
@@ -756,18 +788,20 @@ def plan_numeric_bounds(n_x, n_y, T, n_out, elem, has_y):
 
 
 def block_spgemm_bounds(torch, blocks, n_pairs, n_out):
-    """K10's bound over one block product of a store with itself: the
+    """K10's bounds over one block product of a store with itself: the
     store read once, the pair schedule read and the ``(n_out, Bb, Bb)``
-    f32 output written once; ``2 Bb^3`` flops a pair at the FP32 rate for
-    f32 blocks, at the bf16 tensor-core rate for bf16 blocks (whose
-    products are exact in an f32 accumulator)."""
+    f32 output written once; ``2 Bb^3`` flops a pair, for f32 blocks
+    :func:`f32_product_bounds`, for bf16 blocks at the bf16 tensor-core
+    rate (their products are exact in an f32 accumulator)."""
     Bb = blocks.shape[1]
     nbytes = blocks.numel() * blocks.element_size() \
         + 4 * (2 * n_pairs + n_out + 1) + 4 * n_out * Bb * Bb
-    rate = (BF16_FLOPS_PER_S if blocks.dtype == torch.bfloat16
-            else FP32_FLOPS_PER_S)
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, 2 * Bb ** 3 * n_pairs / rate
-    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+    flops = 2 * Bb ** 3 * n_pairs
+    if blocks.dtype != torch.bfloat16:
+        return f32_product_bounds(nbytes, flops)
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return {"bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations"}
 
 
 def entry_positions(rowC, colC, P, rows, cols):
@@ -1727,14 +1761,12 @@ def main(argv=None) -> int:
                 out = torch.zeros((R, B, K), device=device)
                 return out.index_add_(0, slot_row, tmp)
 
-            bound_ms, bound_by = forward_block_bounds(torch, h32, blocks, K,
-                                                      split_parts)
             fwd_cases.append(kernel_case(
                 torch, label, got, ref, failures, "block_spmm",
                 ms=timer(lambda: block_spmm(*fwd)),
                 plain_ms=timer(lambda: block_spmm_plain(*fwd)),
-                library_ms=timer(library), bound_ms=bound_ms,
-                bound_by=bound_by))
+                library_ms=timer(library),
+                **forward_block_bounds(torch, h32, blocks, K, split_parts)))
             del got, ref
 
             tr = (blocks, h32.slot_row, h32.order_t, h32.cb_ptr, gb)
@@ -1748,24 +1780,48 @@ def main(argv=None) -> int:
                 out = torch.zeros((C, B, K), device=device)
                 return out.index_add_(0, col_t, tmp)
 
-            bound_ms, bound_by = transpose_block_bounds(torch, h32, blocks,
-                                                        K, split_parts)
             t_cases.append(kernel_case(
                 torch, label, got, ref, failures, "block_spmm_t",
                 ms=timer(lambda: block_spmm_t(*tr)),
                 plain_ms=timer(lambda: block_spmm_t_plain(*tr)),
-                library_ms=timer(library_t), bound_ms=bound_ms,
-                bound_by=bound_by))
+                library_ms=timer(library_t),
+                **transpose_block_bounds(torch, h32, blocks, K,
+                                         split_parts)))
             del got, ref, blocks, fwd, tr
+        # K2 at phase 15's last width (47: an odd K, its operand rows
+        # padded to 48 columns for TMA), and with the last row block's
+        # slots taken away (the store and the first slots as they are):
+        # that row block must come out zero.
+        x47 = operand(torch, Mh, 47, 5, device)
+        xb47 = torch.cat([x47, x47.new_zeros((C * B - Mh, 47))])
+        rb_cut = h32.rb_ptr.clone()
+        rb_cut[-1] = rb_cut[-2]
+        cut = int(rb_cut[-1])
+        for label, fwd in [
+                ("f32 store K=47", (h32.blocks, h32.slot_col, h32.rb_ptr,
+                                    xb47)),
+                ("f32 store K=128, the last row block with no slot",
+                 (h32.blocks, h32.slot_col[:cut].contiguous(), rb_cut,
+                  xb))]:
+            got = block_spmm(*fwd)
+            ref = block_spmm_plain(*fwd)
+            sync()
+            fwd_cases.append(kernel_case(torch, label, got, ref, failures,
+                                         "block_spmm"))
+            if label.endswith("no slot") and bool(got[-B:].any()):
+                failures.append("block_spmm: a row block with no slot is "
+                                "not zero")
+            del got, ref
+        del x47, xb47
         shape = f"M={Mh} nb={nb} B={B} K={K} f32 store"
         kernels.append(kernel_entry(
             "block_spmm", "block_spmm.cu", "ops/kernels/hybrid.py:553",
             fwd_cases, "torch.bmm of the gathered blocks + index_add_",
-            shape))
+            shape, units="tensor cores (TF32 wgmma, 3xTF32)"))
         kernels.append(kernel_entry(
             "block_spmm_t", "block_spmm.cu", "ops/kernels/hybrid.py:763",
             t_cases, "torch.bmm of the gathered transposed blocks + "
-            "index_add_", shape))
+            "index_add_", shape, units="FP32 units"))
         del xb, gb
     except Exception:
         failures.append("phase 3 (kernels): " + traceback.format_exc())
@@ -1795,27 +1851,25 @@ def main(argv=None) -> int:
                 same16 = bool(torch.equal(got16, got.to(torch.bfloat16)))
                 rnd16 = errors(got16, ref)[1]
                 timing = {}
-                if k == K5B_KS[0] and form == "forward form":
+                if form == "forward form":  # timed at each width
                     def library(pq=pq, k=k):
                         pv, qv = (t.view(-1, B9, k) for t in pq)
                         return torch.bmm(pv[sr9.long()],
                                          qv[sc9.long()].transpose(1, 2))
 
-                    bound_ms, bound_by = dblocks_bounds(
-                        torch, nb9, B9, k, rows9, rows9, torch.float32)
-                    b16_ms, b16_by = dblocks_bounds(
+                    b16 = dblocks_bounds(
                         torch, nb9, B9, k, rows9, rows9, torch.bfloat16)
                     timing = {
                         "ms": timer(lambda: block_spmm_dblocks(
                             *pq, sr9, sc9, B9, torch.float32)),
                         "plain_ms": timer(lambda: block_spmm_dblocks_plain(
                             *pq, sr9, sc9, B9, torch.float32)),
-                        "library_ms": timer(library), "bound_ms": bound_ms,
-                        "bound_by": bound_by,
+                        "library_ms": timer(library),
+                        **dblocks_bounds(torch, nb9, B9, k, rows9, rows9,
+                                         torch.float32),
                         "bf16_store_ms": timer(lambda: block_spmm_dblocks(
                             *pq, sr9, sc9, B9, torch.bfloat16)),
-                        "bf16_store_bound_ms": b16_ms,
-                        "bf16_store_bound_by": b16_by}
+                        **{f"bf16_store_{key}": v for key, v in b16.items()}}
                 case = kernel_case(
                     torch, f"{form} K={k} f32 store (bf16 store: the same "
                     "sums rounded once)", got, ref, failures,
@@ -1846,7 +1900,8 @@ def main(argv=None) -> int:
             "ops/kernels/hybrid.py:696", k5b_cases,
             "torch.bmm(P_blocks[slot_row], Q_blocks[slot_col]^T), TF32 off",
             f"aligned hybrid M_pad={h9.M_pad} nb={nb9} B={B9} "
-            f"K={K5B_KS[0]} f32 store"))
+            f"K={K5B_KS[0]} f32 store",
+            units="tensor cores (TF32 wgmma, 3xTF32)"))
         del got, ref, pq
     except Exception:
         failures.append("phase 3 (block_spmm_dblocks): "
@@ -2148,14 +2203,12 @@ def main(argv=None) -> int:
                 got = torch.cat(run(block_spgemm_window))
                 ref = torch.cat(run(block_spgemm_window_plain))
                 sync()
-                bound_ms, bound_by = block_spgemm_bounds(
-                    torch, blocks, ai.shape[0], n_tot)
                 timing = {
                     "ms": timer(lambda: run(block_spgemm_window)),
                     "plain_ms": plain_timer(
                         lambda: run(block_spgemm_window_plain)),
                     "library_ms": plain_timer(library),
-                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    **block_spgemm_bounds(torch, blocks, ai.shape[0], n_tot),
                     "blocks": int(blocks.shape[0]), "pairs": int(ai.shape[0]),
                     "out_blocks": int(n_tot), "windows": len(wins)}
                 if A_ is A_h:
@@ -2187,7 +2240,7 @@ def main(argv=None) -> int:
             "ops/kernels/block_spgemm.py:88", k10_cases,
             "torch.bmm over the gathered pairs (f32, TF32 off) + "
             "index_add_", f"community hybrid D@D: Bb={SPGEMM_BB} "
-            f"min_density={SPGEMM_DENSITY} f32 store"))
+            f"min_density={SPGEMM_DENSITY} f32 store", units="FP32 units"))
     except Exception:
         failures.append("phase 3 (block_spgemm_window): "
                         + traceback.format_exc())

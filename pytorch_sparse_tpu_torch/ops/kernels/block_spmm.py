@@ -13,11 +13,20 @@ They replace the JAX package's block-dense route
 ``_scan_block_pass`` with the ``"sbc,sck->sbk"`` and ``"sbc,sbk->sck"``
 equations of ``_mxu_einsum_impl``, the block pass of ``hybrid_spmm_t``,
 and the ``d_ab`` half of ``_mxu_einsum_bwd``).  One CUDA source
-(``csrc/block_spmm.cu``) serves all three: the passes give each output
-block to one set of thread blocks, which walk that block's slots in
-schedule order and accumulate in fp32 registers; the gradient gives each
-slot's output block to its own thread blocks.  There is no segment-sum
-and no atomic.
+(``csrc/block_spmm.cu``) serves all three.  The forward and the gradient
+run on the tensor cores (TF32 ``wgmma`` with a 3xTF32 split for f32
+accuracy, operands brought by TMA): each CTA owns a tile of one output
+block and walks its slots (the forward) or K (the gradient) in a fixed
+order.  The transpose pass gives each output block to one set of thread
+blocks on the FP32 units, which walk that block's slots in schedule
+order.  There is no segment-sum and no atomic.
+
+TMA reads only rows of a multiple of 16 bytes, so the wrappers hand the
+kernels prepared operands: :func:`forward_operands` (a block store with
+padded rows where its rows are not a multiple of 16 bytes, and the
+operand padded to a multiple of 4 columns) and :func:`dblocks_operands`
+(P and Q padded to a multiple of 4 columns).  The padding is zeros, and
+is a copy only where a width needs it.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
 PyTorch version (:func:`block_spmm_plain`, :func:`block_spmm_t_plain`,
@@ -48,7 +57,8 @@ def _kernel_lib():
         lib.block_spmm.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.block_spmm.restype = ctypes.c_int
         lib.block_spmm_t.argtypes = [
@@ -61,7 +71,8 @@ def _kernel_lib():
         lib.block_spmm_dblocks.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.block_spmm_dblocks.restype = ctypes.c_int
         _lib = lib
@@ -81,6 +92,42 @@ def _check_args(blocks, slot_col, rb_ptr, xb) -> None:
     devs = {t.device for t in (blocks, slot_col, rb_ptr, xb)}
     if len(devs) != 1:
         raise ValueError("block_spmm operands lie on different devices")
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and at a 16-byte aligned address (TMA's rule for
+    the base of a tensor map), copied if it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _pad_columns(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with its last dimension padded with zeros to ``width``."""
+    extra = width - t.shape[-1]
+    return t if extra == 0 else torch.nn.functional.pad(t, (0, extra))
+
+
+def forward_operands(blocks: torch.Tensor, xb: torch.Tensor):
+    """The forward kernel's operands: ``(store, x4)``.
+
+    ``store`` is ``blocks`` as ``(nb+1, B, Bp)`` with ``Bp`` the block
+    width rounded up to 16 bytes (4 f32 or 8 bf16 columns), and ``x4`` is
+    ``xb`` as ``(C*B, K4)`` with ``K4`` = ``K`` rounded up to 4; the
+    columns past ``B`` and ``K`` are zero."""
+    Bp = _round_up(blocks.shape[1], 16 // blocks.element_size())
+    return (_aligned(_pad_columns(blocks, Bp)),
+            _aligned(_pad_columns(xb, _round_up(xb.shape[1], 4))))
+
+
+def dblocks_operands(p: torch.Tensor, q: torch.Tensor):
+    """The gradient kernel's operands: ``p`` and ``q`` with their columns
+    padded with zeros to a multiple of 4 (16-byte rows)."""
+    K4 = _round_up(p.shape[1], 4)
+    return _aligned(_pad_columns(p, K4)), _aligned(_pad_columns(q, K4))
 
 
 def block_spmm_plain(blocks: torch.Tensor, slot_col: torch.Tensor,
@@ -129,12 +176,17 @@ def block_spmm(blocks: torch.Tensor, slot_col: torch.Tensor,
             raise ValueError("block_spmm operands must be contiguous")
     B, K = blocks.shape[1], xb.shape[1]
     R = rb_ptr.shape[0] - 1
+    nb = slot_col.shape[0]
+    if nb == 0 or R == 0 or K == 0:  # no product to take
+        return torch.zeros((R * B, K), dtype=torch.float32, device=dev)
+    store, x4 = forward_operands(blocks, xb)
     out = torch.empty((R * B, K), dtype=torch.float32, device=dev)
     lib = _kernel_lib()
     rc = lib.block_spmm(
-        dev.index, _STORE_CODES[blocks.dtype], blocks.data_ptr(),
-        slot_col.data_ptr(), rb_ptr.data_ptr(), xb.data_ptr(),
-        out.data_ptr(), R, B, K, torch.cuda.current_stream(dev).cuda_stream)
+        dev.index, _STORE_CODES[blocks.dtype], store.data_ptr(),
+        slot_col.data_ptr(), rb_ptr.data_ptr(), x4.data_ptr(),
+        out.data_ptr(), store.shape[0] - 1, R, xb.shape[0] // B, B, K,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "block_spmm launch")
     block_spmm.launches += 1
     return out
@@ -289,11 +341,15 @@ def block_spmm_dblocks(p: torch.Tensor, q: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError("block_spmm_dblocks operands must be contiguous")
     nb, K = slot_row.shape[0], p.shape[1]
+    if nb == 0 or K == 0:  # no product to take
+        return torch.zeros((nb + 1, B, B), dtype=dtype, device=dev)
+    p4, q4 = dblocks_operands(p, q)
     out = torch.empty((nb + 1, B, B), dtype=dtype, device=dev)
     lib = _kernel_lib()
     rc = lib.block_spmm_dblocks(
-        dev.index, _STORE_CODES[dtype], p.data_ptr(), q.data_ptr(),
-        slot_row.data_ptr(), slot_col.data_ptr(), out.data_ptr(), nb, B, K,
+        dev.index, _STORE_CODES[dtype], p4.data_ptr(), q4.data_ptr(),
+        slot_row.data_ptr(), slot_col.data_ptr(), out.data_ptr(), nb,
+        p.shape[0] // B, q.shape[0] // B, B, K,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "block_spmm_dblocks launch")
     block_spmm_dblocks.launches += 1

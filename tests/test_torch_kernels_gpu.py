@@ -76,18 +76,31 @@ def test_kernels_match_plain_versions_on_gpu(K):
 
 
 @pytest.mark.gpu
-def test_block_kernel_masks_ragged_tiles():
+@pytest.mark.parametrize("B", [100, 128, 512])
+@pytest.mark.parametrize("K", [40, 47, 70, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_kernel_masks_ragged_tiles(B, K, dtype):
+    """K2 and K5 against their plain versions (1e-5 of max |ref|) at
+    ragged and whole block sizes (B=100 is not a multiple of the 128-row
+    tile) and odd widths (47, 70: the operand's rows are padded for TMA),
+    with f32 and bf16 stores, on 5 row blocks of which the last is ragged
+    and the second has no slot: its rows of the forward must be zero."""
     _need_gpu()
     rng = np.random.RandomState(20)
-    M, B_blk = 450, 100  # B not a multiple of the 128-row tile
+    M = 4 * B + B // 2
     row, col = rng.randint(0, M, 30_000), rng.randint(0, M, 30_000)
+    row = np.where((row >= B) & (row < 2 * B), row + B, row)
     val = rng.randn(30_000).astype(np.float32)
-    h = phyb.build_hybrid(row, col, val, M, M, B=B_blk, min_density=0.0,
-                          device="cuda")
-    x = torch.from_numpy(_x(21, 5 * B_blk, 70)).cuda()
-    assert rel_err(block_spmm(h.blocks, h.slot_col, h.rb_ptr, x),
-                   block_spmm_plain(h.blocks, h.slot_col, h.rb_ptr, x)) <= 1e-5
-    t_args = _t_args(h, M, 70, 25)
+    h = phyb.build_hybrid(row, col, val, M, M, B=B, min_density=0.0,
+                          device="cuda", block_dtype=dtype)
+    assert int(h.rb_ptr[1]) == int(h.rb_ptr[2])  # row block 1: no slot
+    C = h.cb_ptr.shape[0] - 1
+    x = torch.from_numpy(_x(21, C * B, K)).cuda()
+    got = block_spmm(h.blocks, h.slot_col, h.rb_ptr, x)
+    assert rel_err(got, block_spmm_plain(h.blocks, h.slot_col, h.rb_ptr,
+                                         x)) <= 1e-5
+    assert not bool(got[B:2 * B].any())
+    t_args = _t_args(h, M, K, 25)
     assert rel_err(block_spmm_t(h.blocks, *t_args),
                    block_spmm_t_plain(h.blocks, *t_args)) <= 1e-5
 
@@ -450,7 +463,8 @@ def _slots(rng, R, C, nb):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,K", [(128, 40), (128, 256), (100, 70), (512, 40)])
+@pytest.mark.parametrize("B,K", [(128, 40), (128, 256), (100, 70), (512, 40),
+                                 (512, 47)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_block_dblocks_matches_plain_on_gpu(B, K, dtype):
     """K5b against its plain version (1e-5 of max |ref| before the final
