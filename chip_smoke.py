@@ -14,9 +14,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ``csr_spmm`` on the ogbn-arxiv-scale uniform graph (M=169,343,
    E=1,166,243) at K=128, 256 and 40, with values and implicit ones, and
    on a matrix with empty rows; ``block_spmm`` and ``block_spmm_t`` on
-   the community hybrid graph with f32 and bf16 stores (``block_spmm``
-   also at K=47, phase 15's last width, and with the last row block's
-   slots taken away, a row block with no slot); ``edge_dot`` on
+   the community hybrid graph with f32 and bf16 stores, and each with
+   the f32 store at K=47, phase 15's last width, and with the last row
+   block's slots (``block_spmm``) or column block's slots
+   (``block_spmm_t``) taken away, a block with no slot; ``edge_dot`` on
    the uniform graph at K=128, 256 and 40, on the empty-rows matrix, and
    at K=128 on the community hybrid and Reddit-10% graphs of phase 4b.
    ``csr_spmm_minmax`` (min and max; ``out`` and ``arg`` must equal the
@@ -37,8 +38,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    in both backward orderings; ``block_spgemm_window`` on the dense-block
    x dense-block share (512x512 blocks of density 0.02, windows of 2048
    output blocks) of the community hybrid graph (f32 and bf16 stores; 8
-   sampled output blocks also against float64 host products) and of the
-   Reddit-10% graph.  ``random_walk`` at PyG's Node2Vec configuration
+   sampled output blocks also against float64 host products), of the
+   Reddit-10% graph, and of phase 8c's community graph in 100x100 blocks
+   with a bf16 store (rows of 200 bytes, padded once by the split).
+   ``random_walk`` at PyG's Node2Vec configuration
    (``examples/node2vec.py``, p = q = 1: 10 walks of 20 steps from every
    node of the uniform graph, 1,693,430 walks), on the uniform graph with
    every third row emptied and on a small graph with 200 rows of degree
@@ -86,6 +89,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    random rows; ``arg`` exactly), ``grad_x`` against a float64 host CSC
    walk through the argout and ``grad_v`` against a float64 host dot on
    4096 edges.
+4d. Value writes: the community hybrid graph over its own copy of the
+   values, written through ``.data`` (no version counter moves) and then
+   in place; after each, the routed ``spmm_sum`` and its ``grad_x``
+   against the host oracles on the new values, over the same structure
+   (a new store written on the card, no host rebuild).  Timed: a routed
+   call's check of the values with nothing written, and a write with its
+   refresh, beside K2's time.
 5. GCN inference at the width of OGB's ogbn-arxiv GCN (3 layers,
    128 -> 256 -> 256 -> 40) on the normalized uniform graph, held
    against the same weights run layer by layer through the plain CSR
@@ -265,6 +275,7 @@ GAT_WIDTHS = (128, 8, 8, 40)               # in, heads, per-head, out
 SPGEMM_SMALL = (23_296, 1_600_000, 30)     # nodes, draws, communities
 SPGEMM_BB, SPGEMM_DENSITY = 512, 0.02      # block split of the SpGEMM legs
 SPGEMM_WINDOW = 2048                       # output blocks per K10 window
+SPGEMM_RAGGED_BB = 100                     # K10's bf16 case of 200-byte rows
 ALIGNED_B = 512                            # phase 9's block size
 K5B_KS = (256, 40)                         # phase 9's aggregation widths
 K8B_HEADS = (8, 1, 3)
@@ -1813,6 +1824,34 @@ def main(argv=None) -> int:
                                 "not zero")
             del got, ref
         del x47, xb47
+        # K5 at K=47 (gb's rows padded to 48 columns for TMA), and with
+        # the last column block's slots taken away (a schedule of the
+        # other slots over a copy of their blocks): that column block
+        # must come out zero.
+        g47 = operand(torch, Mh, 47, 6, device)
+        gb47 = torch.cat([g47, g47.new_zeros((R * B - Mh, 47))])
+        cb_cut = h32.cb_ptr.clone()
+        cb_cut[-1] = cb_cut[-2]
+        keep = h32.order_t[:int(cb_cut[-1])].long()
+        blocks_cut = torch.cat([h32.blocks[keep],
+                                h32.blocks.new_zeros((1, B, B))])
+        for label, tr in [
+                ("f32 store K=47", (h32.blocks, h32.slot_row, h32.order_t,
+                                    h32.cb_ptr, gb47)),
+                ("f32 store K=128, the last column block with no slot",
+                 (blocks_cut, h32.slot_row[keep].contiguous(),
+                  torch.arange(keep.numel(), dtype=torch.int32,
+                               device=device), cb_cut, gb))]:
+            got = block_spmm_t(*tr)
+            ref = block_spmm_t_plain(*tr)
+            sync()
+            t_cases.append(kernel_case(torch, label, got, ref, failures,
+                                       "block_spmm_t"))
+            if label.endswith("no slot") and bool(got[-B:].any()):
+                failures.append("block_spmm_t: a column block with no slot "
+                                "is not zero")
+            del got, ref, tr
+        del g47, gb47, blocks_cut, keep
         shape = f"M={Mh} nb={nb} B={B} K={K} f32 store"
         kernels.append(kernel_entry(
             "block_spmm", "block_spmm.cu", "ops/kernels/hybrid.py:553",
@@ -1821,7 +1860,9 @@ def main(argv=None) -> int:
         kernels.append(kernel_entry(
             "block_spmm_t", "block_spmm.cu", "ops/kernels/hybrid.py:763",
             t_cases, "torch.bmm of the gathered transposed blocks + "
-            "index_add_", shape, units="FP32 units"))
+            "index_add_", shape,
+            units="tensor cores (TF32 wgmma, 3xTF32; the block transposed "
+            "by the consumers)"))
         del xb, gb
     except Exception:
         failures.append("phase 3 (kernels): " + traceback.format_exc())
@@ -2172,15 +2213,22 @@ def main(argv=None) -> int:
     # (for bf16, the rounded) operands.
     try:
         k10_cases = []
-        for label, A_ in [("community hybrid", A_h),
-                          ("community Reddit-10%", A_r)]:
-            blocks32, srow, scol = _block_split(A_, SPGEMM_BB,
-                                                SPGEMM_DENSITY)[:3]
+        for label, A_, Bb_ in [
+                ("community hybrid", A_h, SPGEMM_BB),
+                ("community Reddit-10%", A_r, SPGEMM_BB),
+                (f"8c's community graph, Bb={SPGEMM_RAGGED_BB}", A_s,
+                 SPGEMM_RAGGED_BB)]:
+            ragged = Bb_ != SPGEMM_BB
+            blocks32, srow, scol = _block_split(
+                A_, Bb_, SPGEMM_DENSITY,
+                torch.bfloat16 if ragged else None)[:3]
             bplan = block_spgemm_plan(srow, scol, srow, scol)
             ai, bi, oseg, n_tot = bplan[0], bplan[1], bplan[2], len(bplan[3])
             wins = [w[2:] for w in block_spgemm_windows(
                 bplan, SPGEMM_WINDOW, device)]
-            stores = [("f32 store", blocks32)]
+            # The ragged case: a bf16 store whose 100-value rows are not
+            # 16 bytes, padded once by the split.
+            stores = [("bf16 store" if ragged else "f32 store", blocks32)]
             if A_ is A_h:
                 stores.append(("bf16 store", blocks32.to(torch.bfloat16)))
             for store, blocks in stores:
@@ -2240,7 +2288,9 @@ def main(argv=None) -> int:
             "ops/kernels/block_spgemm.py:88", k10_cases,
             "torch.bmm over the gathered pairs (f32, TF32 off) + "
             "index_add_", f"community hybrid D@D: Bb={SPGEMM_BB} "
-            f"min_density={SPGEMM_DENSITY} f32 store", units="FP32 units"))
+            f"min_density={SPGEMM_DENSITY} f32 store",
+            units="tensor cores (TF32 wgmma, 3xTF32; one TF32 product for "
+            "bf16 stores)"))
     except Exception:
         failures.append("phase 3 (block_spgemm_window): "
                         + traceback.format_exc())
@@ -3204,6 +3254,64 @@ def main(argv=None) -> int:
                             f"{err_x:.3g}, grad_v err {err_v:.3g} (gate "
                             f"{GATE_F32}), finite {finite}")
     del mm_specs, mm_res
+
+    # ---- 4d. writes to a routed graph's values: checks and times ---------
+    # The community hybrid graph over its own copy of the values.  After a
+    # write through ``.data`` (which moves no version counter) and after
+    # an in-place write, the routed product, forward and backward, must
+    # match the host oracles on the new values, over the same structure
+    # (no host rebuild).  Timed: holding the view against the values on
+    # a routed call with nothing written (one compare on the card), and a
+    # write followed by the refresh (a new store written on the card),
+    # beside K2's time on the same graph.
+    try:
+        v_w = A_h.storage.value().detach().clone()
+        A_w = A_h.set_value(v_w, layout="coo")
+        x_w = x_h.detach().clone().requires_grad_(True)
+        gout_w = operand(torch, Mh, K, 21, device)
+        ts.spmm_sum(A_w, x_w.detach())  # builds the view
+        h_w = A_w.storage.hybrid(auto=False)
+        new_v = operand(torch, v_w.shape[0], 1, 22, device)[:, 0]
+        for how, write in (("through .data", lambda: v_w.data.copy_(new_v)),
+                           ("in place", lambda: v_w.mul_(-0.5))):
+            write()
+            out = ts.spmm_sum(A_w, x_w)
+            gx, = torch.autograd.grad(out, x_w, gout_w)
+            sync()
+            h_new = A_w.storage.hybrid(auto=False)
+            route, _ = route_of(A_w)
+            ok_o, err_o = oracle_check(A_w, x_w.detach(), out, GATE_F32)
+            ok_x, err_x = grad_x_oracle_check(A_w, gout_w, gx, GATE_F32)
+            same_structure = (h_new is not h_w
+                              and h_new.slot_row is h_w.slot_row
+                              and h_new.index is h_w.index)
+            record("value_write", write=how, route=route,
+                   oracle_rel_err=err_o, grad_x_rel_err=err_x,
+                   gate=GATE_F32, new_view_same_structure=same_structure)
+            if not (ok_o and ok_x and same_structure
+                    and route == "hybrid[torch.float32]"):
+                failures.append(f"value write {how}: route {route}, oracle "
+                                f"err {err_o:.3g}, grad_x err {err_x:.3g}, "
+                                f"same structure {same_structure}")
+            h_w = h_new
+            del out, gx
+        k2 = next(k_ for k_ in kernels if k_["name"] == "block_spmm")
+
+        def write_and_refresh():
+            v_w.data.neg_()
+            return A_w.storage.hybrid()
+
+        with torch.inference_mode():
+            record("value_write_cost", graph="community hybrid",
+                   nnz=A_w.nnz(), dense_edges=h_w.dense_nnz,
+                   check_ms=timer(lambda: A_w.storage.hybrid()),
+                   write_and_refresh_ms=timer(write_and_refresh),
+                   routed_forward_ms=timer(
+                       lambda: ts.spmm_sum(A_w, x_w.detach())),
+                   k2_ms=k2["ms"], card=card)
+        del A_w, v_w, x_w, gout_w, h_w, h_new, new_v
+    except Exception:
+        failures.append("phase 4d (value writes): " + traceback.format_exc())
 
     # ---- 5. GCN inference: checks and times ------------------------------
     with torch.inference_mode():

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``build/`` beside this file, at first use.  The library name carries a
-hash of the source and flags, so an edited source is rebuilt and a
-stale library is never loaded.  :func:`build` starts one ``nvcc`` per
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded.  :func:`build` starts one ``nvcc`` per
 source, all at once, and waits for them; :func:`load` returns the
 ``ctypes`` handle.  A missing ``nvcc`` or a failed build raises.
 """
@@ -45,6 +46,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (_SRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(_SRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return _BUILD_DIR / f"{name}-{digest[:12]}.so"
 

@@ -11,9 +11,14 @@ Counterpart of ``pytorch_sparse_tpu/ops/kernels/block_spgemm.py``.
   pairs ``p`` in ``[seg_ptr[o], seg_ptr[o+1])``.  It replaces the JAX
   function of the same name, which padded the pairs to a power-of-two
   number of chunks and walked them in a ``lax.scan`` with a segment-sum;
-  the CUDA kernel (``csrc/block_spgemm.cu``) gives each output tile to
-  one thread block, which walks that tile's pairs and accumulates in
-  fp32 registers: no padding, no scan, no atomic.
+  the CUDA kernel (``csrc/block_spgemm.cu``, on the tensor-core template
+  of ``csrc/block_tc.cuh``: TF32 ``wgmma`` fed by TMA, 3xTF32 for f32
+  stores) gives each output tile to one CTA, which walks that tile's
+  pairs and adds each 32-wide step into fp32 sums: no padding, no scan,
+  no atomic.  Block stores whose rows are not 16 bytes are read through
+  :func:`~.block_spmm.store_layout`: the ``_block_split`` path of
+  ``ops/spgemm.py`` pads them once, at the split; any other such store
+  is padded at each call.
 * :func:`block_spgemm_windows` cuts a plan into windows of at most
   ``max_out_blocks`` complete output blocks, and
   :func:`block_spgemm_stream` streams the whole block product through
@@ -35,6 +40,7 @@ import torch
 
 from ... import _build
 from ...utils.convert import INDEX_DTYPE, ptr2ind
+from .block_spmm import store_layout
 
 _lib = None
 _STORE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,7 +56,8 @@ def _kernel_lib():
         lib.block_spgemm_window.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         lib.block_spgemm_window.restype = ctypes.c_int
         _lib = lib
@@ -153,18 +160,22 @@ def block_spgemm_window(blocksA: torch.Tensor, blocksB: torch.Tensor,
     if blocksA.dtype not in _STORE_CODES:
         raise TypeError("the block_spgemm_window kernel takes float32 or "
                         "bfloat16 blocks")
-    for t in (blocksA, blocksB, a_idx, b_idx, seg_ptr):
+    for t in (a_idx, b_idx, seg_ptr):
         if not t.is_contiguous():
             raise ValueError("block_spgemm_window operands must be "
                              "contiguous")
     Bb = blocksA.shape[1]
+    if a_idx.shape[0] == 0 or n_out == 0:  # no product to take
+        return torch.zeros((n_out, Bb, Bb), dtype=torch.float32, device=dev)
+    sa = store_layout(blocksA)
+    sb = sa if blocksB is blocksA else store_layout(blocksB)
     out = torch.empty((n_out, Bb, Bb), dtype=torch.float32, device=dev)
     lib = _kernel_lib()
     rc = lib.block_spgemm_window(
-        dev.index, _STORE_CODES[blocksA.dtype], blocksA.data_ptr(),
-        blocksB.data_ptr(), a_idx.data_ptr(), b_idx.data_ptr(),
-        seg_ptr.data_ptr(), out.data_ptr(), n_out, Bb,
-        torch.cuda.current_stream(dev).cuda_stream)
+        dev.index, _STORE_CODES[blocksA.dtype], sa.data_ptr(),
+        sb.data_ptr(), a_idx.data_ptr(), b_idx.data_ptr(),
+        seg_ptr.data_ptr(), out.data_ptr(), sa.shape[0], sb.shape[0], n_out,
+        Bb, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "block_spgemm_window launch")
     block_spgemm_window.launches += 1
     return out

@@ -12,21 +12,23 @@ They replace the JAX package's block-dense route
 (``pytorch_sparse_tpu/ops/kernels/hybrid.py``: ``_block_pass``,
 ``_scan_block_pass`` with the ``"sbc,sck->sbk"`` and ``"sbc,sbk->sck"``
 equations of ``_mxu_einsum_impl``, the block pass of ``hybrid_spmm_t``,
-and the ``d_ab`` half of ``_mxu_einsum_bwd``).  One CUDA source
-(``csrc/block_spmm.cu``) serves all three.  The forward and the gradient
-run on the tensor cores (TF32 ``wgmma`` with a 3xTF32 split for f32
-accuracy, operands brought by TMA): each CTA owns a tile of one output
-block and walks its slots (the forward) or K (the gradient) in a fixed
-order.  The transpose pass gives each output block to one set of thread
-blocks on the FP32 units, which walk that block's slots in schedule
-order.  There is no segment-sum and no atomic.
+and the ``_mxu_einsum_bwd`` contractions).  One CUDA source
+(``csrc/block_spmm.cu``, on the template of ``csrc/block_tc.cuh``)
+serves all three, on the tensor cores: TF32 ``wgmma`` with a 3xTF32
+split for f32 accuracy, operands brought by TMA.  Each CTA owns a tile of
+one output block and walks its slots (the forward, the transpose) or K
+(the gradient) in a fixed order.  There is no segment-sum and no atomic.
 
-TMA reads only rows of a multiple of 16 bytes, so the wrappers hand the
-kernels prepared operands: :func:`forward_operands` (a block store with
-padded rows where its rows are not a multiple of 16 bytes, and the
-operand padded to a multiple of 4 columns) and :func:`dblocks_operands`
-(P and Q padded to a multiple of 4 columns).  The padding is zeros, and
-is a copy only where a width needs it.
+TMA reads only rows of a multiple of 16 bytes.  A block store whose rows
+are not (B not a multiple of 4 for f32, of 8 for bf16) is kept in a
+buffer with padded rows, ``(n, B, Bp)``, and handed around as its
+``(n, B, B)`` view: :func:`padded_store` allocates one, and the builders
+of ``hybrid.py`` and ``ops/spgemm.py`` make their stores so, once.
+:func:`store_layout` recovers the buffer from such a view without a
+copy (and pads any other store, a copy).  The operands are padded to a
+multiple of 4 columns: :func:`forward_operands` (store and ``x``; the
+transpose's ``g`` alike) and :func:`dblocks_operands` (P and Q).  The
+padding is zeros, and is a copy only where a width needs it.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
 PyTorch version (:func:`block_spmm_plain`, :func:`block_spmm_t_plain`,
@@ -65,7 +67,7 @@ def _kernel_lib():
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.block_spmm_t.restype = ctypes.c_int
         lib.block_spmm_dblocks.argtypes = [
@@ -111,15 +113,45 @@ def _pad_columns(t: torch.Tensor, width: int) -> torch.Tensor:
     return t if extra == 0 else torch.nn.functional.pad(t, (0, extra))
 
 
+def store_pitch(B: int, dtype: torch.dtype) -> int:
+    """The row pitch of a block store that TMA reads: ``B`` rounded up
+    to 16 bytes (4 f32 or 8 bf16 columns)."""
+    return _round_up(B, 128 // torch.finfo(dtype).bits)
+
+
+def padded_store(n: int, B: int, dtype: torch.dtype,
+                 device) -> torch.Tensor:
+    """A zero ``(n, B, B)`` block store whose rows lie
+    :func:`store_pitch` elements apart: a view of an ``(n, B, Bp)``
+    buffer when ``B`` rows are not 16 bytes, else the buffer itself."""
+    Bp = store_pitch(B, dtype)
+    buf = torch.zeros((n, B, Bp), dtype=dtype, device=device)
+    return buf if Bp == B else buf[:, :, :B]
+
+
+def store_layout(blocks: torch.Tensor) -> torch.Tensor:
+    """``blocks`` as the ``(n, B, Bp)`` store the kernels read, 16-byte
+    aligned with rows of a multiple of 16 bytes.  A view made by
+    :func:`padded_store` (or any store already so laid out) gives its
+    buffer without a copy, the padding as it is (the kernels never read
+    it); any other store is copied with zero padding."""
+    n, B = blocks.shape[0], blocks.shape[1]
+    Bp = store_pitch(B, blocks.dtype)
+    if (blocks.stride() == (B * Bp, Bp, 1) and blocks.data_ptr() % 16 == 0
+            and blocks.storage_offset() + n * B * Bp
+            <= blocks.untyped_storage().nbytes() // blocks.element_size()):
+        return blocks.as_strided((n, B, Bp), (B * Bp, Bp, 1))
+    return _aligned(_pad_columns(blocks, Bp))
+
+
 def forward_operands(blocks: torch.Tensor, xb: torch.Tensor):
     """The forward kernel's operands: ``(store, x4)``.
 
-    ``store`` is ``blocks`` as ``(nb+1, B, Bp)`` with ``Bp`` the block
-    width rounded up to 16 bytes (4 f32 or 8 bf16 columns), and ``x4`` is
-    ``xb`` as ``(C*B, K4)`` with ``K4`` = ``K`` rounded up to 4; the
-    columns past ``B`` and ``K`` are zero."""
-    Bp = _round_up(blocks.shape[1], 16 // blocks.element_size())
-    return (_aligned(_pad_columns(blocks, Bp)),
+    ``store`` is :func:`store_layout` of ``blocks``, ``(nb+1, B, Bp)``,
+    and ``x4`` is ``xb`` as ``(C*B, K4)`` with ``K4`` = ``K`` rounded up
+    to 4 and the columns past ``K`` zero.  The transpose pass takes its
+    ``g`` likewise."""
+    return (store_layout(blocks),
             _aligned(_pad_columns(xb, _round_up(xb.shape[1], 4))))
 
 
@@ -171,7 +203,7 @@ def block_spmm(blocks: torch.Tensor, slot_col: torch.Tensor,
     if blocks.dtype not in _STORE_CODES or xb.dtype != torch.float32:
         raise TypeError("the block_spmm kernel takes float32 or bfloat16 "
                         "blocks and a float32 operand")
-    for t in (blocks, slot_col, rb_ptr, xb):
+    for t in (slot_col, rb_ptr, xb):
         if not t.is_contiguous():
             raise ValueError("block_spmm operands must be contiguous")
     B, K = blocks.shape[1], xb.shape[1]
@@ -260,17 +292,21 @@ def block_spmm_t(blocks: torch.Tensor, slot_row: torch.Tensor,
     if blocks.dtype not in _STORE_CODES or gb.dtype != torch.float32:
         raise TypeError("the block_spmm_t kernel takes float32 or bfloat16 "
                         "blocks and a float32 operand")
-    for t in (blocks, slot_row, order_t, cb_ptr, gb):
+    for t in (slot_row, order_t, cb_ptr, gb):
         if not t.is_contiguous():
             raise ValueError("block_spmm_t operands must be contiguous")
     B, K = blocks.shape[1], gb.shape[1]
     C = cb_ptr.shape[0] - 1
+    nb, R = order_t.shape[0], gb.shape[0] // B
+    if nb == 0 or R == 0 or C == 0 or K == 0:  # no product to take
+        return torch.zeros((C * B, K), dtype=torch.float32, device=dev)
+    store, g4 = forward_operands(blocks, gb)
     out = torch.empty((C * B, K), dtype=torch.float32, device=dev)
     lib = _kernel_lib()
     rc = lib.block_spmm_t(
-        dev.index, _STORE_CODES[blocks.dtype], blocks.data_ptr(),
+        dev.index, _STORE_CODES[blocks.dtype], store.data_ptr(),
         slot_row.data_ptr(), order_t.data_ptr(), cb_ptr.data_ptr(),
-        gb.data_ptr(), out.data_ptr(), C, B, K,
+        g4.data_ptr(), out.data_ptr(), store.shape[0] - 1, R, C, B, K,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "block_spmm_t launch")
     block_spmm_t.launches += 1

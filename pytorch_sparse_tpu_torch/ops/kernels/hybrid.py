@@ -8,10 +8,13 @@ through the CSR kernel (``csr_spmm``).  When the whole matrix clears the
 densify threshold, :class:`DenseFormat` stores it as one dense matrix
 and the SpMM is one matrix product.
 
-Format (built host-side, then uploaded):
+Format (structure built host-side; values written on the device):
 
 * ``blocks``   (nb+1, B, B) dense block values in (row-block, col-block)
   order; slot ``nb`` is an all-zero block, kept as in the JAX format.
+  Where a row of B values is not 16 bytes, ``blocks`` is the (nb+1, B,
+  B) view of a buffer with padded rows (``block_spmm.padded_store``),
+  which the block kernels read without a copy.
 * ``slot_row`` / ``slot_col`` (nb,) int32 block coordinates of each
   slot, sorted by row-block; ``rb_ptr`` (R+1,) int32 points into them
   per row-block.
@@ -43,9 +46,20 @@ direction, and the store's gradient is the ``block_spmm_dblocks`` kernel
 (a matrix product for the dense store), run only when the store
 requires grad.  The remainder's CSR values get no gradient.
 
-The block and dense stores bake the build-time values; the storage
-layer drops the view on ``set_value`` and when the values are written
-in place.
+The block and dense stores hold copies of the values.  Each view keeps
+a :class:`StoreIndex` on its device (where every edge's value lands in
+the store and in the remainder) and ``source``, a copy of the values it
+holds.  :func:`refresh_plan` compares a storage's current values with
+``source`` (one pass over the values, bit for bit, on the device) and,
+where they differ, writes a new store from them there: duplicates added
+in edge order, a bf16 store rounded once, no host work.  So a write to
+``value`` of any kind, an optimizer step or a write through ``.data``,
+reaches the next routed product.  The storage layer calls it on every
+routed call, and drops the view on ``set_value``.  The host waits for
+the compare's result, so a routed call cannot be captured in a CUDA
+graph.  Autograd nodes save a view's store with ``save_for_backward``
+(and keep the rest of the view), so that it is freed after the
+backward and a refresh in a training loop holds one store at a time.
 
 The densify break-even (:func:`block_break_even`) and the router that
 uses it keep the JAX package's rule and constants, which were priced
@@ -55,6 +69,8 @@ graph alike, and have not been re-priced for this port's GPU.
 
 from __future__ import annotations
 
+import copy
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -63,7 +79,9 @@ from torch.autograd.function import once_differentiable
 
 from ...typing import DeviceLike, resolve_device
 from ...utils.host_sort import lexsort2, stable_argsort
-from .block_spmm import block_spmm, block_spmm_dblocks, block_spmm_t
+from .block_spmm import (
+    block_spmm, block_spmm_dblocks, block_spmm_t, padded_store, store_layout,
+    store_pitch)
 from .csr_spmm import csr_spmm
 
 # ----------------------------------------------------------------------
@@ -111,21 +129,22 @@ def get_store_budget() -> float:
     return _STORE_BUDGET
 
 
-def quantization_rel_err(values: Optional[np.ndarray]) -> float:
-    """RMS relative error of storing ``values`` in bf16.  ``None``
-    (implicit ones) is exact.  Rounds with ``torch.bfloat16``
-    (round-to-nearest-even)."""
+def quantization_rel_err(values) -> float:
+    """RMS relative error of storing ``values`` (a tensor on any device,
+    or numpy) in bf16.  ``None`` (implicit ones) is exact.  Rounds with
+    ``torch.bfloat16`` (round-to-nearest-even)."""
     if values is None:
         return 0.0
-    v = np.asarray(values)
-    if v.dtype.kind != "f" or v.size == 0:
+    t = (values.detach() if isinstance(values, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(values)))
+    if not t.is_floating_point() or t.numel() == 0:
         return 0.0
-    t = torch.from_numpy(np.ascontiguousarray(v))
-    d = (t.float() - t.to(torch.bfloat16).float()).numpy()
-    denom = float(np.sqrt(np.mean(np.square(v, dtype=np.float64))))
+    t = t.double()
+    denom = float(t.square().mean().sqrt())
     if denom == 0.0:
         return 0.0
-    return float(np.sqrt(np.mean(np.square(d, dtype=np.float64)))) / denom
+    d = t - t.to(torch.bfloat16).double()
+    return float(d.square().mean().sqrt()) / denom
 
 
 # The JAX package's break-even constants, measured on a TPU v5e
@@ -156,7 +175,8 @@ class HybridFormat:
     def __init__(self, blocks, slot_row, slot_col, rb_ptr, order_t, cb_ptr,
                  rest: _Csr, rest_t: _Csr, M: int, N: int, B: int,
                  dense_nnz: int, row_map: Optional[torch.Tensor] = None,
-                 M_pad: int = 0):
+                 M_pad: int = 0, index: Optional["StoreIndex"] = None,
+                 source: Optional[torch.Tensor] = None):
         self.blocks = blocks
         self.slot_row = slot_row
         self.slot_col = slot_col
@@ -169,6 +189,8 @@ class HybridFormat:
         self.dense_nnz = dense_nnz
         self.row_map = row_map
         self.M_pad = M_pad
+        self.index = index
+        self.source = source
 
     @property
     def nb(self) -> int:
@@ -184,64 +206,143 @@ class DenseFormat:
     """Whole-matrix dense store: the degenerate hybrid for matrices whose
     overall density clears the densify break-even."""
 
-    def __init__(self, dense, M: int, N: int):
+    def __init__(self, dense, M: int, N: int,
+                 index: Optional["StoreIndex"] = None,
+                 source: Optional[torch.Tensor] = None):
         self.dense = dense
         self.M, self.N = M, N
+        self.index = index
+        self.source = source
 
     def __repr__(self) -> str:
         return f"DenseFormat(M={self.M}, N={self.N}, dtype={self.dense.dtype})"
 
 
-# Host-to-device upload granule: the store is cast to its dtype on the
-# device, one chunk at a time, so no full-size f32 copy lands there.
-_UPLOAD_CHUNK_BYTES = 256 << 20
+def _idx(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
 
-def _upload(arr: np.ndarray, device: torch.device,
-            dtype: Optional[torch.dtype]) -> torch.Tensor:
-    src = torch.from_numpy(arr)
-    dtype = src.dtype if dtype is None else dtype
-    if device.type == "cpu":
-        return src.to(dtype)
-    out = torch.empty(tuple(arr.shape), dtype=dtype, device=device)
-    if arr.size == 0:
-        return out
-    step = max(1, _UPLOAD_CHUNK_BYTES // max(arr[:1].nbytes, 1))
-    for s in range(0, arr.shape[0], step):
-        out[s:s + step].copy_(src[s:s + step].to(device))
-    return out
+class StoreIndex:
+    """Where the values of a matrix's edges land in a view, kept on the
+    view's device so that new values are written there.
 
+    * ``first`` (n,) int32 edge ids: the first edge at each distinct
+      store position; ``pos`` (n,) those positions, ascending, in the
+      store's flat buffer (padded rows counted), int32 where they fit;
+    * ``dups``: one ``(runs, edges)`` pair a pass d = 1, 2, ...: the runs
+      (indices into ``first``) of more than d edges at one position, and
+      the edge at place d of each, so that duplicates add up left to
+      right in edge order;
+    * ``rest``/``rest_t``: the edge ids of a hybrid's CSR remainder in
+      its CSR and CSC orders, or None;
+    * ``n_edges``: the edges of the matrix; ``bf16_budget``: the store
+      budget under which the router chose a bf16 store for values that
+      fit it, or None (a new value is held to it again)."""
 
-def _sum_duplicates(flat: np.ndarray, vals: np.ndarray, size: int,
-                    dt) -> np.ndarray:
-    """Dense buffer of ``size`` with ``vals`` summed at ``flat``
-    (sort + reduceat; duplicates accumulate)."""
-    buf = np.zeros(size, dt)
-    if flat.size:
+    def __init__(self, flat: np.ndarray, edge_ids: np.ndarray,
+                 n_edges: int, device: torch.device):
         order = np.argsort(flat, kind="stable")
-        fs, vs = flat[order], vals[order]
-        starts = np.concatenate([[0], np.flatnonzero(np.diff(fs)) + 1])
-        buf[fs[starts]] = np.add.reduceat(vs, starts)
-    return buf
+        fs, ids = flat[order], edge_ids[order]
+        n = fs.size
+        starts = (np.flatnonzero(np.concatenate([[True], fs[1:] != fs[:-1]]))
+                  if n else np.zeros(0, np.int64))
+        self.first = _idx(ids[starts], device)
+        pos = fs[starts]
+        self.pos = torch.from_numpy(np.ascontiguousarray(
+            pos, np.int32 if pos.size == 0 or pos[-1] < 2**31
+            else np.int64)).to(device)
+        # Place of each edge in its run; passes d >= 1 take place d.
+        lens = np.diff(np.concatenate([starts, [n]]))
+        run = np.repeat(np.arange(starts.size), lens)
+        place = np.arange(n) - starts[run] if n else np.zeros(0, np.int64)
+        later = np.flatnonzero(place > 0)
+        later = later[np.argsort(place[later], kind="stable")]
+        bounds = np.searchsorted(place[later],
+                                 np.arange(1, int(lens.max(initial=1)) + 1))
+        self.dups = [(_idx(run[later[a:b]], device), _idx(ids[later[a:b]],
+                                                          device))
+                     for a, b in zip(bounds[:-1], bounds[1:])]
+        self.rest = self.rest_t = None
+        self.n_edges = int(n_edges)
+        self.bf16_budget: Optional[float] = None
+
+    def sums(self, values: Optional[torch.Tensor],
+             device: torch.device) -> torch.Tensor:
+        """The value at each of ``pos``: its edges' values added left to
+        right in float32 (float64 for float64 values); implicit ones when
+        ``values`` is None."""
+        if values is None:
+            values = torch.ones(self.n_edges, device=device)
+        v = values.detach()
+        acc = torch.promote_types(v.dtype, torch.float32)
+        out = v.index_select(0, self.first).to(acc)
+        for runs, edges in self.dups:
+            out.index_add_(0, runs, v.index_select(0, edges).to(acc))
+        return out
 
 
-def build_dense(row: np.ndarray, col: np.ndarray,
-                value: Optional[np.ndarray], M: int, N: int,
+def _edge_values(value, E: int, dev: torch.device) -> Optional[torch.Tensor]:
+    """A fresh floating copy of the edge values on ``dev`` (a numpy array
+    or a tensor), or None for implicit ones."""
+    if value is None:
+        return None
+    if isinstance(value, torch.Tensor):
+        v = value.detach().to(dev, copy=True)
+    else:
+        v = torch.from_numpy(np.array(value)).to(dev)
+    if v.shape[0] != E:
+        raise ValueError("`value` must have one entry per edge")
+    return v if v.is_floating_point() else v.float()
+
+
+def _acc_dtype(vals: Optional[torch.Tensor]) -> torch.dtype:
+    return (torch.float64 if vals is not None and vals.dtype == torch.float64
+            else torch.float32)
+
+
+def _dense_store(index: StoreIndex, vals, M: int, N: int,
+                 dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    dense = torch.zeros((M, N), dtype=dtype, device=dev)
+    dense.view(-1)[index.pos] = index.sums(vals, dev).to(dtype)
+    return dense
+
+
+def _block_store(index: StoreIndex, vals, n: int, B: int,
+                 dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """The ``(n, B, B)`` store of ``vals``, a :func:`padded_store` (whose
+    buffer :func:`store_layout` gives without a copy); ``index`` counts
+    positions in that buffer, rows :func:`store_pitch` apart."""
+    blocks = padded_store(n, B, dtype, dev)
+    store_layout(blocks).view(-1)[index.pos] = index.sums(vals, dev).to(dtype)
+    return blocks
+
+
+def _remainder(index: StoreIndex, vals, rest, rest_t, dev):
+    """The remainder's CSR and CSC with their values taken from
+    ``vals``."""
+    if rest is None:
+        return None, None
+    if vals is None:
+        vals = torch.ones(index.n_edges, device=dev)
+    return ((rest[0], rest[1], vals.index_select(0, index.rest)),
+            (rest_t[0], rest_t[1], vals.index_select(0, index.rest_t)))
+
+
+def build_dense(row: np.ndarray, col: np.ndarray, value, M: int, N: int,
                 dtype: Optional[torch.dtype] = None,
                 device: DeviceLike = None) -> DenseFormat:
     """The full (M, N) matrix (duplicate edges accumulate), stored in
-    ``dtype`` (default float32) on ``device``."""
+    ``dtype`` (default float32, float64 for float64 values) on
+    ``device``.  ``value`` (numpy or a tensor, in the edges' order, or
+    None for ones) is copied to the device and scattered there."""
     dev = resolve_device(device)
-    acc_dt = (np.float64 if value is not None
-              and np.asarray(value).dtype == np.float64 else np.float32)
-    v = np.ones(row.shape[0], acc_dt) if value is None else (
-        np.asarray(value).astype(acc_dt))
-    flat = np.asarray(row, np.int64) * N + np.asarray(col, np.int64)
-    dense = _sum_duplicates(flat, v, M * N, acc_dt).reshape(M, N)
-    store = torch.float32 if dtype is None else dtype
-    if acc_dt == np.float64 and dtype is None:
-        store = torch.float64
-    return DenseFormat(_upload(dense, dev, store), M, N)
+    row = np.asarray(row, np.int64)
+    vals = _edge_values(value, row.shape[0], dev)
+    flat = row * N + np.asarray(col, np.int64)
+    index = StoreIndex(flat, np.arange(flat.size), flat.size, dev)
+    store = _acc_dtype(vals) if dtype is None else dtype
+    return DenseFormat(_dense_store(index, vals, M, N, store, dev), M, N,
+                       index=index, source=vals)
 
 
 def dense_fraction(row: np.ndarray, col: np.ndarray, M: int, N: int,
@@ -264,24 +365,21 @@ def dense_fraction(row: np.ndarray, col: np.ndarray, M: int, N: int,
 
 
 def build_hybrid(
-    row: np.ndarray, col: np.ndarray, value: Optional[np.ndarray],
+    row: np.ndarray, col: np.ndarray, value,
     M: int, N: int, B: int = 512, min_density: Optional[float] = None,
     K_hint: int = 128, block_dtype: Optional[torch.dtype] = None,
     device: DeviceLike = None,
 ) -> HybridFormat:
     """Split edges into dense (B, B) blocks and a CSR remainder
-    (host-side), then upload.  ``block_dtype`` (default float32) is the
-    store dtype; bf16 is cast on the device."""
+    (host-side), then write the values on the device.  ``value`` (numpy
+    or a tensor, in the edges' order, or None for ones) is copied there;
+    ``block_dtype`` (default float32, float64 for float64 values) is the
+    store dtype, a bf16 store rounded once from the f32 sums."""
     dev = resolve_device(device)
     row = np.asarray(row, np.int64)
     col = np.asarray(col, np.int64)
     E = row.shape[0]
-    if value is None:
-        val = np.ones(E, np.float32)
-    else:
-        val = np.asarray(value)
-        if val.dtype.kind != "f":
-            val = val.astype(np.float32)
+    vals = _edge_values(value, E, dev)
     if min_density is None:
         min_density = block_break_even(B, K_hint)
 
@@ -302,45 +400,128 @@ def build_hybrid(
     nb = dense_keys.size
     occ_slot = np.full(occ_keys.size, nb, np.int64)
     occ_slot[occ_is_dense] = np.arange(nb)
-    blk_dt = np.float64 if val.dtype == np.float64 else np.float32
-    # Flat offsets (slot*B + r)*B + c reach past int32 at real sizes.
-    flat = (occ_slot[inv_key[dsel]] * B + row[dsel] % B) * B + col[dsel] % B
-    blocks = _sum_duplicates(flat, val[dsel].astype(blk_dt),
-                             (nb + 1) * B * B, blk_dt).reshape(nb + 1, B, B)
+    store = _acc_dtype(vals) if block_dtype is None else block_dtype
+    # Flat offsets (slot*B + r)*Bp + c, in the padded buffer, reach past
+    # int32 at real sizes.
+    flat = ((occ_slot[inv_key[dsel]] * B + row[dsel] % B)
+            * store_pitch(B, store) + col[dsel] % B)
+    index = StoreIndex(flat, dsel, E, dev)
     slot_row = dense_keys // C
     slot_col = dense_keys % C
     rb_ptr = np.searchsorted(slot_row, np.arange(R + 1))
     order_t = stable_argsort(slot_col)  # transpose schedule
     cb_ptr = np.searchsorted(slot_col[order_t], np.arange(C + 1))
 
-    def _idx(a):
-        return torch.from_numpy(a.astype(np.int32)).to(dev)
-
-    def _csr(ptr, idx, v):
-        return _idx(ptr), _idx(idx), torch.from_numpy(
-            np.ascontiguousarray(v)).to(dev)
-
     rest = rest_t = None
     rest_ids = np.flatnonzero(~dense_sel)
     if rest_ids.size:
         rr = rest_ids[stable_argsort(row[rest_ids])]
-        rows_r, cols_r, vals_r = row[rr], col[rr], val[rr]
-        rest = _csr(np.searchsorted(rows_r, np.arange(M + 1)), cols_r,
-                    vals_r)
+        rows_r, cols_r = row[rr], col[rr]
+        rest = (_idx(np.searchsorted(rows_r, np.arange(M + 1)), dev),
+                _idx(cols_r, dev))
         # The remainder's CSC, in (col, row) order as the JAX format's
         # ell_t: the grad_mat pass runs the CSR kernel over it.
         perm = lexsort2(cols_r, rows_r, M)
-        rest_t = _csr(np.searchsorted(cols_r[perm], np.arange(N + 1)),
-                      rows_r[perm], vals_r[perm])
+        rest_t = (_idx(np.searchsorted(cols_r[perm], np.arange(N + 1)), dev),
+                  _idx(rows_r[perm], dev))
+        index.rest, index.rest_t = _idx(rr, dev), _idx(rr[perm], dev)
+        rest, rest_t = _remainder(index, vals, rest, rest_t, dev)
 
-    store = block_dtype
-    if store is None:
-        store = torch.float64 if blk_dt == np.float64 else torch.float32
     return HybridFormat(
-        _upload(blocks, dev, store), _idx(slot_row), _idx(slot_col),
-        _idx(rb_ptr), _idx(order_t), _idx(cb_ptr), rest, rest_t, M, N, B,
-        int(dsel.size),
-    )
+        _block_store(index, vals, nb + 1, B, store, dev),
+        _idx(slot_row, dev),
+        _idx(slot_col, dev), _idx(rb_ptr, dev), _idx(order_t, dev),
+        _idx(cb_ptr, dev), rest, rest_t, M, N, B, int(dsel.size),
+        index=index, source=vals)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` hold the same words (NaNs and signed zeros
+    alike)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    word = _WORDS[a.element_size()]
+    return torch.equal(a.contiguous().view(word), b.contiguous().view(word))
+
+
+_WORDS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def store_of(h) -> Optional[torch.Tensor]:
+    """The store of a view: ``blocks`` or ``dense``."""
+    return h.dense if isinstance(h, DenseFormat) else h.blocks
+
+
+def with_store(h, store: Optional[torch.Tensor]):
+    """A shallow copy of the view ``h`` whose store is ``store``.  An
+    autograd node keeps ``with_store(h, None)`` and saves the store
+    itself, which autograd then frees after the backward."""
+    out = copy.copy(h)
+    if isinstance(h, DenseFormat):
+        out.dense = store
+    else:
+        out.blocks = store
+    return out
+
+
+def refresh_plan(h, value: Optional[torch.Tensor]):
+    """How the view ``h`` of a storage whose values are now ``value``
+    follows them.
+
+    * None: ``h`` serves them as it is.  It holds these values (one
+      compare on the device, whose result the host waits for), or its
+      store is its own trainable tensor (``requires_grad``), which is
+      never overwritten from ``value``.
+    * False: a bf16 store that the router chose because the values fit
+      the store budget no longer fits them; the router decides afresh.
+    * Else a function of no arguments that returns a new view over the
+      same structure, its store written on the device from ``value`` and
+      the remainder's values gathered from it.  The function holds no
+      reference to ``h``'s store: a caller that drops ``h`` first frees
+      that store before the new one is allocated, unless a pending
+      backward saved it, which then computes with the old values.
+
+    A view without a :class:`StoreIndex` cannot follow a write to
+    ``value`` and raises."""
+    store = store_of(h)
+    if store.requires_grad:
+        return None
+    index = getattr(h, "index", None)
+    if index is None:
+        raise RuntimeError(
+            f"{type(h).__name__} has no StoreIndex, so writes to the "
+            "storage's values cannot reach it; build it with build_hybrid, "
+            "build_dense or build_hybrid_from_tensor")
+    if value is None:
+        if h.source is None:
+            return None
+    elif h.source is not None and _same_bits(value, h.source):
+        return None
+    if value is not None and value.shape[0] != index.n_edges:
+        raise ValueError("the view was built for another number of edges")
+    if (index.bf16_budget is not None
+            and quantization_rel_err(value) > index.bf16_budget):
+        return False
+    shell = with_store(h, None)
+    shell.source = None
+    return functools.partial(_rewritten, shell, value, store.dtype,
+                             store.device)
+
+
+def _rewritten(shell, value: Optional[torch.Tensor], dtype: torch.dtype,
+               dev: torch.device):
+    """``shell``'s structure with a store of ``value`` in ``dtype``."""
+    index = shell.index
+    vals = None if value is None else value.detach().clone()
+    if isinstance(shell, DenseFormat):
+        return DenseFormat(
+            _dense_store(index, vals, shell.M, shell.N, dtype, dev),
+            shell.M, shell.N, index=index, source=vals)
+    rest, rest_t = _remainder(index, vals, shell.rest, shell.rest_t, dev)
+    h = with_store(shell, _block_store(index, vals, shell.nb + 1, shell.B,
+                                       dtype, dev))
+    h.rest, h.rest_t, h.source = rest, rest_t, vals
+    return h
 
 
 def _pad_to_blocks(a: torch.Tensor, B: int) -> torch.Tensor:
@@ -385,10 +566,9 @@ def build_hybrid_from_tensor(A, B: int = 512,
     part starts on a block boundary, so that communities fill whole
     blocks; :func:`hybrid_spmm` maps the operand and the result through
     ``row_map``."""
-    value = A.storage.value()
+    val = A.storage.value()
     row = A.storage.numpy_view("row")
     col = A.storage.numpy_view("col")
-    val = None if value is None else value.detach().cpu().numpy()
     M, N = A.sparse_sizes()
     kw = dict(B=B, min_density=min_density, K_hint=K_hint,
               block_dtype=block_dtype, device=A.device())
@@ -453,20 +633,21 @@ class _StoreProduct(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, store, x, transpose: bool):
-        ctx.h, ctx.transpose = h, transpose
-        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None)
+        ctx.h, ctx.transpose = with_store(h, None), transpose
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, store)
         return _product(h, x, transpose)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
-        x, = ctx.saved_tensors
+        x, store = ctx.saved_tensors
+        h = with_store(ctx.h, store)
         grad = grad.contiguous()  # autograd gives it the output's dtype
         grad_store = grad_x = None
         if ctx.needs_input_grad[1]:
-            grad_store = _store_grad(ctx.h, x, grad, ctx.transpose)
+            grad_store = _store_grad(h, x, grad, ctx.transpose)
         if ctx.needs_input_grad[2]:
-            grad_x = _product(ctx.h, grad, not ctx.transpose)
+            grad_x = _product(h, grad, not ctx.transpose)
         return None, grad_store, grad_x, None
 
 

@@ -52,7 +52,7 @@ from ..tensor import SparseTensor
 from ..utils.host_sort import stable_argsort
 from .kernels.csr_spmm import csr_spmm
 from .kernels.edge_dot import edge_dot
-from .kernels.hybrid import hybrid_spmm, hybrid_spmm_t
+from .kernels.hybrid import hybrid_spmm, hybrid_spmm_t, store_of, with_store
 from .kernels.plan_numeric import plan_numeric
 from .kernels.spmm_minmax import (
     csr_spmm_minmax, minmax_edge_dot, minmax_spmm_t,
@@ -113,26 +113,30 @@ class _CsrSum(torch.autograd.Function):
 class _RoutedSum(torch.autograd.Function):
     """``A @ mat`` on the hybrid or dense route.  ``value`` enters only
     so that autograd can give it its gradient: the block and dense
-    stores baked the same values at build time.  Backward: ``grad_mat``
+    stores hold the same values (``SparseStorage.hybrid`` refreshes
+    them).  Backward: ``grad_mat``
     is :func:`hybrid_spmm_t`."""
 
     @staticmethod
     def forward(ctx, st: SparseStorage, h, value, mat):
-        ctx.st, ctx.h = st, h
+        # The store is saved, not kept in ctx.h, so that autograd frees
+        # it after the backward.
+        ctx.st, ctx.h = st, with_store(h, None)
         ctx.save_for_backward(value,
-                              mat if ctx.needs_input_grad[2] else None)
+                              mat if ctx.needs_input_grad[2] else None,
+                              store_of(h))
         return hybrid_spmm(h, mat)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
-        value, mat = ctx.saved_tensors
+        value, mat, store = ctx.saved_tensors
         grad = grad.contiguous()  # autograd gives it the output's dtype
         grad_value = grad_mat = None
         if ctx.needs_input_grad[2]:
             grad_value = _grad_value(ctx.st, mat, grad, value)
         if ctx.needs_input_grad[3]:
-            grad_mat = hybrid_spmm_t(ctx.h, grad)
+            grad_mat = hybrid_spmm_t(with_store(ctx.h, store), grad)
         return None, None, grad_value, grad_mat
 
 

@@ -33,7 +33,8 @@ import torch
 from ..storage import _to_numpy
 from ..tensor import SparseTensor
 from .kernels.block_spgemm import block_spgemm_stream
-from .kernels.hybrid import _sum_duplicates, _upload
+from .kernels.block_spmm import padded_store, store_pitch
+from .kernels.hybrid import StoreIndex, _block_store
 from .matmul import _expansion_degrees, _Plan, check_pair
 
 # Most product terms the single-shot plan holds on the host (~64M terms,
@@ -199,8 +200,10 @@ def _block_split(T: SparseTensor, Bb: int, min_density: float,
 
     Returns ``(blocks, srow, scol, remainder, dense_nnz, mask)``:
     ``blocks`` a ``(nb, Bb, Bb)`` tensor on ``T``'s device (float32, or
-    ``block_dtype``; None when no block holds at least ``min_density *
-    Bb^2`` edges, and at least 2), the host block coordinates ``srow``/
+    ``block_dtype``, written there with rows padded to 16 bytes for
+    the block kernels, ``block_spmm.padded_store``; None when no block
+    holds at least ``min_density * Bb^2`` edges, and at least 2), the
+    host block coordinates ``srow``/
     ``scol``, the SparseTensor of every edge outside the blocks (``T``
     itself when there are none), the number of edges inside, and the
     host boolean ``mask`` of those edges in ``T``'s order.  Implicit
@@ -209,7 +212,6 @@ def _block_split(T: SparseTensor, Bb: int, min_density: float,
     row = T.storage.numpy_view("row")
     col = T.storage.numpy_view("col")
     v = T.storage.value()
-    val = None if v is None else _to_numpy(v)
     nbc = -(-N // Bb)
     bid = (row // Bb) * nbc + col // Bb
     ub, cnt = np.unique(bid, return_counts=True)
@@ -217,13 +219,15 @@ def _block_split(T: SparseTensor, Bb: int, min_density: float,
     if dense_ids.size == 0:
         return None, None, None, T, 0, np.zeros(row.shape[0], bool)
     mask = np.isin(bid, dense_ids)
-    slot = np.searchsorted(dense_ids, bid[mask])
-    # Flat offsets (slot*Bb + r)*Bb + c reach past int32 at real sizes.
-    flat = (slot * Bb + row[mask] % Bb) * Bb + col[mask] % Bb
-    w = (np.ones(flat.size, np.float32) if val is None
-         else val[mask].astype(np.float32))
-    blocks = _sum_duplicates(flat, w, dense_ids.size * Bb * Bb,
-                             np.float32).reshape(-1, Bb, Bb)
+    ids = np.flatnonzero(mask)
+    slot = np.searchsorted(dense_ids, bid[ids])
+    store = torch.float32 if block_dtype is None else block_dtype
+    # Flat offsets (slot*Bb + r)*Bp + c, in the padded buffer, reach past
+    # int32 at real sizes.
+    index = StoreIndex((slot * Bb + row[ids] % Bb) * store_pitch(Bb, store)
+                       + col[ids] % Bb, ids, row.shape[0], T.device())
+    blocks = _block_store(index, None if v is None else v.detach().float(),
+                          dense_ids.size, Bb, store, T.device())
     rest = ~mask
     remainder = SparseTensor(
         row=row[rest], col=col[rest],
@@ -231,8 +235,8 @@ def _block_split(T: SparseTensor, Bb: int, min_density: float,
             np.flatnonzero(rest)).to(v.device)],
         sparse_sizes=(M, N), is_sorted=True, trust_data=True,
         device=T.device())
-    return (_upload(blocks, T.device(), block_dtype), dense_ids // nbc,
-            dense_ids % nbc, remainder, int(mask.sum()), mask)
+    return (blocks, dense_ids // nbc, dense_ids % nbc, remainder,
+            int(ids.size), mask)
 
 
 def _dense_part(T: SparseTensor, mask: np.ndarray) -> SparseTensor:
@@ -288,7 +292,8 @@ def spspmm_stream_device(
         raise ValueError(f"the splits use block sizes {blkA.shape[1]} and "
                          f"{blkB.shape[1]}; the block product needs one")
     if blkA.dtype != blkB.dtype:
-        blkB = blkB.to(blkA.dtype)
+        blkB = padded_store(blkB.shape[0], blkB.shape[1], blkA.dtype,
+                            blkB.device).copy_(blkB)
     for rows, cols, cblk in block_spgemm_stream(
             blkA, srA, scA, blkB, srB, scB, max_out_blocks=max_out_blocks):
         yield ("blocks", rows, cols, cblk)

@@ -70,11 +70,12 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..ops.kernels.block_spmm import block_spmm, block_spmm_t
+from ..ops.kernels.block_spmm import block_spmm, block_spmm_t, store_pitch
 from ..ops.kernels.edge_dot import edge_dot
 from ..ops.kernels.hybrid import (
-    _ELL_NS_PER_NNZ, _HBM_BW, _dense_matmul, _pad_to_blocks, _upload,
-    block_break_even, get_store_budget, quantization_rel_err)
+    _ELL_NS_PER_NNZ, _HBM_BW, StoreIndex, _block_store, _dense_matmul,
+    _dense_store, _pad_to_blocks, block_break_even, get_store_budget,
+    quantization_rel_err)
 from ..ops.kernels.shard_spmm import NO_EDGE, shard_spmm, shard_spmm_minmax
 from ..ops.kernels.spmm_minmax import minmax_edge_dot, minmax_spmm_t
 from ..utils.convert import INDEX_DTYPE
@@ -306,10 +307,11 @@ def _build_frontier_dense(mode: str, worst: int, vals: np.ndarray, Mb: int,
         if t_dense >= t_ell:
             return None
     r, c, v = edges
-    slab = np.zeros(Mb * L, np.float32)
-    np.add.at(slab, r * L + c, v)
-    return _upload(slab.reshape(Mb, L), device,
-                   torch.bfloat16 if store_bf16 else torch.float32)
+    flat = np.asarray(r, np.int64) * L + np.asarray(c, np.int64)
+    index = StoreIndex(flat, np.arange(flat.size), flat.size, device)
+    return _dense_store(index, _f32(v, device), Mb, L,
+                        torch.bfloat16 if store_bf16 else torch.float32,
+                        device)
 
 
 def _worst(owner: np.ndarray, P: int) -> int:
@@ -391,12 +393,14 @@ class _RowShard:
         dmask = slot < own_keys.size
         dmask[dmask] = own_keys[slot[dmask]] == bkey[dmask]
         nb = own_keys.size
-        blocks = np.zeros((nb + 1) * B * B, np.float32)
+        dev = self.device
+        store = torch.bfloat16 if store_bf16 else torch.float32
         d = np.flatnonzero(dmask)
-        np.add.at(blocks, (slot[d] * B + r[d] % B) * B + c[d] % B, v[d])
+        index = StoreIndex((slot[d] * B + r[d] % B) * store_pitch(B, store)
+                           + c[d] % B, d, v.size, dev)
+        blocks = _block_store(index, _f32(v, dev), nb + 1, B, store, dev)
         slot_row, slot_col = own_keys // Cb, own_keys % Cb
         order_t = stable_argsort(slot_col)
-        dev = self.device
         rest = np.flatnonzero(~dmask)
         rest_g = rest_t = None
         if rest.size:
@@ -404,9 +408,7 @@ class _RowShard:
                                   dev)
             rest_t = _Csc(r[rest], c[rest], v[rest], Nb, dev).group(None)
         return _Hybrid(
-            _upload(blocks.reshape(nb + 1, B, B), dev,
-                    torch.bfloat16 if store_bf16 else torch.float32),
-            _idx(slot_row, dev), _idx(slot_col, dev),
+            blocks, _idx(slot_row, dev), _idx(slot_col, dev),
             _idx(np.searchsorted(slot_row, np.arange(Rb + 1)), dev),
             _idx(order_t, dev),
             _idx(np.searchsorted(slot_col[order_t], np.arange(Cb + 1)), dev),

@@ -210,7 +210,6 @@ class SparseStorage:
         self._csc_row = csc_row
         self._hybrid = None
         self._hybrid_skip = None
-        self._hybrid_stamp = None
         self._np_cache = {} if np_cache is None else dict(np_cache)
 
     @classmethod
@@ -383,31 +382,24 @@ class SparseStorage:
     # predict that densifying pays; uniform and sparse graphs record a
     # skip marker and stay on the CSR kernel.
     #
-    # The block and dense stores bake the values they were built from,
-    # so a view holds only while the value tensor is the same and has
-    # not been written in place (an optimizer step on a trainable
-    # value): ``hybrid`` then drops it and routes afresh.  Writes through
-    # ``.data`` bump no version counter and are not seen.
+    # The block and dense stores hold copies of the values.  Every
+    # request holds the view against the current values
+    # (``hybrid.refresh_plan``: one compare on the device, whose result
+    # the host waits for) and, after any write to them, an optimizer
+    # step or a write through ``.data``, serves a view whose store was
+    # written anew from them on the device; the structure is kept.
     # ------------------------------------------------------------------
-    def _value_stamp(self):
-        v = self._value
-        if v is None:
-            return None
-        # Inference tensors keep no version counter.
-        return v.data_ptr(), None if v.is_inference() else v._version
-
-    def _keep_hybrid(self, h):
-        self._hybrid = h
-        self._hybrid_stamp = self._value_stamp()
-        return h
-
     def has_hybrid(self) -> bool:
         return self._hybrid is not None
 
     def set_hybrid_(self, h) -> "SparseStorage":
         """Install a pre-built :class:`HybridFormat` or
-        :class:`DenseFormat` of the current values."""
-        self._keep_hybrid(h)
+        :class:`DenseFormat`, built from this storage's edges in CSR
+        order (``build_hybrid_from_tensor``, or ``build_hybrid`` over
+        ``numpy_view("row")``/``numpy_view("col")``).  A view whose store
+        requires grad is served as it is; any other follows the values
+        (:meth:`hybrid`)."""
+        self._hybrid = h
         self._hybrid_skip = None
         return self
 
@@ -421,14 +413,25 @@ class SparseStorage:
         The view is priced at the first call's K and cached; a prior
         skip is re-evaluated when a narrower K arrives.  The decision
         rule and its constants are the JAX package's, unchanged.  A view
-        whose values changed in place since it was built is dropped
-        first, so the router decides (and builds) again.
+        whose values have changed since it was built is refreshed from
+        the current ones on the device; only a bf16 store chosen for
+        values that no longer fit it is dropped, so the router decides
+        (and builds) again.
         """
         K = int(K_hint) if K_hint else 128
         if self._hybrid is not None:
-            if self._hybrid_stamp == self._value_stamp():
+            from .ops.kernels.hybrid import refresh_plan
+
+            plan = refresh_plan(self._hybrid, self._value)
+            if plan is None:
                 return self._hybrid
-            self._hybrid = self._hybrid_skip = None
+            # Drop the old view first, so that its store is freed before
+            # the new one is written (unless a pending backward holds it).
+            self._hybrid = None
+            if plan:
+                self._hybrid = plan()
+                return self._hybrid
+            self._hybrid_skip = None
         skip_K = self._hybrid_skip
         if not auto or (skip_K is not None and K >= skip_K):
             return None
@@ -449,10 +452,9 @@ class SparseStorage:
         )
 
         elem = 4 if value is None else max(4, value.element_size())
-        val = None if value is None else _to_numpy(value)
         # Store dtype: bf16 when the values' quantization error fits the
         # declared budget (default 0: lossless only, e.g. implicit ones).
-        q = quantization_rel_err(val) if elem <= 4 else float("inf")
+        q = quantization_rel_err(value) if elem <= 4 else float("inf")
         store_bf16 = q <= get_store_budget()
         s_elem = 2 if store_bf16 else elem
         be = block_break_even(B, K_hint=K, elem=s_elem,
@@ -462,7 +464,8 @@ class SparseStorage:
         if (E / (M * N) >= be
                 and M * N * s_elem <= self._DENSE_MAX_BYTES):
             return self._keep_hybrid(build_dense(
-                row, col, val, M, N, dtype=store_dtype, device=self.device))
+                row, col, value, M, N, dtype=store_dtype,
+                device=self.device), store_bf16)
         frac, nb = dense_fraction(row, col, M, N, B=B, min_density=be)
         if frac < self._HYBRID_MIN_FRACTION:
             self._hybrid_skip = K  # re-evaluate only for narrower K
@@ -476,8 +479,18 @@ class SparseStorage:
                 self._hybrid_skip = 0
                 return None
         return self._keep_hybrid(build_hybrid(
-            row, col, val, M, N, B=B, min_density=be,
-            block_dtype=store_dtype, device=self.device))
+            row, col, value, M, N, B=B, min_density=be,
+            block_dtype=store_dtype, device=self.device), store_bf16)
+
+    def _keep_hybrid(self, h, store_bf16: bool):
+        """Cache a view built by the router; a bf16 store chosen because
+        the values fit the store budget holds later values to it too."""
+        if store_bf16:
+            from .ops.kernels.hybrid import get_store_budget
+
+            h.index.bf16_budget = get_store_budget()
+        self._hybrid = h
+        return h
 
     # ------------------------------------------------------------------
     # Coalescing: dedupe sorted (row, col) pairs on the host; values that
@@ -577,7 +590,6 @@ class SparseStorage:
         )
         out._hybrid = self._hybrid
         out._hybrid_skip = self._hybrid_skip
-        out._hybrid_stamp = self._hybrid_stamp
         return out
 
     clone = copy

@@ -128,3 +128,96 @@ def test_widths_already_whole_are_not_copied():
     p, q = torch.zeros(1024, 256), torch.zeros(512, 256)
     p4, q4 = bs.dblocks_operands(p, q)
     assert p4.data_ptr() == p.data_ptr() and q4.data_ptr() == q.data_ptr()
+
+
+@pytest.mark.parametrize("B,dtype", [(100, torch.float32),
+                                     (100, torch.bfloat16),
+                                     (6, torch.float32), (6, torch.bfloat16),
+                                     (512, torch.bfloat16)])
+def test_padded_store_is_read_without_a_copy(B, dtype):
+    """A store made by ``padded_store`` is the ``(n, B, B)`` view of a
+    buffer whose rows are 16 bytes apart; ``store_layout`` (what K2, K5
+    and K10 read) gives that buffer back, and the prepared store of the
+    forward is it, not a copy.  Whatever lies in the padding, the
+    kernels' maps end at B columns."""
+    n = 5
+    blocks = bs.padded_store(n, B, dtype, "cpu")
+    Bp = bs.store_pitch(B, dtype)
+    assert Bp * blocks.element_size() % 16 == 0 and 0 <= Bp - B < 8
+    assert blocks.shape == (n, B, B) and blocks.stride() == (B * Bp, Bp, 1)
+    assert blocks.is_contiguous() == (Bp == B)
+    blocks.copy_(_ints(5, n, B, B).to(dtype))
+    buf = bs.store_layout(blocks)
+    assert buf.shape == (n, B, Bp) and buf.is_contiguous()
+    assert buf.data_ptr() == blocks.data_ptr()
+    assert torch.equal(buf[:, :, :B], blocks)
+    assert not bool(buf[:, :, B:].any())
+    store, _ = bs.forward_operands(blocks, _ints(6, 2 * B, 3))
+    assert store.data_ptr() == blocks.data_ptr()
+    # An unpadded store of the same values is copied once, padded.
+    flat = blocks.contiguous()
+    if Bp != B:
+        assert bs.store_layout(flat).data_ptr() != flat.data_ptr()
+    assert torch.equal(bs.store_layout(flat), buf)
+
+
+@pytest.mark.parametrize("B,dtype", [(100, torch.bfloat16), (6, torch.float32),
+                                     (16, torch.float32)])
+def test_builders_pad_the_store_once(B, dtype):
+    """The hybrid builder and the SpGEMM block split lay their stores
+    out padded at build, so no product copies them; the transpose pass
+    over the padded store equals it over a plain copy."""
+    from pytorch_sparse_tpu_torch import SparseTensor
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        block_spmm_t_plain, hybrid)
+    from pytorch_sparse_tpu_torch.ops.spgemm import _block_split
+
+    rng = np.random.RandomState(B)
+    M = 4 * B
+    row, col = rng.randint(0, M, 8 * M), rng.randint(0, M, 8 * M)
+    val = rng.randint(-3, 4, 8 * M).astype(np.float32)
+    h = hybrid.build_hybrid(row, col, val, M, M, B=B, min_density=0.0,
+                            block_dtype=dtype, device="cpu")
+    Bp = bs.store_pitch(B, dtype)
+    assert h.blocks.stride() == (B * Bp, Bp, 1)
+    assert bs.store_layout(h.blocks).data_ptr() == h.blocks.data_ptr()
+    g = _ints(7, (h.rb_ptr.shape[0] - 1) * B, 5)
+    t_args = (h.slot_row, h.order_t, h.cb_ptr, g)
+    assert torch.equal(block_spmm_t_plain(h.blocks, *t_args),
+                       block_spmm_t_plain(h.blocks.contiguous(), *t_args))
+    A = SparseTensor(row=row, col=col, value=val, sparse_sizes=(M, M),
+                     device="cpu")
+    blocks = _block_split(A, B, 0.0, dtype)[0]
+    assert blocks.dtype == dtype and blocks.stride() == (B * Bp, Bp, 1)
+    assert bs.store_layout(blocks).data_ptr() == blocks.data_ptr()
+
+
+@pytest.mark.parametrize("B,dtype,values", [
+    (100, torch.bfloat16, True), (6, torch.float32, True),
+    (16, torch.float32, False)])
+def test_block_split_sums_duplicates_on_the_device(B, dtype, values):
+    """The SpGEMM block split writes its store on the device: each
+    entry the sum of its edges (integers, so the sums are exact in any
+    order; implicit values count as ones), the padding zero."""
+    from pytorch_sparse_tpu_torch import SparseTensor
+    from pytorch_sparse_tpu_torch.ops.spgemm import _block_split
+
+    rng = np.random.RandomState(B + 1)
+    M = 3 * B
+    E = 6 * M
+    row, col = rng.randint(0, M, E), rng.randint(0, M, E)
+    row[:E // 3], col[:E // 3] = row[E // 3:2 * E // 3], col[E // 3:2 * E // 3]
+    val = rng.randint(-3, 4, E).astype(np.float32) if values else None
+    A = SparseTensor(row=row, col=col, value=val, sparse_sizes=(M, M),
+                     device="cpu")
+    blocks, srow, scol, _, n_in, mask = _block_split(A, B, 0.0, dtype)
+    r, c = A.storage.numpy_view("row"), A.storage.numpy_view("col")
+    w = (np.ones(E) if val is None
+         else A.storage.value().double().numpy())
+    key = (r // B) * (-(-M // B)) + c // B
+    slot = np.searchsorted(srow * (-(-M // B)) + scol, key)
+    want = np.zeros((srow.size, B, B))
+    np.add.at(want, (slot, r % B, c % B), w)
+    assert n_in == E and mask.all()
+    assert torch.equal(blocks.double(), torch.from_numpy(want))
+    assert not bool(bs.store_layout(blocks)[:, :, B:].any())

@@ -308,3 +308,18 @@ def test_dblocks_raises_off_cpu_without_a_kernel():
     with pytest.raises(ValueError):  # p is not whole blocks
         block_spmm_dblocks(torch.empty(5, 3), torch.empty(4, 3), cpu_i32,
                            cpu_i32, 4, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+@pytest.mark.parametrize("kind", ["normal", "ones", "empty", "zeros"])
+def test_quantization_rel_err_matches_jax(dtype, kind):
+    """The router's bf16 rule on numpy and on a tensor equals the JAX
+    package's (1e-12 relative: float64 means in another order)."""
+    rng = np.random.RandomState(3)
+    v = {"normal": rng.randn(5000), "ones": np.ones(100),
+         "empty": np.zeros(0), "zeros": np.zeros(10)}[kind].astype(dtype)
+    want = jhyb.quantization_rel_err(v)
+    for got in (phyb.quantization_rel_err(v),
+                phyb.quantization_rel_err(torch.from_numpy(v))):
+        assert abs(got - want) <= 1e-12 * max(want, 1e-30)
+    assert (want > 0) == (kind == "normal")

@@ -79,30 +79,46 @@ def test_kernels_match_plain_versions_on_gpu(K):
 @pytest.mark.parametrize("B", [100, 128, 512])
 @pytest.mark.parametrize("K", [40, 47, 70, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_block_kernel_masks_ragged_tiles(B, K, dtype):
+@pytest.mark.parametrize("integer", [False, True])
+def test_block_kernel_masks_ragged_tiles(B, K, dtype, integer):
     """K2 and K5 against their plain versions (1e-5 of max |ref|) at
     ragged and whole block sizes (B=100 is not a multiple of the 128-row
-    tile) and odd widths (47, 70: the operand's rows are padded for TMA),
-    with f32 and bf16 stores, on 5 row blocks of which the last is ragged
-    and the second has no slot: its rows of the forward must be zero."""
+    tile, and its bf16 rows are not 16 bytes: the store is padded at
+    build) and odd widths (47, 70: the operand's rows are padded for
+    TMA), with f32 and bf16 stores, on 5 row blocks of which the last is
+    ragged, the second has no slot (its rows of the forward must be zero)
+    and the third column block has none (its rows of the transpose must
+    be zero).  Integer-valued inputs make every sum exact, so that a
+    layout fault cannot hide in rounding: those must be equal."""
     _need_gpu()
     rng = np.random.RandomState(20)
     M = 4 * B + B // 2
     row, col = rng.randint(0, M, 30_000), rng.randint(0, M, 30_000)
     row = np.where((row >= B) & (row < 2 * B), row + B, row)
-    val = rng.randn(30_000).astype(np.float32)
+    col = np.where((col >= 2 * B) & (col < 3 * B), col + B, col)
+    val = (rng.randint(-3, 4, 30_000) if integer
+           else rng.randn(30_000)).astype(np.float32)
     h = phyb.build_hybrid(row, col, val, M, M, B=B, min_density=0.0,
                           device="cuda", block_dtype=dtype)
     assert int(h.rb_ptr[1]) == int(h.rb_ptr[2])  # row block 1: no slot
+    assert int(h.cb_ptr[2]) == int(h.cb_ptr[3])  # column block 2: none
     C = h.cb_ptr.shape[0] - 1
-    x = torch.from_numpy(_x(21, C * B, K)).cuda()
+    if integer:
+        x = torch.from_numpy(rng.randint(-3, 4, (C * B, K)).astype(
+            np.float32)).cuda()
+    else:
+        x = torch.from_numpy(_x(21, C * B, K)).cuda()
+    tol = 0.0 if integer else 1e-5
     got = block_spmm(h.blocks, h.slot_col, h.rb_ptr, x)
     assert rel_err(got, block_spmm_plain(h.blocks, h.slot_col, h.rb_ptr,
-                                         x)) <= 1e-5
+                                         x)) <= tol
     assert not bool(got[B:2 * B].any())
     t_args = _t_args(h, M, K, 25)
-    assert rel_err(block_spmm_t(h.blocks, *t_args),
-                   block_spmm_t_plain(h.blocks, *t_args)) <= 1e-5
+    if integer:
+        t_args = t_args[:3] + (t_args[3].round(),)
+    got = block_spmm_t(h.blocks, *t_args)
+    assert rel_err(got, block_spmm_t_plain(h.blocks, *t_args)) <= tol
+    assert not bool(got[2 * B:3 * B].any())
 
 
 @pytest.mark.gpu
@@ -143,6 +159,36 @@ def test_routed_grads_match_cpu(M, budget, route):
     finally:
         phyb.set_store_budget(0.0)
     for got, ref in zip(grads[1], grads[0]):
+        assert rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,route", [(8_192, "HybridFormat"),
+                                     (2_048, "DenseFormat")])
+def test_value_write_reaches_the_routed_product_on_gpu(M, route):
+    """After a write through ``.data`` (no version counter moves), the
+    routed product on the card, forward and ``grad_x``, equals the CPU's
+    on the new values, and the view keeps its structure."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.testing import community_graph
+
+    res = []
+    for dev in ("cpu", "cuda"):
+        A = community_graph(M, 300_000, n_comm=8, seed=1, equal_sizes=True,
+                            device=dev)
+        x = torch.from_numpy(_x(29, M, 64)).to(dev).requires_grad_(True)
+        gout = torch.from_numpy(_x(30, M, 64)).to(dev)
+        pts.spmm_sum(A, x.detach())
+        h0 = A.storage.hybrid(auto=False)
+        assert type(h0).__name__ == route
+        v = A.storage.value()
+        v.data.copy_(torch.from_numpy(_x(31, v.shape[0])).to(dev))
+        out = pts.spmm_sum(A, x)
+        h1 = A.storage.hybrid(auto=False)
+        assert h1 is not h0 and h1.index is h0.index
+        res.append([out.detach().cpu()] + [
+            g.cpu() for g in torch.autograd.grad(out, (x,), gout)])
+    for got, ref in zip(res[1], res[0]):
         assert rel_err(got, ref) <= 1e-5
 
 
@@ -410,14 +456,29 @@ def test_spspmm_and_grads_match_cpu(values):
 @pytest.mark.gpu
 @pytest.mark.parametrize("Bb", [100, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_block_spgemm_window_matches_plain_on_gpu(Bb, dtype):
-    """K10 against its plain version: uneven pair runs (3, 0, 1 and 5
-    pairs), a block size that is not a multiple of the 128-wide tile,
-    f32 and bf16 stores, and an empty window."""
+@pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("padded", [False, True])
+def test_block_spgemm_window_matches_plain_on_gpu(Bb, dtype, integer,
+                                                  padded):
+    """K10 against its plain version (1e-5 of max |ref|; integer-valued
+    blocks, whose sums are exact, equal): uneven pair runs (3, 0, 1 and 5
+    pairs, so output block 1 has no pair and must be zero), a block size
+    that is not a multiple of the 128-wide tile (and whose bf16 rows are
+    not 16 bytes), f32 and bf16 stores, stores laid out padded once
+    (``padded_store``, as the block split makes them) or plain (padded
+    by the wrapper), and an empty window."""
     _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels.block_spmm import padded_store
+
     rng = np.random.RandomState(43)
-    blocksA = torch.from_numpy(_x(44, 6, Bb, Bb)).cuda().to(dtype)
-    blocksB = torch.from_numpy(_x(45, 5, Bb, Bb)).cuda().to(dtype)
+
+    def store(seed, n):
+        vals = (np.random.RandomState(seed).randint(-3, 4, (n, Bb, Bb))
+                .astype(np.float32) if integer else _x(seed, n, Bb, Bb))
+        t = torch.from_numpy(vals).cuda().to(dtype)
+        return padded_store(n, Bb, dtype, "cuda").copy_(t) if padded else t
+
+    blocksA, blocksB = store(44, 6), store(45, 5)
     i32 = dict(dtype=torch.int32, device="cuda")
     a_idx = torch.from_numpy(rng.randint(0, 6, 9)).cuda().int()
     b_idx = torch.from_numpy(rng.randint(0, 5, 9)).cuda().int()
@@ -425,7 +486,8 @@ def test_block_spgemm_window_matches_plain_on_gpu(Bb, dtype):
     args = (blocksA, blocksB, a_idx, b_idx, seg_ptr, 4)
     got = block_spgemm_window(*args)
     assert got.dtype == torch.float32 and got.shape == (4, Bb, Bb)
-    assert rel_err(got, block_spgemm_window_plain(*args)) <= 1e-5
+    assert rel_err(got, block_spgemm_window_plain(*args)) <= (
+        0.0 if integer else 1e-5)
     assert bool((got[1] == 0).all())
     e = torch.zeros(0, **i32)
     assert block_spgemm_window(blocksA, blocksB, e, e,
