@@ -219,8 +219,20 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    gradient.  Every case is gathered to rank 0 and held against K1/K6
    and the float64 oracles as in phase 14; the layout's wire report (the
    DCN deduplication factor) and staged bytes are reported.
+17. The gather probe (``benchmarks.probe_vmem_gather.run``) on phase 3's
+   uniform graph and the community hybrid graph: ``smem_gather`` (K13a)
+   at T=2048 and 8, K=128, equal to ``index_select``; ``edge_scan_loop``
+   (K13b) at R=1, 8 and 40 within 1e-5 of the looped ``torch.cumsum``,
+   and its time a pass; ``tiled_spmm`` (K13c) on both graphs at K=128,
+   tiles of 1024, 512 and 256 rows, with values and implicit ones, and
+   as a control with no tile staged, and on a small graph with every
+   pair staged, each within 1e-5 of its plain version and equal to
+   ``csr_spmm`` bit for bit.  Each is timed by the
+   probe's ``device_time`` beside its bound and a library call
+   (``index_select``, ``cumsum``, cuSPARSE), K13c beside ``csr_spmm``;
+   the ``gather_probe`` line holds the verdict.
 
-The main path is phases 4 to 16, each driven once with every launch
+The main path is phases 4 to 17, each driven once with every launch
 count set to 0 just before it and read just after it.  Each phase must
 launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
 those and ``block_spmm_t`` and ``edge_dot``; 4c: ``csr_spmm_minmax``,
@@ -237,7 +249,8 @@ all in the second step, and no ``edge_dot``; 10: ``edge_softmax`` and
 ``minmax_edge_dot`` and ``minmax_spmm_t``, counted in the four worker
 processes, each rank-0 oracle's launches left out; 15: ``shard_spmm``,
 and ``block_spmm`` when the hybrid format is taken; 16: as 14, counted
-in the same processes from 0 at the phase's start), and the
+in the same processes from 0 at the phase's start; 17:
+``smem_gather``, ``edge_scan_loop`` and ``tiled_spmm``), and the
 ``kernels`` line reports each kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -1548,6 +1561,9 @@ def main(argv=None) -> int:
         _PRECISION_PARTS, HybridFormat, get_block_precision,
         set_store_budget)
     from pytorch_sparse_tpu_torch.testing import community_graph
+    from pytorch_sparse_tpu_torch.benchmarks import probe_vmem_gather
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        edge_scan_loop, smem_gather, tiled_spmm)
 
     device = torch.device("cuda")
     split_parts = _PRECISION_PARTS[get_block_precision()]
@@ -1563,7 +1579,9 @@ def main(argv=None) -> int:
                "block_spmm_dblocks": block_spmm_dblocks,
                "edge_softmax_bwd": edge_softmax_bwd,
                "random_walk": random_walk_kernel, "shard_spmm": shard_spmm,
-               "shard_spmm_minmax": shard_spmm_minmax}
+               "shard_spmm_minmax": shard_spmm_minmax,
+               "smem_gather": smem_gather, "edge_scan_loop": edge_scan_loop,
+               "tiled_spmm": tiled_spmm}
 
     def record(phase, **kw):
         results["phases"].setdefault(phase, []).append(kw)
@@ -2662,6 +2680,7 @@ def main(argv=None) -> int:
         "16 hierarchical and 2-D layouts on four ranks (gloo)": (
             "shard_spmm", "shard_spmm_minmax", "block_spmm", "block_spmm_t",
             "edge_dot", "minmax_edge_dot", "minmax_spmm_t"),
+        "17 gather probe": ("smem_gather", "edge_scan_loop", "tiled_spmm"),
     }
     phase_launches = {}
 
@@ -3136,6 +3155,10 @@ def main(argv=None) -> int:
                                "ranks (gloo)"][n] += c_
     dist15 = drive("15 DistGCN on products (world size 1, NCCL)",
                    dist_products)
+    # Phase 17: the gather probe's port on phase 3's uniform graph and
+    # the community hybrid graph.
+    probe17 = drive("17 gather probe", lambda: probe_vmem_gather.run(
+        device, graphs={"uniform": A_u, "community hybrid": A_h}))
     launches = {n: sum(c[n] for c in phase_launches.values())
                 for n in counted}
     record("main_path", seconds=round(time.time() - t0, 2),
@@ -4049,13 +4072,122 @@ def main(argv=None) -> int:
                 f"step loss err {h_loss_err}, grad errs {h_grad_errs}, "
                 f"launches {h['launches']}")
 
+    # ---- 17. the gather probe: checks, and its kernels' entries ----------
+    def check_probe17(r):
+        """The probe's own checks, and the ``kernels`` line entries of
+        K13a/K13b/K13c: its times beside each kernel's bound and a
+        library call on the same inputs, timed as the probe times
+        (``device_time``'s slope)."""
+        failures.extend(f"phase 17: {f_}" for f_ in r["failures"])
+        call_ms = probe_vmem_gather.call_ms
+        src = "benchmarks/probe_vmem_gather.py"
+
+        cases = []
+        for c, (idx, table) in zip(r["gather"],
+                                   probe_vmem_gather.gather_inputs(device)):
+            n, (Tt, Kt) = idx.shape[0], table.shape
+            t_b = (4 * n + 4 * Tt * Kt + 4 * n * Kt) / HBM_BYTES_PER_S
+            cases.append({
+                "case": f"T={Tt} K={Kt}", "max_abs_err": c["max_abs_err"],
+                "max_rel_err": c["max_rel_err"], "ok": c["exact"],
+                "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "library_ms": call_ms(
+                    lambda: torch.index_select(table, 0, idx), table, 3),
+                "bound_ms": t_b * 1e3, "bound_by": "bytes"})
+        entry_a = kernel_entry(
+            "smem_gather", "smem_gather.cu", "", cases,
+            "torch.index_select(table, 0, idx)",
+            f"idx ({probe_vmem_gather.T},) table ({probe_vmem_gather.T}, "
+            f"{K}) f32, also T=8")
+        entry_a["replaces"] = (f"{src}:45 _call <- :64 gather_kernel, "
+                               ":86 gather8_kernel")
+
+        h = probe_vmem_gather.scan_input(device)
+        Th, Kh = h.shape
+        cases = []
+        for c in r["scan"]:
+            t_b = 2 * 4 * Th * Kh / HBM_BYTES_PER_S
+            # A pass: h + i, the scan's adds and the accumulation.
+            t_f = 3 * c["R"] * Th * Kh / FP32_FLOPS_PER_S
+            case = {"case": f"R={c['R']}", "max_abs_err": c["max_abs_err"],
+                    "max_rel_err": c["max_rel_err"], "ok": c["ok"],
+                    "ms": c["ms"], "plain_ms": c.get("plain_ms"),
+                    "library_ms": None,
+                    "bound_ms": max(t_b, t_f) * 1e3,
+                    "bound_by": "bytes" if t_b >= t_f else "operations"}
+            if c["R"] == 1:  # one pass is one torch.cumsum
+                case["library_ms"] = call_ms(
+                    lambda: torch.cumsum(h, dim=0), h, 3)
+            cases.append(case)
+        entry_b = kernel_entry(
+            "edge_scan_loop", "smem_gather.cu", "", cases,
+            "torch.cumsum(h, dim=0) (R=1)", f"h ({Th}, {Kh}) f32, R=1, 8, 40")
+        entry_b["replaces"] = (f"{src}:45 _call <- :107 kernel of "
+                               "_loop_time, :136 c_body")
+        entry_b.update(us_per_pass=r["scan_us_per_pass"],
+                       ns_per_edge=r["scan_ns_per_edge"])
+
+        cases = []
+        for gname, A_ in (("uniform", A_u), ("community hybrid", A_h)):
+            rp, cl, vv = A_.csr()
+            M_, E_ = A_.sparse_size(0), A_.nnz()
+            ncols_ = int(torch.unique(cl).numel())
+            x_ = operand(torch, A_.sparse_size(1), K, 2, device)
+            csr_t = torch.sparse_csr_tensor(rp, cl, vv, A_.sparse_sizes())
+            lib_ms = call_ms(lambda: csr_t @ x_, x_, 3)
+            for c in r["tiled"]:
+                if c["graph"] != gname:
+                    continue
+                bound, by = csr_bounds(M_, E_, K, ncols_, c["values"])
+                cases.append({
+                    "case": f"{gname} T={c['T']} "
+                            f"{'values' if c['values'] else 'ones'}"
+                            f"{', no tile staged' if c['no_staging'] else ''}",
+                    "max_abs_err": c["max_abs_err"],
+                    "max_rel_err": c["max_rel_err"], "ok": c["ok"],
+                    "equal_csr_spmm": c["equal_k1"], "ms": c["ms"],
+                    "plain_ms": c["plain_ms"], "csr_spmm_ms": c["k1_ms"],
+                    "library_ms": lib_ms if c["values"] else None,
+                    "bound_ms": bound, "bound_by": by,
+                    **{k_: c[k_] for k_ in (
+                        "pairs", "staged_pairs", "staged_edge_share",
+                        "staged_bytes", "direct_gather_bytes",
+                        "k1_gather_bytes", "smem_bytes")}})
+            del x_, csr_t
+        for c in r["tiled"]:
+            if c["graph"] not in ("uniform", "community hybrid"):
+                cases.append({
+                    "case": f"{c['graph']} T={c['T']} "
+                            f"{'values' if c['values'] else 'ones'}",
+                    "max_abs_err": c["max_abs_err"],
+                    "max_rel_err": c["max_rel_err"], "ok": c["ok"],
+                    "equal_csr_spmm": c["equal_k1"],
+                    "staged_pairs": c["staged_pairs"]})
+        entry_c = kernel_entry(
+            "tiled_spmm", "smem_gather.cu", "", cases,
+            "torch.sparse_csr_tensor(...) @ x (cuSPARSE)",
+            f"M={Mu} E={Eu} K={K} f32 values, tiles of "
+            f"{probe_vmem_gather.TILES[0]} rows")
+        entry_c["replaces"] = (f"{src}:45 _call (the design judged at "
+                               ":1-25, a CSR SpMM gathering from on-chip "
+                               "tiles)")
+        for e_ in (entry_a, entry_b, entry_c):
+            e_["launches"] = launches[e_["name"]]
+            kernels.append(e_)
+        record("gather_probe", verdict=r["verdict"],
+               scan_us_per_pass=r["scan_us_per_pass"],
+               scan_ns_per_edge=r["scan_ns_per_edge"],
+               tiled=entry_c["cases"],
+               launches=phase_launches["17 gather probe"], card=card)
+
     for label, res, check in (("9", gcn9, check_gcn9),
                               ("10", gat10, check_gat10),
                               ("11", models11, check_models11),
                               ("12", saint12, check_saint12),
                               ("13", nb13, check_nb13),
                               ("14", p14, check_dist14),
-                              ("15", dist15, check_dist15)):
+                              ("15", dist15, check_dist15),
+                              ("17", probe17, check_probe17)):
         if res is not None:
             try:
                 check(res)

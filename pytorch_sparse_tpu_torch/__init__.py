@@ -20,7 +20,9 @@ over ``torch.distributed`` process groups with the all-gather, ring and
 halo SpMM schedules, also on a ``(data, feat)`` grid, and the
 hierarchical (DCN x ICI) schedule (hand-written shard kernels), forward
 and backward, and ``models.DistGCN`` on the flat and hierarchical
-layouts.
+layouts; and the JAX package's on-chip gather probe
+(``benchmarks.probe_vmem_gather``: hand-written shared-memory gather,
+edge-scan and tile-staged SpMM kernels, measured on the card).
 Names follow the JAX package.  Entry points run on ``cuda`` unless
 given ``device="cpu"``; the CPU runs each kernel's plain PyTorch
 version.

@@ -23,7 +23,7 @@ from torch import nn
 from ..ops.diag import fill_diag
 from ..ops.kernels.hybrid import DenseFormat, HybridFormat, hybrid_spmm
 from ..ops.matmul import spmm
-from ..segment import segment_sum
+from ..segment import segment_sum_csr
 from ..tensor import SparseTensor
 from ..typing import DeviceLike, resolve_device
 
@@ -36,7 +36,10 @@ def gcn_norm(adj: SparseTensor, add_self_loops: bool = True) -> SparseTensor:
     if add_self_loops:
         adj = fill_diag(adj, 1.0)
     row, col, value = adj.coo()
-    deg = segment_sum(value, row, adj.sparse_size(0))
+    # Summed in edge order, as the JAX package's sorted segment sum: an
+    # atomic sum's order varies on the card, and a degree whose terms
+    # nearly cancel takes that variation through ``rsqrt``.
+    deg = segment_sum_csr(value, adj.storage.rowptr())
     dinv = torch.where(deg > 0, torch.rsqrt(deg), torch.zeros_like(deg))
     value = dinv[row] * value * dinv[col]
     return adj.set_value(value, layout="coo")

@@ -21,6 +21,10 @@ from .random_walk import random_walk, random_walk_plain  # noqa
 from .shard_spmm import (  # noqa
     shard_spmm, shard_spmm_minmax, shard_spmm_minmax_plain, shard_spmm_plain,
 )
+from .smem_gather import (  # noqa
+    TilePlan, edge_scan_loop, edge_scan_loop_plain, smem_gather,
+    smem_gather_plain, tiled_spmm, tiled_spmm_plain, tiled_spmm_plan,
+)
 from .spmm_minmax import (  # noqa
     csr_spmm_minmax, csr_spmm_minmax_plain, minmax_edge_dot,
     minmax_edge_dot_plain, minmax_spmm_t, minmax_spmm_t_plain,

@@ -754,3 +754,151 @@ def test_random_walk_rejects_out_of_range_inputs_on_gpu():
     pts.random_walk(A, torch.arange(3), 4)
     torch.cuda.synchronize()
     assert random_walk.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,K", [(2048, 128), (8, 128), (100, 40), (5, 1)])
+def test_smem_gather_matches_plain_on_gpu(T, K):
+    """K13a against ``index_select``, exactly, and counted."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        smem_gather, smem_gather_plain)
+
+    rng = np.random.RandomState(60 + T)
+    table = torch.from_numpy(_x(61, T, K)).cuda()
+    idx = torch.from_numpy(rng.randint(0, T, 3 * T).astype(np.int32)).cuda()
+    before = smem_gather.launches
+    got = smem_gather(idx, table)
+    torch.cuda.synchronize()
+    assert smem_gather.launches == before + 1
+    assert torch.equal(got, smem_gather_plain(idx, table))
+    with pytest.raises(TypeError, match="float32"):
+        smem_gather(idx, table.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,K", [(2048, 128), (129, 33), (1, 5)])
+@pytest.mark.parametrize("R", [1, 3, 8])
+def test_edge_scan_loop_matches_plain_on_gpu(T, K, R):
+    """K13b against the loop of ``torch.cumsum``: the scan adds in
+    another order, within 1e-5 of max |ref|."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        edge_scan_loop, edge_scan_loop_plain)
+
+    h = torch.from_numpy(_x(62 + R, T, K)).cuda()
+    before = edge_scan_loop.launches
+    got = edge_scan_loop(h, R)
+    torch.cuda.synchronize()
+    assert edge_scan_loop.launches == before + 1
+    assert rel_err(got, edge_scan_loop_plain(h, R)) <= 1e-5
+    with pytest.raises(ValueError, match="at least 1"):
+        edge_scan_loop(h, 0)
+
+
+def _tiled_case(kind, M, E, seed):
+    """A CSR matrix on the card: ``uniform`` (column-sorted rows),
+    ``community`` (most edges near the diagonal), or ``unsorted`` (the
+    uniform rows' columns shuffled within each row)."""
+    from pytorch_sparse_tpu_torch.testing import community_graph
+
+    rng = np.random.RandomState(seed)
+    if kind == "community":
+        return community_graph(M, E, n_comm=6, seed=seed, equal_sizes=True,
+                               device="cuda").csr()
+    row = np.sort(rng.randint(0, M, E))
+    col = rng.randint(0, M, E)
+    order = np.lexsort((col, row))
+    row, col = row[order], col[order]
+    if kind == "unsorted":
+        for r in range(M):
+            a, b = np.searchsorted(row, [r, r + 1])
+            col[a:b] = rng.permutation(col[a:b])
+    rowptr = np.concatenate([[0], np.cumsum(np.bincount(row, minlength=M))])
+    as_i32 = lambda a: torch.from_numpy(a.astype(np.int32)).cuda()  # noqa
+    return (as_i32(rowptr), as_i32(col),
+            torch.from_numpy(rng.randn(E).astype(np.float32)).cuda())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["uniform", "community", "unsorted"])
+@pytest.mark.parametrize("T,stage_min", [(64, 0), (512, None), (256, 10**9)])
+@pytest.mark.parametrize("K", [128, 40])
+def test_tiled_spmm_matches_plain_and_csr_on_gpu(kind, T, stage_min, K):
+    """K13c against its plain version (within 1e-5 of max |ref|) and
+    the CSR kernel K1 (bit for bit: both sum each output in CSR order
+    with one fmaf chain), with values and implicit ones, every pair,
+    some or no pair staged, and columns out of order within rows."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        tiled_spmm, tiled_spmm_plain, tiled_spmm_plan)
+
+    M = 1500
+    rowptr, col, val = _tiled_case(kind, M, 30_000, 63)
+    x = torch.from_numpy(_x(64, M, K)).cuda()
+    plan = tiled_spmm_plan(rowptr, col, M, T=T, stage_min=stage_min)
+    if stage_min == 0:  # 24 tiles of 64 rows fit in shared memory
+        assert plan.n_staged == plan.n_pairs > 0
+    for v in (val, None):
+        before = tiled_spmm.launches
+        got = tiled_spmm(rowptr, col, v, x, plan)
+        torch.cuda.synchronize()
+        assert tiled_spmm.launches == before + 1
+        assert torch.equal(got, csr_spmm(rowptr, col, v, x))
+        assert rel_err(got, tiled_spmm_plain(rowptr, col, v, x, plan)) \
+            <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(), (3,)])
+def test_segment_sum_csr_on_gpu_equals_cpu_bits(shape):
+    """The card's ordered segment sum equals the CPU's bit for bit, with
+    empty segments, where ``index_add_`` on the card may not."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.segment import segment_sum_csr
+
+    rng = np.random.RandomState(65)
+    counts = rng.randint(0, 40, 2000)
+    counts[::7] = 0
+    rowptr = torch.from_numpy(
+        np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    data = torch.from_numpy(
+        (rng.randn(int(counts.sum()), *shape) * 1e3).astype(np.float32))
+    before = csr_spmm.launches
+    got = segment_sum_csr(data.cuda(), rowptr.cuda())
+    torch.cuda.synchronize()
+    assert csr_spmm.launches == before + 1
+    assert torch.equal(got.cpu(), segment_sum_csr(data, rowptr))
+
+
+@pytest.mark.gpu
+def test_gcn_hybrid_train_step_is_deterministic_on_gpu():
+    """The graph and step of ``test_model_train_step_matches_cpu
+    [gcn_hybrid]`` (N(0, 1) edge values, whose degrees may nearly
+    cancel), 20 times on the card from a fresh graph: the loss and every
+    gradient are the same bits each time."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.models import GCN, gcn_norm
+    from pytorch_sparse_tpu_torch.testing import community_graph
+
+    M = 4_000
+    x = torch.from_numpy(_x(53, M, 32)).cuda()
+    labels = torch.from_numpy(
+        np.random.RandomState(54).randint(0, 5, M)).cuda()
+    runs = []
+    for _ in range(20):
+        A = community_graph(M, 120_000, n_comm=8, seed=2, equal_sizes=True,
+                            device="cuda")
+        adj = phyb.build_hybrid_from_tensor(
+            gcn_norm(A), B=256, min_density=0.02,
+            partptr=np.linspace(0, M, 9).astype(np.int64))
+        adj.blocks.requires_grad_(True)
+        model = GCN(32, 48, 5, num_layers=3,
+                    generator=torch.Generator().manual_seed(5), device="cuda")
+        loss = model.loss(adj, x, labels)
+        loss.backward()
+        runs.append([loss.detach().cpu()] + [
+            t.grad.cpu() for t in list(model.parameters()) + [adj.blocks]])
+    for run in runs[1:]:
+        for got, ref in zip(run, runs[0]):
+            assert torch.equal(got, ref)
