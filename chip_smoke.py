@@ -12,8 +12,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    csrc`` for ``sm_90a`` (one process per source, in parallel).
 3. Kernels against their plain PyTorch versions on the card:
    ``csr_spmm`` on the ogbn-arxiv-scale uniform graph (M=169,343,
-   E=1,166,243) at K=128, 256 and 40, with values and implicit ones, and
-   on a matrix with empty rows; ``block_spmm`` and ``block_spmm_t`` on
+   E=1,166,243) at K=128, 256, 40, 8 and 1, with values and implicit
+   ones, on a matrix with empty rows, and on the community hybrid graph
+   at K=128 (each case names the instance of the CSR walk that ran); ``block_spmm`` and ``block_spmm_t`` on
    the community hybrid graph with f32 and bf16 stores, and each with
    the f32 store at K=47, phase 15's last width, and with the last row
    block's slots (``block_spmm``) or column block's slots
@@ -770,6 +771,13 @@ def kernel_case(torch, label, got, ref, failures, name, **timing):
         failures.append(f"{name} {label}: rel err {rel_e:.3g}")
     return {"case": label, "max_abs_err": abs_e, "max_rel_err": rel_e,
             "ok": ok, **timing}
+
+
+def last_instance(fn):
+    """The instance of the CSR walk that the wrapper ``fn`` (``csr_spmm``
+    or ``shard_spmm``) last launched, as a dict; None before a launch."""
+    inst = fn.last_instance
+    return None if inst is None else inst._asdict()
 
 
 def kernel_entry(name, source, replaces, cases, library, shape, units=None):
@@ -1681,29 +1689,46 @@ def main(argv=None) -> int:
             sparse_sizes=(Mu, Mu), is_sorted=True, trust_data=True,
             device=device)
         cases = []
-        for label, (rp, cl, vv), k in [
-            ("values K=128", (rowptr, col, val), 128),
-            ("values K=256", (rowptr, col, val), 256),
-            ("values K=40", (rowptr, col, val), 40),
-            ("ones K=128", (rowptr, col, None), 128),
-            ("ones K=40", (rowptr, col, None), 40),
-            ("empty rows K=40", A_e.csr(), 40),
+        # Timed: K=128 on the uniform graph (the head case) and on the
+        # community hybrid graph (rows of about 67 edges, mostly in L2),
+        # K=8 (GAT's heads) and K=1 (gcn_norm's degree), the widths at
+        # which the walk puts several rows in a warp.
+        A_hc = A_h.csr()
+        ncols_h = int(torch.unique(A_hc[1]).numel())
+        for label, (rp, cl, vv), k, n_, nc_, timed in [
+            ("values K=128", (rowptr, col, val), 128, Mu, ncols, True),
+            ("values K=256", (rowptr, col, val), 256, Mu, ncols, False),
+            ("values K=40", (rowptr, col, val), 40, Mu, ncols, False),
+            ("values K=8", (rowptr, col, val), 8, Mu, ncols, True),
+            ("values K=1", (rowptr, col, val), 1, Mu, ncols, True),
+            ("ones K=128", (rowptr, col, None), 128, Mu, ncols, False),
+            ("ones K=40", (rowptr, col, None), 40, Mu, ncols, False),
+            ("empty rows K=40", A_e.csr(), 40, Mu, ncols, False),
+            ("community hybrid values K=128", A_hc, 128, Mh, ncols_h, True),
         ]:
-            x = operand(torch, Mu, k, 2, device)
+            x = operand(torch, n_, k, 2, device)
             got = csr_spmm(rp, cl, vv, x)
+            inst = last_instance(csr_spmm)
             ref = csr_spmm_plain(rp, cl, vv, x)
             sync()
             timing = {}
-            if label == "values K=128":
-                csr_t = torch.sparse_csr_tensor(rp, cl, vv, (Mu, Mu))
+            if timed:
+                csr_t = torch.sparse_csr_tensor(rp, cl, vv, (n_, n_))
+                E_ = cl.shape[0]
                 timing = {
                     "ms": timer(lambda: csr_spmm(rp, cl, vv, x)),
-                    "plain_ms": timer(lambda: csr_spmm_plain(rp, cl, vv, x)),
+                    "plain_ms": (plain_timer if n_ == Mh else timer)(
+                        lambda: csr_spmm_plain(rp, cl, vv, x)),
                     "library_ms": timer(lambda: csr_t @ x)}
                 timing["bound_ms"], timing["bound_by"] = csr_bounds(
-                    Mu, Eu, k, ncols, True)
+                    n_, E_, k, nc_, vv is not None)
+                timing["bound_ms_row_per_edge"] = shard_row_per_edge_ms(
+                    n_, E_, k, n_, False)
+                timing["rows"], timing["edges"] = n_, E_
+                del csr_t
             cases.append(kernel_case(torch, label, got, ref, failures,
-                                     "csr_spmm", **timing))
+                                     "csr_spmm", instance=inst, **timing))
+            del got, ref, x
         kernels.append(kernel_entry(
             "csr_spmm", "csr_spmm.cu", "ops/kernels/ell.py:309", cases,
             "torch.sparse_csr_tensor(...) @ x",
@@ -2411,9 +2436,11 @@ def main(argv=None) -> int:
                         return fn(*sargs, **kw)
                     return fn(*sargs, out=acc.clone(), row_map=kw["row_map"])
 
-                got, ref = run(shard_spmm), run(shard_spmm_plain)
+                got = run(shard_spmm)
+                inst = last_instance(shard_spmm)
+                ref = run(shard_spmm_plain)
                 sync()
-                timing = {}
+                timing = {"instance": inst}
                 if timed and label != "ring group q=1, accumulate":
                     A_csr = csr_of(grp, n_cols)
                     R_, E_ = grp.rowptr.shape[0] - 1, grp.nnz
@@ -2442,8 +2469,8 @@ def main(argv=None) -> int:
 
                         def plain(sargs=sargs):
                             return shard_spmm_plain(*sargs)
-                    timing = {"ms": timer(kernel), "plain_ms": timer(plain),
-                              "library_ms": timer(library)}
+                    timing.update(ms=timer(kernel), plain_ms=timer(plain),
+                                  library_ms=timer(library))
                     timing["bound_ms"], timing["bound_by"] = shard_bounds(
                         R_, E_, k, n_read(grp), R_, True, acc_,
                         grp.row_map is not None)
@@ -2524,6 +2551,7 @@ def main(argv=None) -> int:
                 sargs = (grp.rowptr, grp.col, grp.value, buf)
                 got = shard_spmm(*sargs, out=base.clone(),
                                  row_map=grp.row_map)
+                inst = last_instance(shard_spmm)
                 ref = shard_spmm_plain(*sargs, out=base.clone(),
                                        row_map=grp.row_map)
                 sync()
@@ -2531,6 +2559,7 @@ def main(argv=None) -> int:
                 out_t, rm_l = base.clone(), grp.row_map.long()
                 A_csr = csr_of(grp, ht0.sizes[i])
                 timing = {
+                    "instance": inst,
                     "ms": timer(lambda: shard_spmm(
                         *sargs, out=out_t, row_map=grp.row_map)),
                     "plain_ms": timer(lambda: shard_spmm_plain(

@@ -39,11 +39,15 @@
 //     which group or ring step found a value first.  A NaN compares
 //     false, so it neither replaces nor is replaced.
 //
-// What bounds it on an H100, for both kernels: device-memory bytes.  Each
-// edge reads one K-wide row of buf (4K bytes) plus its column index and
-// value; a flop or a compare per element is far below the card's rate.
+// K11a is the CSR walk of csr_walk.cuh (shared with csr_spmm.cu), which
+// states what bounds it and its design: 16-byte loads, several edges' rows
+// in flight, sub-warp rows at narrow widths.  Accumulation follows JAX's
+// order (above); row_map and a rowptr slice are the walk's own arguments.
 //
-// Design, after csr_spmm.cu: one warp per group row.  Lanes own columns
+// K11b keeps a walk of its own here.  What bounds it on an H100: the
+// device-memory bytes of one K-wide row of buf per edge (4K bytes) plus
+// its column index and value; a compare per element is far below the
+// card's rate.  Design: one warp per group row.  Lanes own columns
 // k = lane + 32*j (KPL per lane, K masked, wide K in column tiles on
 // gridDim.y).  Each lane loads one edge's (col, val), and __shfl_sync
 // broadcasts them in edge order, so the index reads are coalesced and
@@ -54,61 +58,15 @@
 // in as void*, the launch goes on the caller's stream, and the return
 // value is cudaGetLastError() after the launch.
 
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "csr_walk.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kNoEdge = 0x7fffffff;  // JAX's int32-max pad arg
-
-template <int KPL>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-shard_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ col,
-                  const float* __restrict__ val, const float* __restrict__ buf,
-                  const int* __restrict__ row_map, float* __restrict__ out,
-                  int R, int K, int accumulate) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= R) return;  // uniform across the warp
-  const int k0 = blockIdx.y * (32 * KPL) + lane;
-
-  float acc[KPL];
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) acc[j] = 0.f;
-
-  const int start = rowptr[row];
-  const int end = rowptr[row + 1];
-  for (int base = start; base < end; base += 32) {
-    const int n = min(32, end - base);
-    int my_c = 0;
-    float my_v = 1.f;
-    if (lane < n) {
-      my_c = col[base + lane];
-      if (val != nullptr) my_v = val[base + lane];
-    }
-    for (int t = 0; t < n; ++t) {
-      const int c = __shfl_sync(kFullMask, my_c, t);
-      const float v = __shfl_sync(kFullMask, my_v, t);
-      const float* __restrict__ br = buf + (int64_t)c * K;
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const int k = k0 + 32 * j;
-        if (k < K) acc[j] = fmaf(v, __ldg(br + k), acc[j]);
-      }
-    }
-  }
-
-  const int orow = row_map != nullptr ? row_map[row] : row;
-  float* __restrict__ o = out + (int64_t)orow * K;
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int k = k0 + 32 * j;
-    if (k < K) o[k] = accumulate ? o[k] + acc[j] : acc[j];
-  }
-}
 
 template <int KPL, bool IS_MIN>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -228,32 +186,8 @@ extern "C" {
 int shard_spmm_f32(int device, const void* rowptr, const void* col,
                    const void* val, const void* buf, const void* row_map,
                    void* out, int R, int K, int accumulate, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (R <= 0 || K <= 0) return 0;
-  if ((K + 255) / 256 > 65535) return (int)cudaErrorInvalidValue;
-  const int* rp = static_cast<const int*>(rowptr);
-  const int* ci = static_cast<const int*>(col);
-  const float* v = static_cast<const float*>(val);
-  const float* b = static_cast<const float*>(buf);
-  const int* rm = static_cast<const int*>(row_map);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kWarpsPerBlock * 32);
-  if (K <= 32) {
-    shard_spmm_kernel<1><<<grid_of(R, K, 1), block, 0, s>>>(
-        rp, ci, v, b, rm, o, R, K, accumulate);
-  } else if (K <= 64) {
-    shard_spmm_kernel<2><<<grid_of(R, K, 2), block, 0, s>>>(
-        rp, ci, v, b, rm, o, R, K, accumulate);
-  } else if (K <= 128) {
-    shard_spmm_kernel<4><<<grid_of(R, K, 4), block, 0, s>>>(
-        rp, ci, v, b, rm, o, R, K, accumulate);
-  } else {
-    shard_spmm_kernel<8><<<grid_of(R, K, 8), block, 0, s>>>(
-        rp, ci, v, b, rm, o, R, K, accumulate);
-  }
-  return (int)cudaGetLastError();
+  return csr_walk::run(device, rowptr, col, val, buf, row_map, out, R, K,
+                       accumulate, stream);
 }
 
 // As shard_spmm_f32, plus pos (edges) int32 or NULL (the edge's own index),

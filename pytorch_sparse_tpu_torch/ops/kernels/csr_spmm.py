@@ -2,9 +2,14 @@
 
 Replaces the JAX package's gather route (``pytorch_sparse_tpu/ops/
 kernels/ell.py``: ``ell_spmm`` and ``_bucket_sum``).  The CUDA kernel
-(``csrc/csr_spmm.cu``) reads CSR directly with one warp per row and sums
-each row in CSR edge order; the ELL padding and degree buckets of the
-TPU version are gone.
+(``csrc/csr_spmm.cu``, an instance of the CSR walk in ``csrc/
+csr_walk.cuh`` that ``shard_spmm`` shares) reads CSR directly and sums
+each output element in CSR edge order; the ELL padding and degree
+buckets of the TPU version are gone.
+
+:func:`walk_instance` is the walk's choice of instance for a width and
+an alignment (the C code makes the same choice); each launch keeps the
+one it ran in ``csr_spmm.last_instance``.
 
 :func:`csr_spmm` launches the kernel for CUDA tensors and runs
 :func:`csr_spmm_plain`, the plain PyTorch version of the same function,
@@ -15,7 +20,8 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -23,6 +29,48 @@ from ... import _build
 from ...utils.convert import INDEX_DTYPE, ptr2ind
 
 _lib = None
+
+TILE_COLUMNS = 256   # a column tile's width at most (csr_walk.cuh)
+
+
+class WalkInstance(NamedTuple):
+    """One instance of the CSR walk: ``vec`` columns a chunk (4: float4
+    loads, 1: scalar), ``lanes`` a row, ``rows_per_warp``, ``chunks`` a
+    lane, and ``col_tiles`` column tiles (``gridDim.y``).  Lane ``s`` of a
+    row owns, in tile ``t``, the columns ``t * lanes * vec * chunks +
+    (s + lanes * j) * vec + q`` for ``j < chunks``, ``q < vec``."""
+    vec: int
+    lanes: int
+    rows_per_warp: int
+    chunks: int
+    col_tiles: int
+
+
+def _next_pow2(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=None)
+def walk_instance(K: int, aligned: bool) -> WalkInstance:
+    """The instance the walk runs at width ``K`` (``K >= 1``) when the
+    operand and the output start on 16-byte boundaries (``aligned``) or
+    not: float4 chunks where ``K % 4 == 0`` and aligned, else scalar
+    ones; the lanes ``K`` needs at 4 columns a lane, as a power of two up
+    to 32; chunks a lane up to a 256-column tile; more tiles beyond.
+    Cached: each launch asks for it."""
+    vec = 4 if aligned and K % 4 == 0 else 1
+    lanes = min(32, _next_pow2(-(-K // 4)))
+    chunks = min(TILE_COLUMNS // (32 * vec),
+                 _next_pow2(-(-(-(-K // vec)) // lanes)))
+    tile = lanes * vec * chunks
+    return WalkInstance(vec, lanes, 32 // lanes, chunks, -(-K // tile))
+
+
+def launch_instance(K: int, x: torch.Tensor,
+                    out: torch.Tensor) -> WalkInstance:
+    """The instance a launch over ``x`` into ``out`` runs."""
+    return walk_instance(
+        K, x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
 
 
 def _kernel_lib():
@@ -35,6 +83,9 @@ def _kernel_lib():
             ctypes.c_void_p,
         ]
         lib.csr_spmm_f32.restype = ctypes.c_int
+        lib.csr_walk_instance.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.csr_walk_instance.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -72,7 +123,10 @@ def csr_spmm(rowptr: torch.Tensor, col: torch.Tensor,
     (``value=None`` means implicit ones) with ``x`` ``(N, K)``.
 
     CUDA tensors run the hand-written kernel: ``x`` and ``value`` must be
-    float32 and ``x`` row-major contiguous.  CPU tensors run
+    float32 and ``x`` row-major contiguous.  The instance that runs is
+    ``launch_instance(K, x, out)``: float4 loads where ``K % 4 == 0`` and
+    ``x`` starts on a 16-byte boundary (the output is a new tensor, which
+    does), else the scalar instance of the same walk.  CPU tensors run
     :func:`csr_spmm_plain`."""
     _check_args(rowptr, col, value, x)
     dev = x.device
@@ -97,7 +151,19 @@ def csr_spmm(rowptr: torch.Tensor, col: torch.Tensor,
         out.data_ptr(), M, K, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "csr_spmm launch")
     csr_spmm.launches += 1
+    csr_spmm.last_instance = launch_instance(K, x, out)
     return out
 
 
 csr_spmm.launches = 0
+csr_spmm.last_instance = None
+
+
+def kernel_walk_instance(K: int, aligned: bool) -> WalkInstance:
+    """The C code's choice of instance (``csr_walk_instance``), built and
+    loaded on first use: the GPU tests hold it against
+    :func:`walk_instance`."""
+    arr = (ctypes.c_int * 4)()
+    _kernel_lib().csr_walk_instance(int(K), int(bool(aligned)), arr)
+    vec, lanes, chunks, tiles = arr
+    return WalkInstance(vec, lanes, 32 // lanes, chunks, tiles)

@@ -13,8 +13,9 @@ They replace the JAX package's ``pytorch_sparse_tpu/parallel/dist.py``:
 the halo's ``interior + frontier``) and ``_group_ell_minmax`` with
 ``_combine_minmax``.  There, a group was a padded, degree-bucketed ELL
 table because XLA on the TPU scatters slowly; here it is a CSR whose rows
-keep the global CSR edge order (``csrc/shard_spmm.cu``, one warp per
-group row).
+keep the global CSR edge order (``csrc/shard_spmm.cu``: K11a is the CSR
+walk of ``csrc/csr_walk.cuh`` that ``csr_spmm`` shares, K11b a walk of
+one warp per group row).
 
 A group is ``(rowptr, col, value)``: ``rowptr`` ``(R+1,)`` int32 may be a
 slice of a larger pointer (its first entry need not be 0), ``col`` and
@@ -44,6 +45,7 @@ import torch
 
 from ... import _build
 from ...utils.convert import INDEX_DTYPE, ptr2ind
+from .csr_spmm import launch_instance
 from .spmm_minmax import csr_spmm_minmax_plain
 
 NO_EDGE = 2**31 - 1   # JAX's int32-max pad arg of a row with no edge
@@ -155,8 +157,11 @@ def shard_spmm(rowptr: torch.Tensor, col: torch.Tensor,
     ``out`` in place (one add per row of the group's sum).  Returns the
     output.
 
-    CUDA tensors run the hand-written kernel; CPU tensors run
-    :func:`shard_spmm_plain`."""
+    CUDA tensors run the hand-written kernel, the instance
+    ``csr_spmm.launch_instance(K, buf, out)`` of the CSR walk (float4
+    loads where ``K % 4 == 0`` and ``buf`` and ``out`` start on 16-byte
+    boundaries, else scalar ones; kept in ``shard_spmm.last_instance``).
+    CPU tensors run :func:`shard_spmm_plain`."""
     _check_group("shard_spmm", rowptr, col, value, buf, row_map)
     dev = buf.device
     if dev.type == "cpu":
@@ -183,10 +188,12 @@ def shard_spmm(rowptr: torch.Tensor, col: torch.Tensor,
         R, K, int(accumulate), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "shard_spmm launch")
     shard_spmm.launches += 1
+    shard_spmm.last_instance = launch_instance(K, buf, out)
     return out
 
 
 shard_spmm.launches = 0
+shard_spmm.last_instance = None
 
 
 # ----------------------------------------------------------------------

@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from pytorch_sparse_tpu_torch.ops.kernels import (
-    shard_spmm, shard_spmm_minmax, shard_spmm_minmax_plain, shard_spmm_plain)
+    csr_spmm, shard_spmm, shard_spmm_minmax, shard_spmm_minmax_plain,
+    shard_spmm_plain)
+from pytorch_sparse_tpu_torch.ops.kernels.csr_spmm import walk_instance
 from pytorch_sparse_tpu_torch.testing import rel_err
 
 import _torch_dist_workers as W
@@ -50,7 +52,7 @@ def _group(seed, n_rows, n_buf, E, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K", [1, 40, 128, 256, 300])
+@pytest.mark.parametrize("K", [1, 3, 8, 20, 40, 47, 128, 256, 300])
 def test_shard_spmm_matches_plain_on_gpu(K):
     _need_gpu()
     n_rows, n_buf = 3000, 2500
@@ -70,6 +72,85 @@ def test_shard_spmm_matches_plain_on_gpu(K):
     lo, hi = 1000, 2200
     args = (g["full_ptr"][lo:hi + 1], g["col"], g["value"], buf)
     assert rel_err(shard_spmm(*args), shard_spmm_plain(*args)) <= 1e-5
+
+
+def _degree_group(seed, n_rows, n_buf, degrees, dev):
+    """A compact group whose rows have the given degrees (0 included),
+    sent to scattered shard rows, as a slice of a pointer that does not
+    start at 0."""
+    rng = np.random.RandomState(seed)
+    degrees = np.asarray(degrees)
+    lead = 37  # edges before the group in its col and value arrays
+    rowptr = lead + np.concatenate([[0], np.cumsum(degrees)])
+    E = lead + int(degrees.sum())
+    i32 = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, np.int32)).to(dev)
+    return dict(rowptr=i32(rowptr), col=i32(rng.randint(0, n_buf, E)),
+                value=torch.from_numpy(rng.randn(E).astype(np.float32)).to(
+                    dev),
+                row_map=i32(np.sort(rng.choice(n_rows, degrees.size,
+                                               replace=False))))
+
+
+# Degrees around the walk's 8 edges in flight and its 32-edge index loads,
+# a long row, and empty rows between them.
+WALK_DEGREES = [0, 1, 7, 8, 9, 0, 31, 32, 33, 2000, 0, 15, 17, 63, 65, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 3, 8, 20, 40, 47, 128, 256, 300])
+def test_shard_spmm_row_degrees_and_alignment_on_gpu(K):
+    """Rows of degree 0, 1, one below and above the edges in flight, and
+    2,000, written and accumulated, with the buffer and the accumulated
+    output aligned (float4 instance where K % 4 == 0) and 4 bytes off a
+    16-byte boundary (the scalar instance, the same bits)."""
+    _need_gpu()
+    n_rows, n_buf = 1200, 800
+    g = _degree_group(15, n_rows, n_buf, WALK_DEGREES * 10, "cuda")
+    flat = torch.from_numpy(W.operand(16, 1, n_buf * K + 1)).cuda()[0]
+    buf_off = flat[1:].view(n_buf, K)
+    buf = buf_off.clone()
+    base_flat = torch.from_numpy(W.operand(17, 1, n_rows * K + 1)).cuda()[0]
+    base_off = base_flat[1:].view(n_rows, K)
+    base = base_off.clone()
+    for value in (g["value"], None):
+        args = (g["rowptr"], g["col"], value)
+        got = shard_spmm(*args, buf, row_map=g["row_map"], n_rows=n_rows)
+        assert shard_spmm.last_instance == walk_instance(K, True)
+        ref = shard_spmm_plain(*args, buf, row_map=g["row_map"],
+                               n_rows=n_rows)
+        assert rel_err(got, ref) <= 1e-5
+        assert torch.equal(shard_spmm(*args, buf_off, row_map=g["row_map"],
+                                      n_rows=n_rows), got)
+        assert shard_spmm.last_instance == walk_instance(K, False)
+        acc = shard_spmm(*args, buf, out=base.clone(), row_map=g["row_map"])
+        ref = shard_spmm_plain(*args, buf, out=base.clone(),
+                               row_map=g["row_map"])
+        assert rel_err(acc, ref) <= 1e-5
+        out_off = base_flat.clone()[1:].view(n_rows, K)
+        shard_spmm(*args, buf_off, out=out_off, row_map=g["row_map"])
+        assert shard_spmm.last_instance.vec == 1
+        assert torch.equal(out_off, acc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 8, 20, 40, 128, 256, 300])
+def test_shard_spmm_without_row_map_equals_csr_spmm_bits_on_gpu(K):
+    """K11a written with no row_map is K1 on the same CSR, bit for bit,
+    and two launches of either give the same bits."""
+    _need_gpu()
+    n_rows, n_buf = 3000, 2500
+    g = _group(18, n_rows, n_buf, 40_000, "cuda")
+    buf = torch.from_numpy(W.operand(19, n_buf, K)).cuda()
+    for value in (g["value"], None):
+        args = (g["full_ptr"], g["col"], value, buf)
+        k11a = shard_spmm(*args)
+        assert torch.equal(k11a, csr_spmm(*args))
+        assert torch.equal(k11a, shard_spmm(*args))
+        base = torch.from_numpy(W.operand(20, n_rows, K)).cuda()
+        once = shard_spmm(*args, out=base.clone())
+        assert torch.equal(once, shard_spmm(*args, out=base.clone()))
+        assert torch.equal(once, base + k11a)
 
 
 @pytest.mark.gpu

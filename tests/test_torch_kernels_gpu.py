@@ -22,6 +22,8 @@ from pytorch_sparse_tpu_torch.ops.kernels import (
     edge_softmax_plain, minmax_edge_dot, minmax_edge_dot_plain,
     minmax_spmm_t, minmax_spmm_t_plain, plan_numeric, plan_numeric_plain)
 from pytorch_sparse_tpu_torch.ops.kernels import hybrid as phyb
+from pytorch_sparse_tpu_torch.ops.kernels.csr_spmm import (
+    kernel_walk_instance, walk_instance)
 from pytorch_sparse_tpu_torch.testing import rel_err
 
 
@@ -44,8 +46,11 @@ def _t_args(h, M, K, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K", [40, 128, 256, 300])
+@pytest.mark.parametrize("K", [1, 3, 8, 20, 40, 47, 128, 256, 300])
 def test_kernels_match_plain_versions_on_gpu(K):
+    """K1 at every width class of the CSR walk (scalar and float4
+    chunks, 1 to 32 lanes a row, column tiles past 256); the block and
+    edge-dot kernels at the widths of the model layers."""
     _need_gpu()
     rng = np.random.RandomState(18)
     M = N = 3000
@@ -57,6 +62,9 @@ def test_kernels_match_plain_versions_on_gpu(K):
     for vv in (v, None):
         assert rel_err(csr_spmm(rowptr, c, vv, x),
                        csr_spmm_plain(rowptr, c, vv, x)) <= 1e-5
+        assert csr_spmm.last_instance == walk_instance(K, True)
+    if K not in (40, 128, 256, 300):
+        return
     h = phyb.build_hybrid(B.storage.numpy_view("row"),
                           B.storage.numpy_view("col"),
                           B.storage.value().cpu().numpy(), M, N, B=128,
@@ -902,3 +910,85 @@ def test_gcn_hybrid_train_step_is_deterministic_on_gpu():
     for run in runs[1:]:
         for got, ref in zip(run, runs[0]):
             assert torch.equal(got, ref)
+
+
+def _degree_csr(degrees, N, seed):
+    """A CSR matrix on the card whose rows have the given degrees."""
+    rng = np.random.RandomState(seed)
+    degrees = np.asarray(degrees)
+    rowptr = np.concatenate([[0], np.cumsum(degrees)]).astype(np.int32)
+    E = int(rowptr[-1])
+    col = rng.randint(0, N, E).astype(np.int32)
+    val = rng.randn(E).astype(np.float32)
+    return (torch.from_numpy(rowptr).cuda(), torch.from_numpy(col).cuda(),
+            torch.from_numpy(val).cuda())
+
+
+# Degrees around the walk's 8 edges in flight and its 32-edge index loads,
+# a long row, and empty rows between them.
+WALK_DEGREES = [0, 1, 7, 8, 9, 0, 31, 32, 33, 2000, 0, 15, 17, 63, 65, 1]
+
+
+@pytest.mark.gpu
+def test_walk_instance_matches_the_kernels_choice_on_gpu():
+    """The Python choice of instance and the C code's agree at every
+    width the walk runs in one tile or two, aligned or not."""
+    _need_gpu()
+    for K in range(1, 301):
+        for aligned in (True, False):
+            assert kernel_walk_instance(K, aligned) == \
+                walk_instance(K, aligned), (K, aligned)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 3, 8, 20, 40, 47, 128, 256, 300])
+def test_csr_spmm_row_degrees_on_gpu(K):
+    """Rows of degree 0, 1, one below and above the edges in flight, and
+    2,000: with implicit ones each output is the CPU's sequential sum
+    bit for bit (fmaf(1, x, acc) is acc + x), with values within 1e-5."""
+    _need_gpu()
+    N = 700
+    rowptr, col, val = _degree_csr(WALK_DEGREES * 20, N, 66)
+    x = torch.from_numpy(_x(67, N, K)).cuda()
+    got = csr_spmm(rowptr, col, None, x)
+    assert torch.equal(got.cpu(), csr_spmm_plain(
+        rowptr.cpu(), col.cpu(), None, x.cpu()))
+    assert rel_err(csr_spmm(rowptr, col, val, x),
+                   csr_spmm_plain(rowptr, col, val, x)) <= 1e-5
+    assert not got[rowptr[1:] == rowptr[:-1]].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [8, 20, 128, 256, 300])
+def test_csr_spmm_misaligned_operand_runs_the_scalar_instance_on_gpu(K):
+    """An operand whose base is 4 bytes off a 16-byte boundary runs the
+    scalar instance of the walk, with the same sums bit for bit as the
+    float4 instance on an aligned copy."""
+    _need_gpu()
+    N = 900
+    rowptr, col, val = _degree_csr(WALK_DEGREES * 30, N, 68)
+    flat = torch.from_numpy(_x(69, N * K + 1)).cuda()
+    x_off = flat[1:].view(N, K)
+    assert x_off.data_ptr() % 16 == 4
+    x = x_off.clone()
+    for v in (val, None):
+        aligned = csr_spmm(rowptr, col, v, x)
+        assert csr_spmm.last_instance.vec == 4
+        got = csr_spmm(rowptr, col, v, x_off)
+        assert csr_spmm.last_instance == walk_instance(K, False)
+        assert csr_spmm.last_instance.vec == 1
+        assert torch.equal(got, aligned)
+        assert rel_err(got, csr_spmm_plain(rowptr, col, v, x_off)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 8, 40, 128, 256])
+def test_csr_spmm_two_launches_give_identical_bits_on_gpu(K):
+    _need_gpu()
+    N = 2000
+    rowptr, col, val = _degree_csr(
+        np.random.RandomState(70).randint(0, 60, 3000), N, 71)
+    x = torch.from_numpy(_x(72, N, K)).cuda()
+    for v in (val, None):
+        assert torch.equal(csr_spmm(rowptr, col, v, x),
+                           csr_spmm(rowptr, col, v, x))
