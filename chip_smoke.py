@@ -26,7 +26,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    with values and implicit ones, on the empty-rows matrix, on a
    tie-heavy integer operand, with a bf16 operand, and at K=128 on the
    community hybrid and Reddit-10% graphs; ``minmax_edge_dot`` and
-   ``minmax_spmm_t`` on the max argout of each f32 case;
+   ``minmax_spmm_t`` on the max argout of each f32 case (each
+   ``minmax_spmm_t`` case names the instance of the walk that ran);
    ``edge_softmax`` at 8 heads and 1 on the uniform graph with
    self-loops and on the community hybrid graph; ``edge_softmax_bwd`` at
    8 heads, 1 and 3 on the uniform graph with self-loops.
@@ -50,14 +51,15 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    (K11a) and ``shard_spmm_minmax`` (K11b) on shard 0's groups of the
    community hybrid graph split over 4 ranks (tables built in this
    process), at K=128, 256 (the width of the GCN layers of phases
-   14-15, which runs the kernels' 8-columns-a-lane build) and 40: the
+   14-15, which runs the walks' two-chunks-a-lane instance) and 40: the
    interior written, the halo frontier accumulated and ring group 1
    accumulated (K11a, 1e-5), the interior's
    max written, the frontier's max and ring group 1's min combined into
-   a running pair (K11b: ``out`` and ``arg`` exactly).  On shard 0 of the
+   a running pair (K11b: ``out`` and ``arg`` exactly; each case names
+   the instance of the walk that ran).  On shard 0 of the
    same graph's hierarchical layout at (S, C) = (2, 2), at K=256 and 20
    (the columns a feature rank holds of a 40-wide operand on two feature
-   ranks, the kernels' narrow build): K11a accumulated over the
+   ranks, the walks' 4-rows-a-warp instance): K11a accumulated over the
    intra-slice halo (C*Hi rows) and over the cross-slice union (C*S*Hx
    rows), K11b combined over the union.
    Each is timed with CUDA events beside its plain version, a PyTorch
@@ -774,8 +776,9 @@ def kernel_case(torch, label, got, ref, failures, name, **timing):
 
 
 def last_instance(fn):
-    """The instance of the CSR walk that the wrapper ``fn`` (``csr_spmm``
-    or ``shard_spmm``) last launched, as a dict; None before a launch."""
+    """The instance of the CSR walk that the wrapper ``fn`` (``csr_spmm``,
+    ``shard_spmm``, ``shard_spmm_minmax`` or ``minmax_spmm_t``) last
+    launched, as a dict; None before a launch."""
     inst = fn.last_instance
     return None if inst is None else inst._asdict()
 
@@ -2064,11 +2067,12 @@ def main(argv=None) -> int:
                 library_ms=None, bound_ms=b7a, bound_by=by7a))
             t_args = (st_.colptr(), st_.csc_row(), st_.csr2csc(), vv, g, arg)
             got = minmax_spmm_t(*t_args)
+            inst = last_instance(minmax_spmm_t)
             ref = minmax_spmm_t_plain(*t_args)
             sync()
             k7b_cases.append(kernel_case(
                 torch, label, got, ref, failures, "minmax_spmm_t",
-                ms=timer(lambda: minmax_spmm_t(*t_args)),
+                instance=inst, ms=timer(lambda: minmax_spmm_t(*t_args)),
                 plain_ms=plain_timer(lambda: minmax_spmm_t_plain(*t_args)),
                 library_ms=None, bound_ms=b7b, bound_by=by7b))
             del got, ref, arg_by_min, arg, g, x, t_args
@@ -2494,6 +2498,7 @@ def main(argv=None) -> int:
                 if into is None:
                     kw = dict(pos=grp.pos, row_map=grp.row_map, n_rows=Mb0)
                     got = shard_spmm_minmax(*sargs, **kw)
+                    inst = last_instance(shard_spmm_minmax)
                     ref = shard_spmm_minmax_plain(*sargs, **kw)
                 else:
                     o_, a_ = shard_spmm_minmax(
@@ -2502,6 +2507,7 @@ def main(argv=None) -> int:
                     got = shard_spmm_minmax(
                         *sargs, pos=grp.pos, out=o_.clone(), arg=a_.clone(),
                         row_map=grp.row_map)
+                    inst = last_instance(shard_spmm_minmax)
                     ref = shard_spmm_minmax_plain(
                         *sargs, pos=grp.pos, out=o_.clone(), arg=a_.clone(),
                         row_map=grp.row_map)
@@ -2510,14 +2516,14 @@ def main(argv=None) -> int:
                 if mism:
                     failures.append(f"shard_spmm_minmax {label} K={k}: "
                                     f"{mism} argout entries differ")
-                timing = {}
+                timing = {"instance": inst}
                 if timed and into is None:
                     R_, E_ = grp.rowptr.shape[0] - 1, grp.nnz
-                    timing = {
+                    timing.update({
                         "ms": timer(lambda: shard_spmm_minmax(*sargs, **kw)),
                         "plain_ms": plain_timer(
                             lambda: shard_spmm_minmax_plain(*sargs, **kw)),
-                        "library_ms": None}
+                        "library_ms": None})
                     timing["bound_ms"], timing["bound_by"] = shard_bounds(
                         R_, E_, k, n_read(grp), R_, True, False, False,
                         minmax=True, has_pos=True)
@@ -2581,6 +2587,7 @@ def main(argv=None) -> int:
             kw = dict(pos=grp.pos, row_map=grp.row_map)
             got = shard_spmm_minmax(*sargs, out=o_.clone(), arg=a_.clone(),
                                     **kw)
+            inst = last_instance(shard_spmm_minmax)
             ref = shard_spmm_minmax_plain(*sargs, out=o_.clone(),
                                           arg=a_.clone(), **kw)
             sync()
@@ -2592,6 +2599,7 @@ def main(argv=None) -> int:
             R_, E_ = grp.rowptr.shape[0] - 1, grp.nnz
             o_t, a_t = o_.clone(), a_.clone()
             timing = {
+                "instance": inst,
                 "ms": timer(lambda: shard_spmm_minmax(
                     *sargs, out=o_t, arg=a_t, **kw)),
                 "plain_ms": plain_timer(lambda: shard_spmm_minmax_plain(

@@ -38,7 +38,17 @@
 //     first of their FMAs and adds them in edge order.  Every load is
 //     unconditional (a tail edge reads the row's last edge again, a chunk
 //     past K reads column 0) and only the FMAs and stores are predicated,
-//     so the compiler can issue all U loads before the first FMA.
+//     so the compiler can issue all U = 8 loads before the first FMA.
+//
+// The min/max walks (minmax_walk.cuh's, which K11b runs, and K7b's over
+// the CSC view in spmm_minmax.cu) share the instance choice (choose, and
+// the one table of instances that dispatch() launches), the grid, the
+// 16-byte chunk loads, and walk_kernel's lane and batch arithmetic as
+// Lanes (a lane's place in its sub-warp and its chunks' columns) and
+// Batch (index batches clamped to the row's last edge, and their
+// broadcast); they take fewer edges in flight where their registers would
+// pass 64 a lane (edges_in_flight).  walk_kernel keeps that arithmetic
+// spelled out as it was tuned, so that its instructions stay the same.
 //
 // csr_walk_instance() and the Python function walk_instance() in
 // ops/kernels/csr_spmm.py choose the same instance for (K, aligned).
@@ -48,10 +58,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace csr_walk {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kEdgesInFlight = 8;   // U
+constexpr int kRowRegisters = 64;   // a lane's registers for rows in flight
 constexpr int kTileColumns = 256;   // a column tile's width at most
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -82,6 +95,16 @@ inline Instance choose(int K, bool aligned) {
   return in;
 }
 
+// U for a min/max walk that counts `regs` registers a lane for each edge
+// in flight (a power of two up to 64): walk_kernel's 8, or as many as
+// fit in kRowRegisters.
+__host__ __device__ constexpr int edges_in_flight(int regs) {
+  return regs * kEdgesInFlight <= kRowRegisters ? kEdgesInFlight
+                                                : kRowRegisters / regs;
+}
+
+// One chunk of VEC adjacent elements: one 16-byte load (float4 or int4)
+// through the read-only path where VEC == 4, else one scalar load.
 template <int VEC>
 __device__ __forceinline__ void load_chunk(const float* __restrict__ p,
                                            float (&v)[VEC]) {
@@ -95,6 +118,84 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ p,
     v[0] = __ldg(p);
   }
 }
+
+template <int VEC>
+__device__ __forceinline__ void load_chunk(const int* __restrict__ p,
+                                           int (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// A lane's place in the walk of an instance: the row (or column) its
+// sub-warp walks (item) and its place s in the sub-warp; after the
+// bounds check, place() adds the sub-warp's shuffle mask and the lane's
+// chunks, chunk j at column c0 + LPR * VEC * j of the block's tile
+// (coff[j]: that column, or 0 for a chunk past K).
+template <int VEC, int LPR, int CPL>
+struct Lanes {
+  static constexpr int RPW = 32 / LPR;      // rows a warp
+  static constexpr int STRIDE = LPR * VEC;  // chunk j's offset
+  int lane;
+  int s;
+  int item;
+  unsigned mask;
+  int c0;
+  bool live[CPL];
+  int coff[CPL];
+
+  __device__ __forceinline__ Lanes()
+      : lane(threadIdx.x & 31),
+        s(lane % LPR),
+        item((blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * RPW +
+             lane / LPR) {}
+
+  __device__ __forceinline__ void place(int K) {
+    constexpr unsigned kSubMask =
+        LPR == 32 ? kFullMask : (1u << (LPR % 32)) - 1u;
+    mask = kSubMask << (lane - s);
+    c0 = blockIdx.y * (STRIDE * CPL) + s * VEC;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      live[j] = c0 + STRIDE * j < K;
+      coff[j] = live[j] ? c0 + STRIDE * j : 0;
+    }
+  }
+};
+
+// A sub-warp loads its row's edge indices CH = max(LPR, U) at a time,
+// IPL a lane: lane s holds edge base + s + LPR * i (i < IPL), clamped to
+// the row's last edge so that every load is unconditional.  take() hands
+// every lane edge base + g + u of the batch, from the lane that loaded
+// it: a register where LPR == 1, else a shuffle of the sub-warp.
+template <int LPR, int U>
+struct Batch {
+  static constexpr int CH = LPR > U ? LPR : U;
+  static constexpr int IPL = CH / LPR;
+
+  static __device__ __forceinline__ int edge(int base, int s, int i,
+                                             int end) {
+    return min(base + s + LPR * i, end - 1);
+  }
+
+  template <typename T>
+  static __device__ __forceinline__ T take(unsigned mask, const T (&m)[IPL],
+                                           int g, int u) {
+    if constexpr (LPR == 1) {
+      return m[u];
+    } else if constexpr (IPL == 1) {
+      return __shfl_sync(mask, m[0], g + u, LPR);
+    } else {
+      return __shfl_sync(mask, m[u / LPR], u % LPR, LPR);
+    }
+  }
+};
 
 template <int VEC, int LPR, int CPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -197,41 +298,22 @@ walk_kernel(const int* __restrict__ rowptr, const int* __restrict__ col,
   }
 }
 
-template <int VEC, int LPR, int CPL>
-cudaError_t launch(const int* rowptr, const int* col, const float* val,
-                   const float* x, const int* row_map, float* out, int R,
-                   int K, int accumulate, int tiles, cudaStream_t stream) {
-  constexpr int rows_a_block = kWarpsPerBlock * (32 / LPR);
-  const dim3 grid((R + rows_a_block - 1) / rows_a_block, tiles);
-  walk_kernel<VEC, LPR, CPL><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      rowptr, col, val, x, row_map, out, R, K, accumulate);
-  return cudaGetLastError();
-}
+// The instance's (vec, lanes, chunks) as types, for dispatch().
+template <int VEC_, int LPR_, int CPL_>
+struct Shape {
+  static constexpr int VEC = VEC_;
+  static constexpr int LPR = LPR_;
+  static constexpr int CPL = CPL_;
+};
 
-// The walk on the caller's stream, as an instance of choose(K, aligned).
-// Returns cudaGetLastError() after the launch (0 when R or K is 0).
-inline int run(int device, const void* rowptr, const void* col,
-               const void* val, const void* x, const void* row_map,
-               void* out, int R, int K, int accumulate, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (R <= 0 || K <= 0) return 0;
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) &
-       15u) == 0;
-  const Instance in = choose(K, aligned);
-  if (in.tiles > 65535) return (int)cudaErrorInvalidValue;
-  const int* rp = static_cast<const int*>(rowptr);
-  const int* ci = static_cast<const int*>(col);
-  const float* v = static_cast<const float*>(val);
-  const float* xp = static_cast<const float*>(x);
-  const int* rm = static_cast<const int*>(row_map);
-  float* op = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CSR_WALK_CASE(VEC_, LPR_, CPL_)                                    \
-  if (in.vec == VEC_ && in.lanes == LPR_ && in.chunks == CPL_)             \
-    return (int)launch<VEC_, LPR_, CPL_>(rp, ci, v, xp, rm, op, R, K,      \
-                                         accumulate, in.tiles, s);
+// Returns f(Shape<in.vec, in.lanes, in.chunks>{}): the one table of
+// instances that every walk instantiates (tests/test_torch_csr_walk.py
+// holds the Python choice to it).
+template <typename F>
+inline int dispatch(const Instance& in, F&& f) {
+#define CSR_WALK_CASE(VEC_, LPR_, CPL_)                        \
+  if (in.vec == VEC_ && in.lanes == LPR_ && in.chunks == CPL_) \
+    return f(Shape<VEC_, LPR_, CPL_>{});
   CSR_WALK_CASE(4, 1, 1)
   CSR_WALK_CASE(4, 2, 1)
   CSR_WALK_CASE(4, 4, 1)
@@ -250,6 +332,46 @@ inline int run(int device, const void* rowptr, const void* col,
   CSR_WALK_CASE(1, 32, 8)
 #undef CSR_WALK_CASE
   return (int)cudaErrorInvalidValue;  // no instance: a bug in choose()
+}
+
+// The grid of an instance over R rows (columns): a block walks
+// kWarpsPerBlock * 32 / LPR of them, column tiles on gridDim.y.
+inline dim3 grid_of(const Instance& in, int R) {
+  const int rows_a_block = kWarpsPerBlock * (32 / in.lanes);
+  return dim3((R + rows_a_block - 1) / rows_a_block, in.tiles);
+}
+
+// True where every pointer lies on a 16-byte boundary (NULLs do).
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return (bits & 15u) == 0;
+}
+
+// The walk on the caller's stream, as an instance of choose(K, aligned).
+// Returns cudaGetLastError() after the launch (0 when R or K is 0).
+inline int run(int device, const void* rowptr, const void* col,
+               const void* val, const void* x, const void* row_map,
+               void* out, int R, int K, int accumulate, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (R <= 0 || K <= 0) return 0;
+  const Instance in = choose(K, aligned16({x, out}));
+  if (in.tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int* rp = static_cast<const int*>(rowptr);
+  const int* ci = static_cast<const int*>(col);
+  const float* v = static_cast<const float*>(val);
+  const float* xp = static_cast<const float*>(x);
+  const int* rm = static_cast<const int*>(row_map);
+  float* op = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch(in, [&](auto shape) {
+    using S = decltype(shape);
+    walk_kernel<S::VEC, S::LPR, S::CPL>
+        <<<grid_of(in, R), kWarpsPerBlock * 32, 0, s>>>(
+            rp, ci, v, xp, rm, op, R, K, accumulate);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace csr_walk

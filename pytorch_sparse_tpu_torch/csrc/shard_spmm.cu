@@ -44,32 +44,32 @@
 // in flight, sub-warp rows at narrow widths.  Accumulation follows JAX's
 // order (above); row_map and a rowptr slice are the walk's own arguments.
 //
-// K11b keeps a walk of its own here.  What bounds it on an H100: the
-// device-memory bytes of one K-wide row of buf per edge (4K bytes) plus
-// its column index and value; a compare per element is far below the
-// card's rate.  Design: one warp per group row.  Lanes own columns
-// k = lane + 32*j (KPL per lane, K masked, wide K in column tiles on
-// gridDim.y).  Each lane loads one edge's (col, val), and __shfl_sync
-// broadcasts them in edge order, so the index reads are coalesced and
-// every buf row is read as contiguous 128-byte segments.  Each output
-// element is written by one thread: no atomics, deterministic.
+// K11b is the min/max walk of minmax_walk.cuh on the same instances:
+// float4 chunks where K % 4 == 0 and buf, out and arg start on 16-byte
+// boundaries (else scalar ones), the lanes K needs, 8 edges' buf rows in
+// flight.  What bounds it on an H100 is what bounds K11a (one K-wide row
+// of buf per edge, from L2 or device memory) plus the argout beside out;
+// its compare-and-select costs about five instructions an element
+// where K11a's FMA costs one, so where the rows sit in L1 or L2 the issue
+// rate of those instructions bounds it.  The end of a row maps the best
+// edge to its global id (eid_base + pos[e]) and writes or combines with
+// 16-byte stores.  Each output element is written by one thread: no
+// atomics, deterministic.
 //
 // The interface is plain C, bound from Python with ctypes: pointers come
 // in as void*, the launch goes on the caller's stream, and the return
 // value is cudaGetLastError() after the launch.
 
-#include <math_constants.h>
-
 #include "csr_walk.cuh"
+#include "minmax_walk.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
+using csr_walk::Lanes;
 constexpr int kNoEdge = 0x7fffffff;  // JAX's int32-max pad arg
 
-template <int KPL, bool IS_MIN>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+template <int VEC, int LPR, int CPL, bool IS_MIN, bool HAS_VAL>
+__global__ void __launch_bounds__(csr_walk::kWarpsPerBlock * 32)
 shard_minmax_kernel(const int* __restrict__ rowptr,
                     const int* __restrict__ col,
                     const float* __restrict__ val,
@@ -78,102 +78,77 @@ shard_minmax_kernel(const int* __restrict__ rowptr,
                     const int* __restrict__ row_map, float* __restrict__ out,
                     int* __restrict__ arg, int R, int K, int eid_base,
                     int combine) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= R) return;  // uniform across the warp
-  const int k0 = blockIdx.y * (32 * KPL) + lane;
-  const int start = rowptr[row];
-  const int end = rowptr[row + 1];
+  Lanes<VEC, LPR, CPL> ln;
+  const int row = ln.item;
+  if (row >= R) return;  // uniform across the sub-warp
+  ln.place(K);
+  const int start = __ldg(rowptr + row);
+  const int end = __ldg(rowptr + row + 1);
   if (start == end && combine) return;  // nothing to combine
 
-  const float big = IS_MIN ? CUDART_INF_F : -CUDART_INF_F;
-  float best[KPL];
-  int best_e[KPL];
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    best[j] = big;
-    best_e[j] = -1;
-  }
+  float best[CPL][VEC];
+  int best_e[CPL][VEC];
+  csr_walk::minmax_walk<VEC, LPR, CPL, IS_MIN, HAS_VAL>(
+      ln, start, end, col, val, buf, K, best, best_e);
 
-  for (int base = start; base < end; base += 32) {
-    const int n = min(32, end - base);
-    int my_c = 0;
-    float my_v = 1.f;
-    if (lane < n) {
-      my_c = col[base + lane];
-      if (val != nullptr) my_v = val[base + lane];
-    }
-    for (int t = 0; t < n; ++t) {
-      const int c = __shfl_sync(kFullMask, my_c, t);
-      const float v = __shfl_sync(kFullMask, my_v, t);
-      const int e = base + t;
-      const float* __restrict__ br = buf + (int64_t)c * K;
+  const int orow = row_map != nullptr ? __ldg(row_map + row) : row;
+  float* __restrict__ o = out + (int64_t)orow * K + ln.c0;
+  int* __restrict__ a = arg + (int64_t)orow * K + ln.c0;
 #pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const int k = k0 + 32 * j;
-        if (k < K) {
-          float h = __ldg(br + k);
-          if (val != nullptr) h = v * h;
-          const bool better = IS_MIN ? (h < best[j]) : (h > best[j]);
-          const bool nan_wins = h != h && best[j] == best[j];
-          if (e == start || better || nan_wins) {
-            best[j] = h;
-            best_e[j] = e;
-          }
+  for (int j = 0; j < CPL; ++j) {
+    if (!ln.live[j]) continue;
+    float* __restrict__ oj = o + ln.STRIDE * j;
+    int* __restrict__ aj = a + ln.STRIDE * j;
+    float ov[VEC];
+    int av[VEC];
+    if (combine) {
+      if constexpr (VEC == 4) {
+        const float4 p = *reinterpret_cast<const float4*>(oj);
+        const int4 t = *reinterpret_cast<const int4*>(aj);
+        ov[0] = p.x, ov[1] = p.y, ov[2] = p.z, ov[3] = p.w;
+        av[0] = t.x, av[1] = t.y, av[2] = t.z, av[3] = t.w;
+      } else {
+        ov[0] = oj[0];
+        av[0] = aj[0];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) {
+      const int e = best_e[j][q];
+      const int gid =
+          e < 0 ? kNoEdge : eid_base + (pos != nullptr ? __ldg(pos + e) : e);
+      float b = best[j][q];
+      int id = gid;
+      if (combine) {
+        const bool better = IS_MIN ? (b < ov[q]) : (b > ov[q]);
+        if (!(better || (b == ov[q] && gid < av[q]))) {
+          b = ov[q];
+          id = av[q];
         }
       }
+      ov[q] = b;
+      av[q] = id;
     }
-  }
-
-  const int orow = row_map != nullptr ? row_map[row] : row;
-  float* __restrict__ o = out + (int64_t)orow * K;
-  int* __restrict__ a = arg + (int64_t)orow * K;
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int k = k0 + 32 * j;
-    if (k >= K) continue;
-    int gid = kNoEdge;
-    if (best_e[j] >= 0) {
-      gid = eid_base + (pos != nullptr ? pos[best_e[j]] : best_e[j]);
-    }
-    if (combine) {
-      const float ov = o[k];
-      const bool better = IS_MIN ? (best[j] < ov) : (best[j] > ov);
-      if (better || (best[j] == ov && gid < a[k])) {
-        o[k] = best[j];
-        a[k] = gid;
-      }
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(oj) =
+          make_float4(ov[0], ov[1], ov[2], ov[3]);
+      *reinterpret_cast<int4*>(aj) = make_int4(av[0], av[1], av[2], av[3]);
     } else {
-      o[k] = best[j];
-      a[k] = gid;
+      oj[0] = ov[0];
+      aj[0] = av[0];
     }
   }
 }
 
-dim3 grid_of(int R, int K, int KPL) {
-  return dim3((R + kWarpsPerBlock - 1) / kWarpsPerBlock,
-              (K + 32 * KPL - 1) / (32 * KPL));
-}
-
-template <bool IS_MIN>
-void launch_minmax(const int* rp, const int* ci, const float* v,
-                   const float* b, const int* ps, const int* rm, float* o,
-                   int* a, int R, int K, int eid_base, int combine,
-                   cudaStream_t s) {
-  const dim3 block(kWarpsPerBlock * 32);
-  if (K <= 32) {
-    shard_minmax_kernel<1, IS_MIN><<<grid_of(R, K, 1), block, 0, s>>>(
-        rp, ci, v, b, ps, rm, o, a, R, K, eid_base, combine);
-  } else if (K <= 64) {
-    shard_minmax_kernel<2, IS_MIN><<<grid_of(R, K, 2), block, 0, s>>>(
-        rp, ci, v, b, ps, rm, o, a, R, K, eid_base, combine);
-  } else if (K <= 128) {
-    shard_minmax_kernel<4, IS_MIN><<<grid_of(R, K, 4), block, 0, s>>>(
-        rp, ci, v, b, ps, rm, o, a, R, K, eid_base, combine);
-  } else {
-    shard_minmax_kernel<8, IS_MIN><<<grid_of(R, K, 8), block, 0, s>>>(
-        rp, ci, v, b, ps, rm, o, a, R, K, eid_base, combine);
-  }
+template <int VEC, int LPR, int CPL, bool IS_MIN, bool HAS_VAL>
+int launch_minmax(const csr_walk::Instance& in, const int* rp,
+                  const int* ci, const float* v, const float* b,
+                  const int* ps, const int* rm, float* o, int* a, int R,
+                  int K, int eid_base, int combine, cudaStream_t s) {
+  shard_minmax_kernel<VEC, LPR, CPL, IS_MIN, HAS_VAL>
+      <<<csr_walk::grid_of(in, R), csr_walk::kWarpsPerBlock * 32, 0, s>>>(
+          rp, ci, v, b, ps, rm, o, a, R, K, eid_base, combine);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -200,7 +175,9 @@ int shard_spmm_minmax_f32(int device, int is_min, const void* rowptr,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R <= 0 || K <= 0) return 0;
-  if ((K + 255) / 256 > 65535) return (int)cudaErrorInvalidValue;
+  const csr_walk::Instance in =
+      csr_walk::choose(K, csr_walk::aligned16({buf, out, arg}));
+  if (in.tiles > 65535) return (int)cudaErrorInvalidValue;
   const int* rp = static_cast<const int*>(rowptr);
   const int* ci = static_cast<const int*>(col);
   const float* v = static_cast<const float*>(val);
@@ -210,14 +187,19 @@ int shard_spmm_minmax_f32(int device, int is_min, const void* rowptr,
   float* o = static_cast<float*>(out);
   int* a = static_cast<int*>(arg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_min) {
-    launch_minmax<true>(rp, ci, v, b, ps, rm, o, a, R, K, eid_base, combine,
-                        s);
-  } else {
-    launch_minmax<false>(rp, ci, v, b, ps, rm, o, a, R, K, eid_base, combine,
-                         s);
-  }
-  return (int)cudaGetLastError();
+  return csr_walk::dispatch(in, [&](auto shape) {
+    using S = decltype(shape);
+#define SHARD_MINMAX_LAUNCH(IS_MIN_, HAS_VAL_)                             \
+  launch_minmax<S::VEC, S::LPR, S::CPL, IS_MIN_, HAS_VAL_>(                \
+      in, rp, ci, v, b, ps, rm, o, a, R, K, eid_base, combine, s)
+    if (is_min) {
+      return v != nullptr ? SHARD_MINMAX_LAUNCH(true, true)
+                          : SHARD_MINMAX_LAUNCH(true, false);
+    }
+    return v != nullptr ? SHARD_MINMAX_LAUNCH(false, true)
+                        : SHARD_MINMAX_LAUNCH(false, false);
+#undef SHARD_MINMAX_LAUNCH
+  });
 }
 
 const char* kernel_error_string(int code) {

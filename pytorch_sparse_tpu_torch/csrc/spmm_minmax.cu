@@ -36,23 +36,33 @@
 // once per row and only the x entries whose (row, k) the edge won (a load
 // predicated on a register compare), so each row needs about 1/deg of
 // the x bytes that edge_dot reads.  minmax_spmm_t reads an arg row per
-// edge and only the g entries that edge won (a load predicated on the
-// arg load, so each edge waits two memory round trips; issuing the whole
-// g row beside the arg row instead was measured faster on a uniform
-// graph and slower on community graphs, PERF.md).
+// edge and only the g chunks holding an entry that edge won: on the
+// ogbn-arxiv-scale uniform graph its 86.7 MB argout outgrows L2, and
+// the arg rows (597 MB at K=128) and about half as many g bytes come
+// from device memory.
 //
-// Design, after csr_spmm.cu and edge_dot.cu: one warp per row (per column
-// for minmax_spmm_t).  Lanes own columns k = lane + 32*j (KPL per lane,
-// K masked, wide K in column tiles on gridDim.y).  Each lane loads one
-// edge's (col, val) -- or, over the CSC view, (row, edge id, val) -- so
-// the index reads are coalesced, and __shfl_sync broadcasts them in edge
-// order.  csr_minmax keeps the running best and its edge id in registers.
-// minmax_edge_dot keeps g[row] and arg[row] in registers, reduces each
-// edge's dot across the warp with __shfl_xor_sync only when some lane's
-// (row, k) was won by that edge, and writes 32 edges' results with one
-// coalesced store.  minmax_spmm_t sums each output element in one thread
-// in CSC order: no float atomics, deterministic.  (An atomic scatter over
-// (row, k) through arg would read fewer bytes; it is not this design.)
+// Design of csr_minmax and minmax_edge_dot, after edge_dot.cu: one warp
+// per row.  Lanes own columns k = lane + 32*j (KPL per lane, K masked,
+// wide K in column tiles on gridDim.y).  Each lane loads one edge's
+// (col, val), so the index reads are coalesced, and __shfl_sync
+// broadcasts them in edge order.  csr_minmax keeps the running best and
+// its edge id in registers.  minmax_edge_dot keeps g[row] and arg[row]
+// in registers, reduces each edge's dot across the warp with
+// __shfl_xor_sync only when some lane's (row, k) was won by that edge,
+// and writes 32 edges' results with one coalesced store.
+//
+// minmax_spmm_t is the CSR walk of csr_walk.cuh over the CSC view (its
+// instances: int4 and float4 chunks, the lanes K needs, several columns
+// a warp at narrow widths): each sub-warp loads its column's (row, edge
+// id) coalesced and gathers the values by edge id, then for U edges at a
+// time issues their arg chunks, compares, and issues the g chunks that
+// hold a win before the first FMA, so an edge's two round trips overlap
+// with the other edges'.  Issuing every g chunk beside its arg chunk
+// instead was measured slower on the community graphs, where an edge
+// wins few entries of a row (PERF.md).  Each output element is summed in
+// one thread in CSC order: no float atomics, deterministic.  (An atomic
+// scatter over (row, k) through arg would read fewer bytes; it is not
+// this design.)
 //
 // The interface is plain C, bound from Python with ctypes: pointers come
 // in as void*, the launch goes on the caller's stream, and the return
@@ -62,6 +72,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "csr_walk.cuh"
 
 namespace {
 
@@ -236,8 +248,17 @@ minmax_edge_dot_kernel(const int* __restrict__ rowptr,
   }
 }
 
-template <int KPL, bool HAS_VAL>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// K7b: the CSC walk of csr_walk.cuh with the argout as a mask.  Column c
+// is one walk item: lane s of its sub-warp owns the chunks of columns k
+// of grad_x[c, :].  For U edges at a time it issues each edge's arg
+// chunk (int4), compares it with the edge's id, then issues the g chunk
+// of every edge that won one of the chunk's entries (a load predicated
+// on the compare), and an entry adds fmaf(v, g, acc) where arg == e and
+// the edge is in the column (a tail edge, the last one read again, is
+// masked).  U = edges_in_flight(4 * CPL * VEC) counts each column four
+// times: 4 edges with one float4 chunk a lane, 2 with two.
+template <int VEC, int LPR, int CPL, bool HAS_VAL>
+__global__ void __launch_bounds__(csr_walk::kWarpsPerBlock * 32)
 minmax_spmm_t_kernel(const int* __restrict__ colptr,
                      const int* __restrict__ csc_row,
                      const int* __restrict__ csr2csc,
@@ -245,47 +266,90 @@ minmax_spmm_t_kernel(const int* __restrict__ colptr,
                      const float* __restrict__ g,
                      const int* __restrict__ arg, float* __restrict__ out,
                      int N, int K) {
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (c >= N) return;  // uniform across the warp
-  const int k0 = blockIdx.y * (32 * KPL) + lane;
+  constexpr int U = csr_walk::edges_in_flight(4 * CPL * VEC);
+  using B = csr_walk::Batch<LPR, U>;
+  csr_walk::Lanes<VEC, LPR, CPL> ln;
+  const int c = ln.item;
+  if (c >= N) return;  // uniform across the sub-warp
+  ln.place(K);
 
-  float acc[KPL];
+  float acc[CPL][VEC];
 #pragma unroll
-  for (int j = 0; j < KPL; ++j) acc[j] = 0.f;
+  for (int j = 0; j < CPL; ++j)
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) acc[j][q] = 0.f;
 
-  const int start = colptr[c];
-  const int end = colptr[c + 1];
-  for (int base = start; base < end; base += 32) {
-    const int n = min(32, end - base);
-    int my_r = 0, my_e = -1;
-    float my_v = 1.f;
-    if (lane < n) {
-      my_r = csc_row[base + lane];
-      my_e = csr2csc[base + lane];
-      if (HAS_VAL) my_v = val[my_e];
+  const int start = __ldg(colptr + c);
+  const int end = __ldg(colptr + c + 1);
+  for (int base = start; base < end; base += B::CH) {
+    const int n = min(B::CH, end - base);
+    int mr[B::IPL], me[B::IPL];
+    float mv[B::IPL];
+#pragma unroll
+    for (int i = 0; i < B::IPL; ++i) {
+      const int p = B::edge(base, ln.s, i, end);
+      mr[i] = __ldg(csc_row + p);
+      me[i] = __ldg(csr2csc + p);
     }
-    for (int t = 0; t < n; ++t) {
-      const int r = __shfl_sync(kFullMask, my_r, t);
-      const int e = __shfl_sync(kFullMask, my_e, t);
-      const float v = __shfl_sync(kFullMask, my_v, t);
-      const int* __restrict__ ar = arg + (int64_t)r * K;
-      const float* __restrict__ gr = g + (int64_t)r * K;
 #pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const int k = k0 + 32 * j;
-        if (k < K && __ldg(ar + k) == e) {
-          acc[j] = fmaf(v, __ldg(gr + k), acc[j]);
+    for (int i = 0; i < B::IPL; ++i)
+      mv[i] = HAS_VAL ? __ldg(val + me[i]) : 1.f;
+    for (int t = 0; t < n; t += U) {
+      int r[U], e[U];
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        r[u] = B::take(ln.mask, mr, t, u);
+        e[u] = B::take(ln.mask, me, t, u);
+        v[u] = HAS_VAL ? B::take(ln.mask, mv, t, u) : 1.f;
+      }
+      int av[U][CPL][VEC];
+      float gv[U][CPL][VEC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int64_t off = (int64_t)r[u] * K;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j)
+          csr_walk::load_chunk<VEC>(arg + off + ln.coff[j], av[u][j]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int64_t off = (int64_t)r[u] * K;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          bool won = false;
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) won |= av[u][j][q] == e[u];
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) gv[u][j][q] = 0.f;
+          if (won && t + u < n)
+            csr_walk::load_chunk<VEC>(g + off + ln.coff[j], gv[u][j]);
         }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const bool in_col = t + u < n;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j)
+#pragma unroll
+          for (int q = 0; q < VEC; ++q)
+            if (in_col && av[u][j][q] == e[u])
+              acc[j][q] = fmaf(v[u], gv[u][j][q], acc[j][q]);
       }
     }
   }
 
-  float* __restrict__ orow = out + (int64_t)c * K;
+  float* __restrict__ o = out + (int64_t)c * K + ln.c0;
 #pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int k = k0 + 32 * j;
-    if (k < K) orow[k] = acc[j];
+  for (int j = 0; j < CPL; ++j) {
+    if (!ln.live[j]) continue;
+    float* __restrict__ oj = o + ln.STRIDE * j;
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(oj) =
+          make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+    } else {
+      oj[0] = acc[j][0];
+    }
   }
 }
 
@@ -354,21 +418,6 @@ void launch_edge_dot(const int* rowptr, const int* col, const float* x,
   const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock);
   minmax_edge_dot_kernel<KPL><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
       rowptr, col, x, g, arg, out, M, K);
-}
-
-template <int KPL>
-void launch_spmm_t(const int* colptr, const int* csc_row, const int* csr2csc,
-                   const float* val, const float* g, const int* arg,
-                   float* out, int N, int K, cudaStream_t stream) {
-  const dim3 grid((N + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                  (K + 32 * KPL - 1) / (32 * KPL));
-  if (val != nullptr) {
-    minmax_spmm_t_kernel<KPL, true><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-        colptr, csc_row, csr2csc, val, g, arg, out, N, K);
-  } else {
-    minmax_spmm_t_kernel<KPL, false><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-        colptr, csc_row, csr2csc, val, g, arg, out, N, K);
-  }
 }
 
 }  // namespace
@@ -446,7 +495,9 @@ int minmax_spmm_t_f32(int device, const void* colptr, const void* csc_row,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (N <= 0 || K <= 0) return 0;
-  if ((K + 255) / 256 > 65535) return (int)cudaErrorInvalidValue;
+  const csr_walk::Instance in =
+      csr_walk::choose(K, csr_walk::aligned16({g, arg, out}));
+  if (in.tiles > 65535) return (int)cudaErrorInvalidValue;
   const int* cp = static_cast<const int*>(colptr);
   const int* cr = static_cast<const int*>(csc_row);
   const int* pe = static_cast<const int*>(csr2csc);
@@ -455,20 +506,19 @@ int minmax_spmm_t_f32(int device, const void* colptr, const void* csc_row,
   const int* ap = static_cast<const int*>(arg);
   float* op = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kpl_for(K)) {
-    case 1:
-      launch_spmm_t<1>(cp, cr, pe, v, gp, ap, op, N, K, s);
-      break;
-    case 2:
-      launch_spmm_t<2>(cp, cr, pe, v, gp, ap, op, N, K, s);
-      break;
-    case 4:
-      launch_spmm_t<4>(cp, cr, pe, v, gp, ap, op, N, K, s);
-      break;
-    default:
-      launch_spmm_t<8>(cp, cr, pe, v, gp, ap, op, N, K, s);
-  }
-  return (int)cudaGetLastError();
+  return csr_walk::dispatch(in, [&](auto shape) {
+    using S = decltype(shape);
+    const dim3 grid = csr_walk::grid_of(in, N);
+    constexpr int threads = csr_walk::kWarpsPerBlock * 32;
+    if (v != nullptr) {
+      minmax_spmm_t_kernel<S::VEC, S::LPR, S::CPL, true>
+          <<<grid, threads, 0, s>>>(cp, cr, pe, v, gp, ap, op, N, K);
+    } else {
+      minmax_spmm_t_kernel<S::VEC, S::LPR, S::CPL, false>
+          <<<grid, threads, 0, s>>>(cp, cr, pe, v, gp, ap, op, N, K);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 const char* kernel_error_string(int code) {

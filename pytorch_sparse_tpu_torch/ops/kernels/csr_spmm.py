@@ -3,13 +3,15 @@
 Replaces the JAX package's gather route (``pytorch_sparse_tpu/ops/
 kernels/ell.py``: ``ell_spmm`` and ``_bucket_sum``).  The CUDA kernel
 (``csrc/csr_spmm.cu``, an instance of the CSR walk in ``csrc/
-csr_walk.cuh`` that ``shard_spmm`` shares) reads CSR directly and sums
+csr_walk.cuh`` that ``shard_spmm`` shares, and whose instances the
+min/max walks of K11b and K7b run too) reads CSR directly and sums
 each output element in CSR edge order; the ELL padding and degree
 buckets of the TPU version are gone.
 
 :func:`walk_instance` is the walk's choice of instance for a width and
-an alignment (the C code makes the same choice); each launch keeps the
-one it ran in ``csr_spmm.last_instance``.
+an alignment (the C code makes the same choice), and
+:func:`launch_instance` the one a launch over given tensors runs; each
+launch keeps the instance it ran in ``csr_spmm.last_instance``.
 
 :func:`csr_spmm` launches the kernel for CUDA tensors and runs
 :func:`csr_spmm_plain`, the plain PyTorch version of the same function,
@@ -66,11 +68,12 @@ def walk_instance(K: int, aligned: bool) -> WalkInstance:
     return WalkInstance(vec, lanes, 32 // lanes, chunks, -(-K // tile))
 
 
-def launch_instance(K: int, x: torch.Tensor,
-                    out: torch.Tensor) -> WalkInstance:
-    """The instance a launch over ``x`` into ``out`` runs."""
-    return walk_instance(
-        K, x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+def launch_instance(K: int, *tensors: torch.Tensor) -> WalkInstance:
+    """The instance a launch runs whose row-major ``(rows, K)`` operands
+    and outputs are ``tensors`` (K1: ``x`` and ``out``; K11b: ``buf``,
+    ``out`` and ``arg``; K7b: ``g``, ``arg`` and ``out``): float4 chunks
+    only where every one starts on a 16-byte boundary."""
+    return walk_instance(K, all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _kernel_lib():

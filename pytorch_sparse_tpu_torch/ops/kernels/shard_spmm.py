@@ -14,8 +14,8 @@ the halo's ``interior + frontier``) and ``_group_ell_minmax`` with
 ``_combine_minmax``.  There, a group was a padded, degree-bucketed ELL
 table because XLA on the TPU scatters slowly; here it is a CSR whose rows
 keep the global CSR edge order (``csrc/shard_spmm.cu``: K11a is the CSR
-walk of ``csrc/csr_walk.cuh`` that ``csr_spmm`` shares, K11b a walk of
-one warp per group row).
+walk of ``csrc/csr_walk.cuh`` that ``csr_spmm`` shares, K11b the min/max
+walk of ``csrc/minmax_walk.cuh`` on the same instances).
 
 A group is ``(rowptr, col, value)``: ``rowptr`` ``(R+1,)`` int32 may be a
 slice of a larger pointer (its first entry need not be 0), ``col`` and
@@ -33,7 +33,8 @@ over a non-NaN best and the first NaN wins among NaNs.
 Each wrapper launches its kernel for CUDA tensors (float32 ``buf`` and
 ``value``) and runs its plain PyTorch version (``*_plain``) for CPU
 tensors.  Other devices raise.  ``shard_spmm.launches`` and
-``shard_spmm_minmax.launches`` count kernel launches.
+``shard_spmm_minmax.launches`` count kernel launches, and
+``.last_instance`` keeps the instance of the walk each last ran.
 """
 
 from __future__ import annotations
@@ -266,7 +267,11 @@ def shard_spmm_minmax(
     with ``out`` and ``arg``, combined into them in place.  Returns
     ``(out, arg)``.
 
-    CUDA tensors run the hand-written kernel; CPU tensors run
+    CUDA tensors run the hand-written kernel, the instance
+    ``csr_spmm.launch_instance(K, buf, out, arg)`` of the min/max walk
+    (float4 chunks where ``K % 4 == 0`` and all three start on 16-byte
+    boundaries, else scalar ones; kept in
+    ``shard_spmm_minmax.last_instance``).  CPU tensors run
     :func:`shard_spmm_minmax_plain`."""
     _check_group("shard_spmm_minmax", rowptr, col, value, buf, row_map, pos)
     if (out is None) != (arg is None):
@@ -307,7 +312,9 @@ def shard_spmm_minmax(
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "shard_spmm_minmax launch")
     shard_spmm_minmax.launches += 1
+    shard_spmm_minmax.last_instance = launch_instance(K, buf, out, arg)
     return out, arg
 
 
 shard_spmm_minmax.launches = 0
+shard_spmm_minmax.last_instance = None

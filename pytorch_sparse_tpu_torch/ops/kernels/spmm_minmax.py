@@ -14,7 +14,9 @@ They replace the JAX package's ``pytorch_sparse_tpu/ops/kernels/ell.py``:
 ``ell_spmm_minmax`` (forward) and ``ell_minmax_bwd`` (both backward
 halves), which run over the ELL view and its transpose.  The CUDA
 kernels (``csrc/spmm_minmax.cu``) read CSR and the cached CSC view
-directly, one warp per row or column.
+directly: the forward and ``minmax_edge_dot`` one warp per row,
+``minmax_spmm_t`` the CSR walk of ``csrc/csr_walk.cuh`` over the CSC
+view's columns.
 
 The argout contract is the JAX ELL path's (``ts.spmm_max`` run eagerly):
 strict comparison, so ties keep the first CSR edge; the running best
@@ -31,7 +33,9 @@ NaN).
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``) for CPU tensors.  Other devices raise.
 ``csr_spmm_minmax.launches``, ``minmax_edge_dot.launches`` and
-``minmax_spmm_t.launches`` count kernel launches.
+``minmax_spmm_t.launches`` count kernel launches;
+``minmax_spmm_t.last_instance`` keeps the instance of the walk it last
+ran.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 from ... import _build
 from ...segment import segment_max, segment_min, segment_sum
 from ...utils.convert import INDEX_DTYPE, ptr2ind
+from .csr_spmm import launch_instance
 
 _lib = None
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -317,8 +322,11 @@ def minmax_spmm_t(colptr: torch.Tensor, csc_row: torch.Tensor,
     ``g`` ``(M, K)`` the output's gradient, ``arg`` the forward's argout.
 
     CUDA tensors run the hand-written kernel: ``value`` and ``g``
-    float32, row-major contiguous.  CPU tensors run
-    :func:`minmax_spmm_t_plain`."""
+    float32, row-major contiguous.  The instance is
+    ``csr_spmm.launch_instance(K, g, arg, out)`` (float4 and int4 chunks
+    where ``K % 4 == 0`` and all three start on 16-byte boundaries, else
+    scalar ones; kept in ``minmax_spmm_t.last_instance``).  CPU tensors
+    run :func:`minmax_spmm_t_plain`."""
     _check_spmm_t(colptr, csc_row, csr2csc, value, g, arg)
     dev = g.device
     if dev.type == "cpu":
@@ -340,7 +348,9 @@ def minmax_spmm_t(colptr: torch.Tensor, csc_row: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "minmax_spmm_t launch")
     minmax_spmm_t.launches += 1
+    minmax_spmm_t.last_instance = launch_instance(K, g, arg, out)
     return out
 
 
 minmax_spmm_t.launches = 0
+minmax_spmm_t.last_instance = None

@@ -155,7 +155,7 @@ def test_shard_spmm_without_row_map_equals_csr_spmm_bits_on_gpu(K):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("is_min", [True, False])
-@pytest.mark.parametrize("K", [1, 40, 128, 300])
+@pytest.mark.parametrize("K", [1, 4, 8, 20, 40, 128, 256, 300])
 def test_shard_spmm_minmax_matches_plain_exactly_on_gpu(K, is_min):
     _need_gpu()
     n_rows, n_buf, e0 = 3000, 2500, 123_456
@@ -182,6 +182,76 @@ def test_shard_spmm_minmax_matches_plain_exactly_on_gpu(K, is_min):
     got = shard_spmm_minmax(*full, pos=g["pos"])
     ref = shard_spmm_minmax_plain(*full, pos=g["pos"])
     assert torch.equal(got[1], ref[1])
+
+
+def _same_pair(got, ref):
+    """out and arg exactly (NaN where the plain version has NaN)."""
+    assert torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("is_min", [True, False])
+@pytest.mark.parametrize("K", [1, 4, 8, 20, 40, 128, 256, 300])
+def test_shard_spmm_minmax_row_degrees_and_alignment_on_gpu(K, is_min):
+    """K11b's walk at every instance the choice takes: rows of degree 0,
+    1, around the 8 edges in flight and the 32-edge index loads, and
+    2,000, as a slice of a pointer that does not start at 0, sent to
+    scattered rows, with positions and an edge base; a tie-heavy
+    integer operand with -inf and +inf rows (the sentinel itself) and
+    NaN entries; written and combined into a running pair; with buf,
+    out and arg aligned (float4 chunks where K % 4 == 0) and with buf 4
+    bytes off a 16-byte boundary (the scalar instance).  out and arg
+    equal the plain version's exactly."""
+    _need_gpu()
+    n_rows, n_buf, e0 = 1200, 800, 5_000
+    g = _degree_group(21, n_rows, n_buf, WALK_DEGREES * 10, "cuda")
+    E = g["col"].shape[0]
+    pos = torch.from_numpy(np.random.RandomState(22).permutation(
+        3 * E)[:E].astype(np.int32)).cuda()
+    ops = W.tie_operand(23, n_buf, K)
+    ops[::9] = -np.inf
+    ops[4::9] = np.inf
+    ops[2::17, ::3] = np.nan
+    flat = torch.from_numpy(np.concatenate([[0.0], ops.ravel()]).astype(
+        np.float32)).cuda()
+    buf_off = flat[1:].view(n_buf, K)
+    assert buf_off.data_ptr() % 16 == 4
+    buf = buf_off.clone()
+    run = torch.from_numpy(W.tie_operand(24, n_rows, K)).cuda()
+    run_arg = torch.from_numpy(np.random.RandomState(25).randint(
+        e0, e0 + 3 * E, (n_rows, K)).astype(np.int32)).cuda()
+    for value in (g["value"], None):
+        args = (g["rowptr"], g["col"], value)
+        for b, aligned in ((buf, True), (buf_off, False)):
+            kw = dict(pos=pos, row_map=g["row_map"])
+            got = shard_spmm_minmax(*args, b, is_min, e0, n_rows=n_rows,
+                                    **kw)
+            assert shard_spmm_minmax.last_instance == \
+                walk_instance(K, aligned)
+            _same_pair(got, shard_spmm_minmax_plain(
+                *args, b, is_min, e0, n_rows=n_rows, **kw))
+            got = shard_spmm_minmax(*args, b, is_min, e0, out=run.clone(),
+                                    arg=run_arg.clone(), **kw)
+            _same_pair(got, shard_spmm_minmax_plain(
+                *args, b, is_min, e0, out=run.clone(), arg=run_arg.clone(),
+                **kw))
+    # An output and an argout off a 16-byte boundary run the scalar
+    # instance too, with the same bits.
+    out_flat = torch.zeros(n_rows * K + 1, device="cuda")
+    arg_flat = torch.zeros(n_rows * K + 1, dtype=torch.int32, device="cuda")
+    out_off = out_flat[1:].view(n_rows, K)
+    arg_off = arg_flat[1:].view(n_rows, K)
+    out_off.copy_(run)
+    arg_off.copy_(run_arg)
+    args = (g["rowptr"], g["col"], g["value"], buf, is_min, e0)
+    got = shard_spmm_minmax(*args, pos=pos, out=out_off, arg=arg_off,
+                            row_map=g["row_map"])
+    assert shard_spmm_minmax.last_instance.vec == 1
+    _same_pair(got, shard_spmm_minmax(*args, pos=pos, out=run.clone(),
+                                      arg=run_arg.clone(),
+                                      row_map=g["row_map"]))
 
 
 def _schedules(ws, backend, device):

@@ -992,3 +992,68 @@ def test_csr_spmm_two_launches_give_identical_bits_on_gpu(K):
     for v in (val, None):
         assert torch.equal(csr_spmm(rowptr, col, v, x),
                            csr_spmm(rowptr, col, v, x))
+
+
+def _column_degree_matrix(degrees, M, seed):
+    """A CUDA SparseTensor (M, len(degrees)) whose columns have the given
+    degrees (no duplicate entry), with N(0, 1) values."""
+    rng = np.random.RandomState(seed)
+    rows, cols = [], []
+    for c, d in enumerate(degrees):
+        rows.append(rng.choice(M, d, replace=False))
+        cols.append(np.full(d, c))
+    row, col = np.concatenate(rows), np.concatenate(cols)
+    val = rng.randn(row.size).astype(np.float32)
+    return pts.SparseTensor(row=row, col=col, value=val,
+                            sparse_sizes=(M, len(degrees)), device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 4, 8, 20, 40, 128, 256, 300])
+def test_minmax_spmm_t_walk_on_gpu(K):
+    """K7b at every instance the walk's choice takes: columns of degree
+    0, 1, around the 8 edges in flight and the 32-edge index loads, and
+    2,000; values and implicit ones; a max argout over an operand with
+    -inf entries and empty rows (arg = E); g NaN or inf where no edge
+    won (the empty rows) and values inf or NaN on edges that won nothing,
+    which must add exactly nothing.  Against the plain version to 1e-5
+    of max |ref|; with g and arg 4 bytes off a 16-byte boundary (the
+    scalar instance) the same bits."""
+    _need_gpu()
+    M = 20_000
+    A = _column_degree_matrix(WALK_DEGREES * 6, M, 73)
+    rowptr, col, val = A.csr()
+    st = A.storage
+    N, E = A.sparse_sizes()[1], A.nnz()
+    x = _x(74, N, K)
+    x[::5, ::2] = -np.inf
+    x = torch.from_numpy(x).cuda()
+    _, arg = csr_spmm_minmax(rowptr, col, val, x, False)
+    empty = arg == E
+    assert bool(empty.any()) and not bool(empty.all())
+    g = torch.from_numpy(_x(75, M, K)).cuda()
+    g[empty] = torch.where(torch.arange(int(empty.sum()), device="cuda")
+                           % 2 == 0, float("nan"), float("inf"))
+    won = torch.zeros(E + 1, dtype=torch.bool, device="cuda")
+    won[arg.long().flatten()] = True
+    lost = ~won[:E]
+    assert bool(lost.any()) or K > 8
+    v = val.clone()
+    v[lost] = torch.where(torch.arange(int(lost.sum()), device="cuda") % 2
+                          == 0, float("inf"), float("nan"))
+    flat_g = torch.zeros(M * K + 1, device="cuda")
+    flat_a = torch.zeros(M * K + 1, dtype=torch.int32, device="cuda")
+    g_off, arg_off = flat_g[1:].view(M, K), flat_a[1:].view(M, K)
+    g_off.copy_(g)
+    arg_off.copy_(arg)
+    for vv in (v, None):
+        t_args = (st.colptr(), st.csc_row(), st.csr2csc(), vv, g, arg)
+        got = minmax_spmm_t(*t_args)
+        assert minmax_spmm_t.last_instance == walk_instance(K, True)
+        ref = minmax_spmm_t_plain(*t_args)
+        assert bool(torch.isfinite(got).all())
+        _same(got, ref, 1e-5)
+        off = minmax_spmm_t(*t_args[:4], g_off, arg_off)
+        assert minmax_spmm_t.last_instance == walk_instance(K, False)
+        assert torch.equal(off, got)
+    assert not bool(got[st.colptr()[1:] == st.colptr()[:-1]].any())

@@ -1,5 +1,6 @@
-"""Time the CSR walk of ``csr_spmm`` (K1) and ``shard_spmm`` (K11a) on a
-CUDA card, with two controls that bracket it.
+"""Time the CSR walks on a CUDA card: ``csr_spmm`` (K1), ``shard_spmm``
+(K11a), ``shard_spmm_minmax`` (K11b) and ``minmax_spmm_t`` (K7b), with
+two controls that bracket each.
 
 Usage (from the repo root; one card)::
 
@@ -21,25 +22,39 @@ to ``--out``) with a case per line of ``cases``:
 * K11a on shard 0 of the community hybrid graph over 4 ranks: the
   interior written and the halo frontier accumulated, at K = 20, 128 and
   256;
-* the controls at K=128, for the uniform graph, the community hybrid
-  and the K11a interior, on the same ``rowptr``: ``resident`` (every
-  column taken modulo 256, so each gathered row stays in L1: the walk's
-  instruction floor) and ``scattered`` (an operand of one row per edge,
-  each edge its own row through a seeded permutation: no reuse, the
-  L2/HBM ceiling).
+* K11b on the same shard: the interior's max written and the halo
+  frontier's max combined into it, at K = 20, 128 and 256, and the
+  cross-slice union's max combined into the interior's on shard 0 of the
+  (2, 2) hierarchical layout at K = 256 and 20;
+* K7b on the max argout of K6 (``csr_spmm_minmax``): the uniform graph
+  at K = 40, 128 and 256, the community hybrid and Reddit-10% graphs at
+  K=128;
+* the controls at K=128 on the same pointers: ``resident`` (every
+  gathered row index taken modulo 256, so the rows stay in L1: the
+  walk's instruction floor) and ``scattered`` (one operand row per edge
+  through a seeded permutation: no reuse, the L2/HBM ceiling), for K1 on
+  the uniform graph and the community hybrid, K11a's and K11b's
+  interior, and K7b on the uniform graph (its ``arg`` and ``g`` rows;
+  the scattered rows are copies of each edge's own rows, so every edge
+  wins what it won).
 
 Each case's ``ms`` is CUDA events around ``--reps`` launches after one
 warm-up (the host's launch path where it is slower than the kernel);
 ``device_ms`` is the walk kernel's own time per call from a
-``torch.profiler`` trace of ``TRACE_CALLS`` calls; ``bound_ms`` is the operand-once bound (each input read once,
-the output written once, at 3.35 TB/s) and ``row_per_edge_ms`` the bound
-that reads one operand row per edge.  Where the tree has
-``ops.kernels.csr_spmm.walk_instance``, each case names the instance
-that ran (vector width, lanes a row, rows a warp, chunks a lane, column
-tiles).
+``torch.profiler`` trace of ``TRACE_CALLS`` calls; ``bound_ms`` is the
+operand-once bound (each input read once, the output written once, at
+3.35 TB/s) and ``row_per_edge_ms`` the bound that reads one operand row
+(K7b: one ``arg`` and one ``g`` row) per edge.  ``digest`` is a SHA-1 of
+the output's bytes (K11b: ``out`` then ``arg``) from one call on fresh
+inputs, so that two trees' outputs can be compared bit for bit.  Where
+the tree has ``ops.kernels.csr_spmm.walk_instance``, each K1 and K11a
+case names the instance that ran (vector width, lanes a row, rows a
+warp, chunks a lane, column tiles); K11b and K7b name the wrapper's own
+``last_instance`` where it has one.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -50,7 +65,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESIDENT_ROWS = 256
 TRACE_CALLS = 10
 # The walk kernels' names in this tree and in older ones.
-WALK_KERNEL = re.compile(r"walk_kernel|csr_spmm_kernel|shard_spmm_kernel")
+WALK_KERNEL = re.compile(r"walk_kernel|csr_spmm_kernel|shard_spmm_kernel|"
+                         r"shard_minmax_kernel|minmax_spmm_t_kernel")
 
 
 def _device_us(evt) -> float:
@@ -58,6 +74,38 @@ def _device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def digest(*tensors) -> str:
+    """SHA-1 of the tensors' bytes, in order."""
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ptxas_summary(log: str):
+    """``[kernel, registers, spill line]`` for each kernel of a
+    ``-Xptxas -v`` log (the kernel's mangled name)."""
+    rows, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None:
+            rows.append([name, int(m.group(1)), ""])
+        elif "spill" in ln and rows:
+            rows[-1][2] = ln.split(":", 1)[-1].strip()
+    return rows
+
+
+def kernel_instance(fn):
+    """The instance the wrapper ``fn`` last launched, where it keeps
+    one."""
+    inst = getattr(fn, "last_instance", None)
+    return None if inst is None else inst._asdict()
 
 
 def main(argv=None) -> int:
@@ -79,8 +127,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, root)
     import pytorch_sparse_tpu_torch as ts
     from pytorch_sparse_tpu_torch import _build
-    from pytorch_sparse_tpu_torch.ops.kernels import csr_spmm, shard_spmm
-    from pytorch_sparse_tpu_torch.parallel import ShardedSparseMatrix
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        csr_spmm, csr_spmm_minmax, minmax_spmm_t, shard_spmm,
+        shard_spmm_minmax)
+    from pytorch_sparse_tpu_torch.parallel import (
+        HierShardedSparseMatrix, ShardedSparseMatrix, data_axis, dcn_axis)
     from pytorch_sparse_tpu_torch.segment import segment_sum_csr
     from pytorch_sparse_tpu_torch.testing import community_graph
 
@@ -96,11 +147,10 @@ def main(argv=None) -> int:
     res = {"root": root, "card": card, "torch": torch.__version__,
            "reps": args.reps, "cases": []}
     t0 = time.time()
-    _build.build(["csr_spmm", "shard_spmm"])
+    libs = ("csr_spmm", "shard_spmm", "spmm_minmax")
+    _build.build(libs)
     res["build_s"] = time.time() - t0
-    res["ptxas"] = {n: [ln for ln in _build.build_log(n).splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for n in ("csr_spmm", "shard_spmm")}
+    res["ptxas"] = {n: ptxas_summary(_build.build_log(n)) for n in libs}
 
     def timed(fn):
         """(CUDA-event ms a call, the walk kernel's device ms a call)."""
@@ -123,39 +173,56 @@ def main(argv=None) -> int:
         aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
         return walk_instance(k, aligned)._asdict()
 
-    def case(kernel, graph, k, times, R, E, n_read, out_rows, has_value,
-             accumulate=False, has_map=False, inst=None, **kw):
+    def record(kernel, graph, k, times, bound, row_per_edge, R, E, inst,
+               dig, **kw):
         ms, device_ms = times
-        bound, by = cs.shard_bounds(R, E, k, n_read, out_rows, has_value,
-                                    accumulate, has_map)
-        row_per_edge = cs.shard_row_per_edge_ms(R, E, k, out_rows,
-                                                accumulate)
         entry = {"kernel": kernel, "graph": graph, "K": k, "ms": ms,
-                 "device_ms": device_ms, "bound_ms": bound, "bound_by": by,
-                 "row_per_edge_ms": row_per_edge, "rows": R, "edges": E,
-                 "instance": inst, **kw}
+                 "device_ms": device_ms, "bound_ms": bound[0],
+                 "bound_by": bound[1], "row_per_edge_ms": row_per_edge,
+                 "rows": R, "edges": E, "instance": inst, "digest": dig,
+                 **kw}
         res["cases"].append(entry)
         print(json.dumps(entry), flush=True)
 
+    def case(kernel, graph, k, fn, R, E, n_read, out_rows, has_value,
+             accumulate=False, has_map=False, inst=None, minmax=False,
+             has_pos=False, fresh=None, **kw):
+        """A K1, K11a or K11b case: ``fn()`` is timed; the digest is of
+        ``fresh()`` (a call on fresh outputs where ``fn`` accumulates or
+        combines in place), else of ``fn()``."""
+        got = (fresh or fn)()
+        dig = digest(*(got if minmax else (got,)))
+        if minmax:
+            inst = kernel_instance(shard_spmm_minmax)
+        bound = cs.shard_bounds(R, E, k, n_read, out_rows, has_value,
+                                accumulate, has_map, minmax=minmax,
+                                has_pos=has_pos)
+        per_out = 2 if minmax else 1
+        row_per_edge = cs.shard_row_per_edge_ms(R, E, k, out_rows * per_out,
+                                                accumulate)
+        record(kernel, graph, k, timed(fn), bound, row_per_edge, R, E, inst,
+               dig, **kw)
+
     def controls(kernel, graph, rowptr, col, val, call, R, out_rows,
-                 accumulate=False, has_map=False):
+                 accumulate=False, has_map=False, **kw):
         """The resident and scattered controls of one walk at K=128:
         ``call(col, x)`` launches it."""
         E = col.shape[0]
         col_r = torch.remainder(col, RESIDENT_ROWS)
         x_r = cs.operand(torch, RESIDENT_ROWS, cs.K, 41, device)
         case(kernel, f"{graph}, control resident", cs.K,
-             timed(lambda: call(col_r, x_r)), R, E, RESIDENT_ROWS, out_rows,
+             lambda: call(col_r, x_r), R, E, RESIDENT_ROWS, out_rows,
              val is not None, accumulate, has_map,
-             instance(cs.K, x_r))
+             instance(cs.K, x_r), **kw)
         del col_r, x_r
         gen = torch.Generator(device=device).manual_seed(42)
         col_s = torch.randperm(E, generator=gen, device=device).to(
             torch.int32)
         x_s = torch.randn((E, cs.K), generator=gen, device=device)
         case(kernel, f"{graph}, control scattered", cs.K,
-             timed(lambda: call(col_s, x_s)), R, E, E, out_rows,
-             val is not None, accumulate, has_map, instance(cs.K, x_s))
+             lambda: call(col_s, x_s), R, E, E, out_rows,
+             val is not None, accumulate, has_map, instance(cs.K, x_s),
+             **kw)
         del col_s, x_s
         torch.cuda.empty_cache()
 
@@ -167,17 +234,17 @@ def main(argv=None) -> int:
     for k in (1, 8, 40, 128, 256):
         x = cs.operand(torch, Mu, k, 2, device)
         case("csr_spmm", "uniform", k,
-             timed(lambda: csr_spmm(rowptr, col, val, x)), Mu, Eu, n_u, Mu,
+             lambda: csr_spmm(rowptr, col, val, x), Mu, Eu, n_u, Mu,
              True, inst=instance(k, x))
         del x
     w = cs.operand(torch, Eu, 1, 3, device).reshape(Eu)
     case("csr_spmm", "uniform, segment_sum_csr (identity columns)", 1,
-         timed(lambda: segment_sum_csr(w, rowptr)), Mu, Eu, Eu, Mu, False,
+         lambda: segment_sum_csr(w, rowptr), Mu, Eu, Eu, Mu, False,
          inst=instance(1, w))
     del w
     controls("csr_spmm", "uniform", rowptr, col, val,
              lambda c, x: csr_spmm(rowptr, c, val, x), Mu, Mu)
-    del A_u, rowptr, col, val
+    del rowptr, col, val
 
     # ---- K1: the community hybrid graph ---------------------------------
     Mh, Eh, nh = cs.HYBRID
@@ -186,7 +253,7 @@ def main(argv=None) -> int:
     rowptr, col, val = A_h.csr()
     x = cs.operand(torch, Mh, cs.K, 2, device)
     case("csr_spmm", "community hybrid", cs.K,
-         timed(lambda: csr_spmm(rowptr, col, val, x)), Mh, A_h.nnz(),
+         lambda: csr_spmm(rowptr, col, val, x), Mh, A_h.nnz(),
          int(torch.unique(col).numel()), Mh, True, inst=instance(cs.K, x))
     del x
     controls("csr_spmm", "community hybrid", rowptr, col, val,
@@ -216,11 +283,16 @@ def main(argv=None) -> int:
                 fn = (lambda grp=grp, buf=buf, out_t=out_t: shard_spmm(
                     grp.rowptr, grp.col, grp.value, buf, out=out_t,
                     row_map=grp.row_map))
-            case("shard_spmm", f"shard 0 {label}", k, timed(fn), R_,
+            fresh = (None if acc is None else
+                     lambda grp=grp, buf=buf, acc=acc: shard_spmm(
+                         grp.rowptr, grp.col, grp.value, buf,
+                         out=acc.clone(), row_map=grp.row_map))
+            case("shard_spmm", f"shard 0 {label}", k, fn, R_,
                  grp.nnz, int(torch.unique(grp.col).numel()), R_,
                  grp.value is not None, acc is not None,
                  grp.row_map is not None,
-                 inst=instance(k, buf, *(() if out_t is None else (out_t,))))
+                 inst=instance(k, buf, *(() if out_t is None else (out_t,))),
+                 fresh=fresh)
             del out_t
         del xb0, halo0, base
     grp = it0
@@ -230,6 +302,138 @@ def main(argv=None) -> int:
                                      row_map=grp.row_map, n_rows=Mb0),
              grp.rowptr.shape[0] - 1, grp.rowptr.shape[0] - 1,
              has_map=grp.row_map is not None)
+
+    # ---- K11b: the same shard's max, and the hierarchical union ---------
+    e0 = shard0.e0
+
+    def minmax_case(label, grp, buf, k, into=None, **kw):
+        """K11b on ``grp`` against ``buf``: written (``into`` None) or
+        combined into a copy of the running pair ``into``."""
+        R_ = grp.rowptr.shape[0] - 1
+        sargs = (grp.rowptr, grp.col, grp.value, buf, False)
+        if into is None:
+            def fn():
+                return shard_spmm_minmax(*sargs, e0, pos=grp.pos,
+                                         row_map=grp.row_map, n_rows=Mb0)
+            fresh = None
+        else:
+            o_t, a_t = into[0].clone(), into[1].clone()
+
+            def fn():
+                return shard_spmm_minmax(*sargs, e0, pos=grp.pos, out=o_t,
+                                         arg=a_t, row_map=grp.row_map)
+
+            def fresh():
+                return shard_spmm_minmax(*sargs, e0, pos=grp.pos,
+                                         out=into[0].clone(),
+                                         arg=into[1].clone(),
+                                         row_map=grp.row_map)
+        case("shard_spmm_minmax", label, k, fn, R_, grp.nnz,
+             int(torch.unique(grp.col).numel()), R_, grp.value is not None,
+             into is not None, grp.row_map is not None, minmax=True,
+             has_pos=grp.pos is not None, fresh=fresh, **kw)
+
+    for k in (20, 128, 256):
+        xb0 = cs.operand(torch, Nb0, k, 31, device)
+        halo0 = cs.operand(torch, PH0, k, 32, device)
+        running = shard_spmm_minmax(it0.rowptr, it0.col, it0.value, xb0,
+                                    False, e0, pos=it0.pos,
+                                    row_map=it0.row_map, n_rows=Mb0)
+        minmax_case("shard 0 interior max, write", it0, xb0, k)
+        minmax_case("shard 0 halo frontier max, combine", fr0, halo0, k,
+                    into=running)
+        del xb0, halo0, running
+    grp = it0
+    controls("shard_spmm_minmax", "shard 0 interior max, write", grp.rowptr,
+             grp.col, grp.value,
+             lambda c, x: shard_spmm_minmax(
+                 grp.rowptr, c, grp.value, x, False, e0, pos=grp.pos,
+                 row_map=grp.row_map, n_rows=Mb0),
+             grp.rowptr.shape[0] - 1, grp.rowptr.shape[0] - 1,
+             has_map=grp.row_map is not None, minmax=True,
+             has_pos=grp.pos is not None)
+    del shard0, hl0, it0, fr0
+    hs0 = HierShardedSparseMatrix.from_sparse_tensor(
+        A_h, cs.HostGrid((dcn_axis, data_axis), cs.HIER_GRID, 0, device))
+    ht0 = hs0._tables
+    hint, union = ht0.group(0), ht0.group(2)
+    e0, Mb0 = hs0.e0, hs0.Mb
+    for k in (256, cs.K2D_SLICE):
+        xb0 = cs.operand(torch, hs0.Nb, k, 31, device)
+        buf = cs.operand(torch, ht0.sizes[2], k, 36, device)
+        running = shard_spmm_minmax(hint.rowptr, hint.col, hint.value, xb0,
+                                    False, e0, pos=hint.pos)
+        minmax_case("hier (2, 2) shard 0 cross-slice union max, combine",
+                    union, buf, k, into=running,
+                    buffer_rows=ht0.sizes[2])
+        del xb0, buf, running
+    del hs0, ht0, hint, union
+    torch.cuda.empty_cache()
+
+    # ---- K7b: the backward of K6's max argout over the CSC view ---------
+    def k7b_bounds(N, E, k, has_value):
+        """K7b's row-per-edge yardstick: one arg row and one g row per
+        edge, the CSC indices, the values and the output once."""
+        nbytes = 4 * (N + 1) + 8 * E + (4 * E if has_value else 0) \
+            + 8 * k * E + 4 * N * k
+        return nbytes / cs.HBM_BYTES_PER_S * 1e3
+
+    def k7b_case(graph, t_args, N, k, col, **kw):
+        colptr, csc_row, csr2csc, val, g, arg = t_args
+        E = csc_row.shape[0]
+
+        def fn():
+            return minmax_spmm_t(*t_args)
+        dig = digest(fn())
+        bound = cs.minmax_bwd_bounds(torch, col, arg, N, val is not None)[1]
+        record("minmax_spmm_t", graph, k, timed(fn), bound,
+               k7b_bounds(N, E, k, val is not None), N, E,
+               kernel_instance(minmax_spmm_t), dig, **kw)
+
+    def k7b_inputs(A, k):
+        rowptr, col, val = A.csr()
+        st = A.storage
+        m_, n_ = A.sparse_sizes()
+        x = cs.operand(torch, n_, k, 2, device)
+        _, arg = csr_spmm_minmax(rowptr, col, val, x, False)
+        g = cs.operand(torch, m_, k, 4, device)
+        return (st.colptr(), st.csc_row(), st.csr2csc(), val, g, arg), n_, col
+
+    for k in (40, 128, 256):
+        t_args, n_, col = k7b_inputs(A_u, k)
+        k7b_case("uniform", t_args, n_, k, col)
+        if k == cs.K:
+            colptr, csc_row, csr2csc, val, g, arg = t_args
+            rows_r = torch.remainder(csc_row, RESIDENT_ROWS)
+            k7b_case("uniform, control resident", (colptr, rows_r, csr2csc,
+                                                    val, g, arg), n_, k, col)
+            del rows_r
+            # Each CSC position p reads its own copy of its row's arg and
+            # g: the same wins and sums, every row read once.
+            E = csc_row.shape[0]
+            gen = torch.Generator(device=device).manual_seed(42)
+            perm = torch.randperm(E, generator=gen, device=device)
+            arg_s = torch.empty((E, k), dtype=arg.dtype, device=device)
+            g_s = torch.empty((E, k), dtype=g.dtype, device=device)
+            arg_s[perm] = arg[csc_row.long()]
+            g_s[perm] = g[csc_row.long()]
+            k7b_case("uniform, control scattered",
+                     (colptr, perm.to(torch.int32), csr2csc, val, g_s,
+                      arg_s), n_, k, col)
+            del perm, arg_s, g_s
+        del t_args
+        torch.cuda.empty_cache()
+    del A_u
+    t_args, n_, col = k7b_inputs(A_h, cs.K)
+    k7b_case("community hybrid", t_args, n_, cs.K, col)
+    del t_args, A_h
+    torch.cuda.empty_cache()
+    Mr, Er, nr = cs.REDDIT10
+    A_r = community_graph(Mr, Er, n_comm=nr, seed=1, equal_sizes=True,
+                          device=device)
+    t_args, n_, col = k7b_inputs(A_r, cs.K)
+    k7b_case("community Reddit-10%", t_args, n_, cs.K, col)
+    del t_args, A_r
 
     line = json.dumps(res)
     print(line, flush=True)
