@@ -224,16 +224,20 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    DCN deduplication factor) and staged bytes are reported.
 17. The gather probe (``benchmarks.probe_vmem_gather.run``) on phase 3's
    uniform graph and the community hybrid graph: ``smem_gather`` (K13a)
-   at T=2048 and 8, K=128, equal to ``index_select``; ``edge_scan_loop``
+   at T=2048 and 8, K=128, a column slab of the table a block, equal to
+   ``index_select``, timed with it in alternating pairs; ``edge_scan_loop``
    (K13b) at R=1, 8 and 40 within 1e-5 of the looped ``torch.cumsum``,
    and its time a pass; ``tiled_spmm`` (K13c) on both graphs at K=128,
-   tiles of 1024, 512 and 256 rows, with values and implicit ones, and
+   tiles of 512, 256 and 128 rows, with values and implicit ones, and
    as a control with no tile staged, and on a small graph with every
    pair staged, each within 1e-5 of its plain version and equal to
    ``csr_spmm`` bit for bit.  Each is timed by the
    probe's ``device_time`` beside its bound and a library call
    (``index_select``, ``cumsum``, cuSPARSE), K13c beside ``csr_spmm``;
-   the ``gather_probe`` line holds the verdict.
+   K13a and K13c also by their device time in a ``torch.profiler`` trace
+   (``device_ms``), beside the library's, and K13c beside the floor
+   that shared memory's rate puts under its staged edges; the
+   ``gather_probe`` line holds the verdict.
 
 The main path is phases 4 to 17, each driven once with every launch
 count set to 0 just before it and read just after it.  Each phase must
@@ -4114,7 +4118,8 @@ def main(argv=None) -> int:
         """The probe's own checks, and the ``kernels`` line entries of
         K13a/K13b/K13c: its times beside each kernel's bound and a
         library call on the same inputs, timed as the probe times
-        (``device_time``'s slope)."""
+        (``device_time``'s slope), and K13a's and K13c's device ms (a
+        ``torch.profiler`` trace) beside the library's."""
         failures.extend(f"phase 17: {f_}" for f_ in r["failures"])
         call_ms = probe_vmem_gather.call_ms
         src = "benchmarks/probe_vmem_gather.py"
@@ -4127,9 +4132,11 @@ def main(argv=None) -> int:
             cases.append({
                 "case": f"T={Tt} K={Kt}", "max_abs_err": c["max_abs_err"],
                 "max_rel_err": c["max_rel_err"], "ok": c["exact"],
-                "ms": c["ms"], "plain_ms": c["plain_ms"],
-                "library_ms": call_ms(
-                    lambda: torch.index_select(table, 0, idx), table, 3),
+                "ms": c["ms"], "device_ms": c["device_ms"],
+                "pairs_won": c["pairs_won"], "rounds_ms": c["rounds_ms"],
+                "library_rounds_ms": c["library_rounds_ms"],
+                "plain_ms": c["plain_ms"], "library_ms": c["library_ms"],
+                "library_device_ms": c["library_device_ms"],
                 "bound_ms": t_b * 1e3, "bound_by": "bytes"})
         entry_a = kernel_entry(
             "smem_gather", "smem_gather.cu", "", cases,
@@ -4138,6 +4145,7 @@ def main(argv=None) -> int:
             f"{K}) f32, also T=8")
         entry_a["replaces"] = (f"{src}:45 _call <- :64 gather_kernel, "
                                ":86 gather8_kernel")
+        entry_a["device_ms"] = cases[0]["device_ms"]
 
         h = probe_vmem_gather.scan_input(device)
         Th, Kh = h.shape
@@ -4148,7 +4156,8 @@ def main(argv=None) -> int:
             t_f = 3 * c["R"] * Th * Kh / FP32_FLOPS_PER_S
             case = {"case": f"R={c['R']}", "max_abs_err": c["max_abs_err"],
                     "max_rel_err": c["max_rel_err"], "ok": c["ok"],
-                    "ms": c["ms"], "plain_ms": c.get("plain_ms"),
+                    "ms": c["ms"], "device_ms": c.get("device_ms"),
+                    "plain_ms": c.get("plain_ms"),
                     "library_ms": None,
                     "bound_ms": max(t_b, t_f) * 1e3,
                     "bound_by": "bytes" if t_b >= t_f else "operations"}
@@ -4161,17 +4170,14 @@ def main(argv=None) -> int:
             "torch.cumsum(h, dim=0) (R=1)", f"h ({Th}, {Kh}) f32, R=1, 8, 40")
         entry_b["replaces"] = (f"{src}:45 _call <- :107 kernel of "
                                "_loop_time, :136 c_body")
+        entry_b["device_ms"] = cases[0]["device_ms"]
         entry_b.update(us_per_pass=r["scan_us_per_pass"],
                        ns_per_edge=r["scan_ns_per_edge"])
 
         cases = []
         for gname, A_ in (("uniform", A_u), ("community hybrid", A_h)):
-            rp, cl, vv = A_.csr()
             M_, E_ = A_.sparse_size(0), A_.nnz()
-            ncols_ = int(torch.unique(cl).numel())
-            x_ = operand(torch, A_.sparse_size(1), K, 2, device)
-            csr_t = torch.sparse_csr_tensor(rp, cl, vv, A_.sparse_sizes())
-            lib_ms = call_ms(lambda: csr_t @ x_, x_, 3)
+            ncols_ = int(torch.unique(A_.csr()[1]).numel())
             for c in r["tiled"]:
                 if c["graph"] != gname:
                     continue
@@ -4183,14 +4189,17 @@ def main(argv=None) -> int:
                     "max_abs_err": c["max_abs_err"],
                     "max_rel_err": c["max_rel_err"], "ok": c["ok"],
                     "equal_csr_spmm": c["equal_k1"], "ms": c["ms"],
+                    "device_ms": c["device_ms"],
                     "plain_ms": c["plain_ms"], "csr_spmm_ms": c["k1_ms"],
-                    "library_ms": lib_ms if c["values"] else None,
+                    "csr_spmm_device_ms": c["k1_device_ms"],
+                    "library_ms": c.get("library_ms"),
+                    "library_device_ms": c.get("library_device_ms"),
                     "bound_ms": bound, "bound_by": by,
                     **{k_: c[k_] for k_ in (
-                        "pairs", "staged_pairs", "staged_edge_share",
-                        "staged_bytes", "direct_gather_bytes",
-                        "k1_gather_bytes", "smem_bytes")}})
-            del x_, csr_t
+                        "slab", "pairs", "staged_pairs", "staged_edge_share",
+                        "staged_bytes", "smem_edge_bytes", "smem_floor_ms",
+                        "direct_gather_bytes", "k1_gather_bytes",
+                        "smem_bytes")}})
         for c in r["tiled"]:
             if c["graph"] not in ("uniform", "community hybrid"):
                 cases.append({
@@ -4204,10 +4213,12 @@ def main(argv=None) -> int:
             "tiled_spmm", "smem_gather.cu", "", cases,
             "torch.sparse_csr_tensor(...) @ x (cuSPARSE)",
             f"M={Mu} E={Eu} K={K} f32 values, tiles of "
-            f"{probe_vmem_gather.TILES[0]} rows")
+            f"{probe_vmem_gather.TILES[0]} rows, slabs of {r['slab']} "
+            "columns")
         entry_c["replaces"] = (f"{src}:45 _call (the design judged at "
                                ":1-25, a CSR SpMM gathering from on-chip "
                                "tiles)")
+        entry_c["device_ms"] = cases[0]["device_ms"]
         for e_ in (entry_a, entry_b, entry_c):
             e_["launches"] = launches[e_["name"]]
             kernels.append(e_)

@@ -18,71 +18,161 @@
 // What bounds it on an H100, kernel by kernel.  K13a and K13b move 1 MiB
 // each way and are bound by launch and latency at the probe's size: the
 // question is whether the design is expressible, and what a pass
-// costs.  K13c is bound by device-memory bytes like the CSR kernel
-// (csr_spmm.cu): each edge of K1 gathers one K-wide row of X from L2 or
-// device memory.  Where a (row block, tile) pair holds many edges, K13c
-// reads the tile's rows once into shared memory and serves every edge of
-// the pair from there.
+// costs.  K13c is bound like the CSR kernel (csr_spmm.cu) by the rows of
+// x its edges gather, one K-wide row an edge, from L2 or device memory;
+// where a (row block, tile) pair holds many edges, K13c reads the tile's
+// rows once into shared memory and serves every edge of the pair from
+// there, at shared memory's rate (128 bytes a clock an SM).
 //
-// K13a: each block stages all T rows of a slab of Kc columns (T * Kc * 4
-// bytes of dynamic shared memory, up to 227 KB) and writes every output
-// row of that slab from it; gridDim.y = ceil(K / Kc).  An index outside
-// [0, T) reads nothing and writes NaN.
+// K13a: each block stages one float4-wide column slab of all T rows (32
+// KB at T = 2048) and writes that slab of its share of the output rows;
+// grid (row chunks, K / 4).  Measured on an H100 (PERF.md, the K13a
+// findings), it is faster than a table split by rows over a thread-block
+// cluster's shared memory and read across it (4.3 against 7.9 us at
+// T = 2048).
+// An index outside [0, T) reads nothing and writes NaN.
 //
 // K13b: one warp per column.  A lane holds four consecutive rows and
 // scans them itself; a warp-shuffle scan of the lanes' totals and a carry
 // from the previous 128 rows give each row's prefix.  The R passes run
 // inside the launch and add into the output (pass 0 writes it).
 //
-// K13c: a block owns 256 rows (16 warps of 16) and one slab of 32
-// columns (one a lane).  It first copies every tile that the plan stages
-// for its rows, X[tile rows, slab] (at most 227 KB in all), into shared
-// memory, with a table from each tile of x to its place there.  Then each
-// warp walks the edges of its 16 rows once, in CSR order, 32 at a time:
-// an edge whose column lies in a staged tile reads x from shared memory,
-// any other from device memory.  Each output element is one fmaf chain
-// from 0 over its row's edges in CSR order, the chain of csr_spmm.cu: the
-// two kernels agree bit for bit, whatever the order of columns in a row.
-// Sixteen edges' loads (and the next chunk's indices) are issued before
-// their adds, the tile or device memory chosen by a select of two
-// addresses rather than a branch, so that a row's few edges outside the
-// staged tiles wait for device memory together.
-//
+// K13c: the CSR walk of csr_walk.cuh (its Lanes and Batch arithmetic and
+// its 16-byte chunks) over a column slab of W = vec * lanes columns
+// (gridDim.y = ceil(K / W), slab-major, so that one slab of x is read
+// while it sits in L2): a sub-warp of `lanes` lanes walks a row, so a
+// warp walks 32 / lanes rows at once, with 8 edges' rows issued before
+// their FMAs, every load unconditional, and the next 8 edges' indices
+// loaded before this batch's rows.  A block of 16 warps owns 256 rows.
+// It first copies every tile that the plan stages for its rows, X[tile
+// rows, slab], into shared memory with 16-byte cp.async, with a slot
+// table from each tile of x to its place there; the plan keeps a block
+// within 113 KB so that two blocks share an SM and one's staging overlaps
+// the other's walk.  The lane that loads an edge's column looks its slot
+// up once and makes the row's address, in the staged tile or in x (a
+// select of two addresses, not a branch), and the sub-warp shuffles it
+// round.  A block that stages nothing walks as K1 does, from x.  Each
+// output element is one fmaf chain from 0 over its row's edges in CSR
+// order, the chain of csr_walk.cuh: K13c and K1 agree bit for bit.
+// Measured on an H100 (PERF.md, the K13c findings): a slab of 32
+// columns beats K1 on the uniform graph, but staging loses on the
+// community graph, where L1 already holds a row block's slab of x (128
+// B a row) and the staged tiles take L1's room.
+
 // The interface is plain C, bound from Python with ctypes: pointers come
 // in as void*, the launch goes on the caller's stream, and the return
-// value is cudaGetLastError() after the launch.
+// value is cudaGetLastError() after the launch.  A kernel's shared-memory
+// attributes are set once per kernel and device, and the device is set
+// only when it is not already current.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <type_traits>
+
+#include "csr_walk.cuh"
 
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxSmem = 232448;  // 227 KB, a block's most on sm_90
 
+int use_device(int device) {
+  int cur = -1;
+  if (cudaGetDevice(&cur) == cudaSuccess && cur == device) return 0;
+  return (int)cudaSetDevice(device);
+}
+
+// Lets `fn` take up to kMaxSmem of dynamic shared memory on the current
+// device, once: the attribute is a ceiling, and the launch's own size
+// still decides how many blocks share an SM.
+cudaError_t allow_smem(const void* fn, int device) {
+  struct Grant {
+    const void* fn;
+    int device;
+  };
+  static std::mutex mu;
+  static Grant granted[256];
+  static int n_granted = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_granted; ++i) {
+    if (granted[i].fn == fn && granted[i].device == device) return cudaSuccess;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess && n_granted < 256) {
+    granted[n_granted++] = Grant{fn, device};
+  }
+  return err;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// VEC floats from p to q: one 16-byte load and store where VEC == 4.
+template <int VEC>
+__device__ __forceinline__ void copy_chunk(float* q, const float* p) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(q) = *reinterpret_cast<const float4*>(p);
+  } else {
+    *q = *p;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void nan_chunk(float* q) {
+  const float nan = __int_as_float(0x7fc00000);
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(q) = make_float4(nan, nan, nan, nan);
+  } else {
+    *q = nan;
+  }
+}
+
 // ---- K13a ------------------------------------------------------------------
 
-constexpr int kGatherThreads = 512;
+constexpr int kSlabThreads = 256;
 
-__global__ void __launch_bounds__(kGatherThreads)
-smem_gather_kernel(const int* __restrict__ idx,
+// smem: the column slab [VEC * blockIdx.y, + VEC) of all T rows.
+template <int VEC>
+__global__ void __launch_bounds__(kSlabThreads)
+gather_slab_kernel(const int* __restrict__ idx,
                    const float* __restrict__ table, float* __restrict__ out,
-                   int n, int T, int K, int Kc) {
-  extern __shared__ float tile[];  // T x Kc
-  const int k0 = blockIdx.y * Kc;
-  const int kw = min(Kc, K - k0);
-  for (int e = threadIdx.x; e < T * kw; e += blockDim.x) {
-    const int r = e / kw, kk = e - r * kw;
-    tile[r * Kc + kk] = __ldg(table + (int64_t)r * K + k0 + kk);
+                   int n, int T, int K) {
+  extern __shared__ __align__(16) float slab[];
+  const int k0 = blockIdx.y * VEC;
+  if constexpr (VEC == 4) {
+    for (int r = threadIdx.x; r < T; r += blockDim.x) {
+      cp_async16(slab + 4 * r, table + (int64_t)r * K + k0);
+    }
+    cp_async_wait_all();
+  } else {
+    for (int r = threadIdx.x; r < T; r += blockDim.x) {
+      slab[r] = __ldg(table + (int64_t)r * K + k0);
+    }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < n * kw; e += blockDim.x) {
-    const int i = e / kw, kk = e - i * kw;
+  const int per = (n + gridDim.x - 1) / gridDim.x;
+  const int i0 = blockIdx.x * per;
+  const int i1 = min(n, i0 + per);
+  for (int i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
     const int r = __ldg(idx + i);
-    out[(int64_t)i * K + k0 + kk] = (unsigned)r < (unsigned)T
-                                        ? tile[r * Kc + kk]
-                                        : __int_as_float(0x7fc00000);
+    float* o = out + (int64_t)i * K + k0;
+    if ((unsigned)r < (unsigned)T) {
+      copy_chunk<VEC>(o, slab + VEC * r);
+    } else {
+      nan_chunk<VEC>(o);
+    }
   }
 }
 
@@ -134,172 +224,243 @@ edge_scan_kernel(const float* __restrict__ h, float* __restrict__ out, int T,
 
 // ---- K13c ------------------------------------------------------------------
 
-constexpr int kTileWarps = 16;
-constexpr int kRowsPerWarp = 16;
-constexpr int kRowsPerBlock = kTileWarps * kRowsPerWarp;  // 256
-constexpr int kSlab = 32;
-constexpr int kIlp = 16;  // loads in flight a warp
+constexpr int kTileThreads = 512;
+constexpr int kTileMinBlocks = 2;  // two blocks an SM: 64 registers a lane
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kRowsPerBlock = 256;
+constexpr int kTileU = csr_walk::kEdgesInFlight;  // edges' rows in flight
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
+// The walk of one block's rows over its column slab, as K1 walks: the
+// sub-warp shuffles each edge's column (and value) round and each lane
+// loads its chunk of the row, 8 rows in flight; the next batch's indices
+// are loaded before this batch's rows.  STAGED: the lane that loads an
+// edge's column looks its tile up in slot[] once for the sub-warp and
+// hands on the row's address, in the staged tile or in x, which the
+// lanes read with one generic load: a select of two addresses, not a
+// branch.
+template <int VEC, int LPR, bool HAS_VAL, bool STAGED>
+__device__ __forceinline__ void tiled_walk(
+    const int* __restrict__ rowptr, const int* __restrict__ col,
+    const float* __restrict__ val, const float* __restrict__ x,
+    const short* slot, const float* tiles, float* __restrict__ out, int M,
+    int K, int tshift) {
+  using Ln = csr_walk::Lanes<VEC, LPR, 1>;
+  using Bt = csr_walk::Batch<LPR, kTileU>;
+  constexpr int W = VEC * LPR;                 // the slab's columns
+  constexpr int SUBS = kTileWarps * Ln::RPW;   // sub-warps a block
+  constexpr int U = kTileU;
+  // What a sub-warp hands round for an edge: the row's address where the
+  // block stages, else its column.
+  using Src =
+      typename std::conditional<STAGED, unsigned long long, int>::type;
+  Ln ln;
+  ln.place(K);
+  const int kbase = blockIdx.y * W;
+  const int loff = ln.live[0] ? ln.s * VEC : 0;  // a dead lane reads chunk 0
+  const int tmask = (1 << tshift) - 1;
+  const int r_end = min(M, (int)(blockIdx.x + 1) * kRowsPerBlock);
+
+  auto fetch = [&](int base, int end, Src (&mc)[Bt::IPL],
+                   float (&mv)[Bt::IPL]) {
+#pragma unroll
+    for (int i = 0; i < Bt::IPL; ++i) {
+      const int e = Bt::edge(base, ln.s, i, end);
+      const int c = __ldg(col + e);
+      mv[i] = HAS_VAL ? __ldg(val + e) : 1.f;
+      if constexpr (STAGED) {
+        const int sl = slot[c >> tshift];
+        const float* p = sl >= 0 ? tiles + ((sl << tshift) + (c & tmask)) * W
+                                 : x + (int64_t)c * K + kbase;
+        mc[i] = reinterpret_cast<unsigned long long>(p);
+      } else {
+        mc[i] = c;
+      }
+    }
+  };
+
+  for (int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5) * Ln::RPW +
+                 ln.lane / LPR;
+       row < r_end; row += SUBS) {  // uniform across the sub-warp
+    float acc[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
+    const int start = __ldg(rowptr + row);
+    const int end = __ldg(rowptr + row + 1);
+    Src mc[Bt::IPL];
+    float mv[Bt::IPL];
+    if (start < end) fetch(start, end, mc, mv);
+    for (int base = start; base < end; base += Bt::CH) {
+      const int n = min(Bt::CH, end - base);
+      // The next batch's indices (clamped to the row's last edge).
+      Src mc_next[Bt::IPL];
+      float mv_next[Bt::IPL];
+      fetch(base + Bt::CH, end, mc_next, mv_next);
+      for (int g = 0; g < n; g += U) {
+        float v[U];
+        float xv[U][VEC];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          v[u] = HAS_VAL ? Bt::take(ln.mask, mv, g, u) : 1.f;
+          const Src c = Bt::take(ln.mask, mc, g, u);
+          if constexpr (STAGED) {
+            // Shared or device memory, by the address: a generic load.
+            const float* p = reinterpret_cast<const float*>(c) + loff;
+            if constexpr (VEC == 4) {
+              const float4 q = *reinterpret_cast<const float4*>(p);
+              xv[u][0] = q.x;
+              xv[u][1] = q.y;
+              xv[u][2] = q.z;
+              xv[u][3] = q.w;
+            } else {
+              xv[u][0] = *p;
+            }
+          } else {
+            csr_walk::load_chunk<VEC>(x + (int64_t)c * K + kbase + loff,
+                                      xv[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (g + u < n) {
+#pragma unroll
+            for (int q = 0; q < VEC; ++q) acc[q] = fmaf(v[u], xv[u][q], acc[q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < Bt::IPL; ++i) {
+        mc[i] = mc_next[i];
+        mv[i] = mv_next[i];
+      }
+    }
+    if (ln.live[0]) {
+      float* o = out + (int64_t)row * K + ln.c0;
+      if constexpr (VEC == 4) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(acc[0], acc[1], acc[2], acc[3]);
+      } else {
+        o[0] = acc[0];
+      }
+    }
+  }
 }
 
 // smem: a slot table (one short a tile of x: the tile's place among the
-// block's staged tiles, or -1), then the staged tiles, T x kSlab floats
-// each.
-template <bool HAS_VAL>
-__global__ void __launch_bounds__(kTileWarps * 32)
+// block's staged tiles, or -1), then the staged tiles, T x W floats each.
+template <int VEC, int LPR, bool HAS_VAL>
+__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
 tiled_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ col,
                   const float* __restrict__ val, const float* __restrict__ x,
                   const int* __restrict__ stage_ptr,
                   const int* __restrict__ stage_tile, float* __restrict__ out,
                   int M, int N, int K, int tshift, int n_tiles,
                   int slot_bytes) {
+  constexpr int W = VEC * LPR;
+  const int s0 = __ldg(stage_ptr + blockIdx.x);
+  const int ns = __ldg(stage_ptr + blockIdx.x + 1) - s0;
+  if (ns == 0) {  // uniform across the block
+    tiled_walk<VEC, LPR, HAS_VAL, false>(rowptr, col, val, x, nullptr,
+                                         nullptr, out, M, K, tshift);
+    return;
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   short* slot = reinterpret_cast<short*>(smem_raw);
   float* tiles = reinterpret_cast<float*>(smem_raw + slot_bytes);
   const int T = 1 << tshift;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int kbase = blockIdx.y * kSlab;
-  const int k = kbase + lane;
-  const bool kin = k < K;
-  const int kx = kin ? k : 0;  // a lane past K reads a valid column
-  const int s0 = stage_ptr[blockIdx.x];
-  const int ns = stage_ptr[blockIdx.x + 1] - s0;
-
+  const int kbase = blockIdx.y * W;
+  const int kw = min(W, K - kbase);  // the slab's columns below K
   for (int i = threadIdx.x; i < n_tiles; i += blockDim.x) slot[i] = -1;
+  // The slab of every staged tile's rows, all copies in flight at once;
+  // columns past K are left unwritten (only dead lanes read them).
+  for (int i = 0; i < ns; ++i) {
+    const int c0 = __ldg(stage_tile + s0 + i) << tshift;
+    const int rows = min(T, N - c0);
+    float* dst = tiles + (size_t)i * T * W;
+    const float* src = x + (int64_t)c0 * K + kbase;
+    if constexpr (VEC == 4) {
+      const int per_row = kw / 4;
+      for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+        const int r = e / per_row, q = e - r * per_row;
+        cp_async16(dst + r * W + 4 * q, src + (int64_t)r * K + 4 * q);
+      }
+    } else {
+      for (int e = threadIdx.x; e < rows * kw; e += blockDim.x) {
+        const int r = e / kw, q = e - r * kw;
+        dst[r * W + q] = __ldg(src + (int64_t)r * K + q);
+      }
+    }
+  }
+  __syncthreads();  // the slot table is reset
+  for (int i = threadIdx.x; i < ns; i += blockDim.x) {
+    slot[__ldg(stage_tile + s0 + i)] = (short)i;
+  }
+  cp_async_wait_all();
   __syncthreads();
-  if (ns > 0) {  // uniform across the block
-    for (int i = threadIdx.x; i < ns; i += blockDim.x) {
-      slot[stage_tile[s0 + i]] = (short)i;
-    }
-    // Whole 16-byte pieces of the slab in every row of x: asynchronous
-    // copies, all of the block's tiles in flight at once.
-    const bool vec = (K % 4) == 0 && kbase + kSlab <= K &&
-                     (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-    for (int i = 0; i < ns; ++i) {
-      const int c0 = stage_tile[s0 + i] << tshift;
-      const int rows = min(T, N - c0);
-      float* dst = tiles + (size_t)i * T * kSlab;
-      if (vec) {
-        for (int e = threadIdx.x; e < rows * (kSlab / 4); e += blockDim.x) {
-          const int r = e / (kSlab / 4), q = e % (kSlab / 4);
-          cp_async16(dst + r * kSlab + 4 * q,
-                     x + (int64_t)(c0 + r) * K + kbase + 4 * q);
-        }
-      } else {
-        for (int e = threadIdx.x; e < rows * kSlab; e += blockDim.x) {
-          const int kk = kbase + (e & (kSlab - 1));
-          dst[e] = kk < K ? __ldg(x + (int64_t)(c0 + e / kSlab) * K + kk)
-                          : 0.f;
-        }
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-  }
-
-  // The warp's rows are contiguous in CSR, so it walks their edges
-  // [e0, e1) in chunks of 32 across row boundaries, closing a row where
-  // its edges end.  The next chunk's indices are loaded first, then each
-  // half chunk's 16 loads before its adds.
-  const int row0 = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
-  if (row0 >= M) return;  // no barrier follows
-  const int nrows = min(kRowsPerWarp, M - row0);
-  const int my_ptr = lane <= nrows ? rowptr[row0 + lane] : 0;
-  const int e0 = __shfl_sync(kFullMask, my_ptr, 0);
-  const int e1 = __shfl_sync(kFullMask, my_ptr, nrows);
-  int r = 0;  // the open row
-  int r_end = __shfl_sync(kFullMask, my_ptr, 1);
-  float acc = 0.f;
-  int c = 0;
-  float v = 0.f;
-  if (e0 + lane < e1) {
-    c = __ldg(col + e0 + lane);
-    v = HAS_VAL ? __ldg(val + e0 + lane) : 1.f;
-  }
-  for (int base = e0; base < e1; base += 32) {
-    const int n = min(32, e1 - base);
-    int c_next = 0;
-    float v_next = 0.f;
-    if (base + 32 + lane < e1) {
-      c_next = __ldg(col + base + 32 + lane);
-      v_next = HAS_VAL ? __ldg(val + base + 32 + lane) : 1.f;
-    }
-    for (int h = 0; h < n; h += kIlp) {
-      // No branch: lanes past the chunk hold column 0, a valid row, and
-      // a load from device memory or from the tile is a select of two
-      // addresses, so that every load of the group is in flight at once.
-      float vv[kIlp], xv[kIlp];
-#pragma unroll
-      for (int q = 0; q < kIlp; ++q) {
-        const int cc = __shfl_sync(kFullMask, c, (h + q) & 31);
-        vv[q] = __shfl_sync(kFullMask, v, (h + q) & 31);
-        const int sl = slot[cc >> tshift];
-        const float* src =
-            sl >= 0 ? tiles + (((size_t)sl << tshift) + (cc & (T - 1))) *
-                                  kSlab + lane
-                    : x + (int64_t)cc * K + kx;
-        xv[q] = *src;
-      }
-#pragma unroll
-      for (int q = 0; q < kIlp; ++q) {
-        if (h + q < n) {
-          while (base + h + q == r_end) {  // the open row is complete
-            if (kin) out[(int64_t)(row0 + r) * K + k] = acc;
-            acc = 0.f;
-            ++r;
-            r_end = __shfl_sync(kFullMask, my_ptr, r + 1);
-          }
-          acc = fmaf(vv[q], xv[q], acc);
-        }
-      }
-    }
-    c = c_next;
-    v = v_next;
-  }
-  for (; r < nrows; ++r) {  // the open row, and empty rows after it
-    if (kin) out[(int64_t)(row0 + r) * K + k] = acc;
-    acc = 0.f;
-  }
+  tiled_walk<VEC, LPR, HAS_VAL, true>(rowptr, col, val, x, slot, tiles, out,
+                                      M, K, tshift);
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int VEC, int LPR>
+int launch_tiled(int device, const int* rp, const int* ci, const float* v,
+                 const float* xp, const int* sp, const int* st, float* op,
+                 int M, int N, int K, int tshift, int n_tiles, int slot_bytes,
+                 int smem, cudaStream_t s) {
+  constexpr int W = VEC * LPR;
+  // Slab-major: a slab's pass over x runs as one wave after another, so
+  // that a slab of x that fits in L2 is read from device memory once.
+  const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock, (K + W - 1) / W);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  auto go = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err =
+          allow_smem(reinterpret_cast<const void*>(kernel), device);
+      if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<grid, kTileThreads, smem, s>>>(rp, ci, v, xp, sp, st, op, M, N,
+                                            K, tshift, n_tiles, slot_bytes);
+    return (int)cudaGetLastError();
+  };
+  return v != nullptr ? go(tiled_spmm_kernel<VEC, LPR, true>)
+                      : go(tiled_spmm_kernel<VEC, LPR, false>);
 }
 
 }  // namespace
 
 extern "C" {
 
-// idx (n) int32 in [0, T), table (T, K) float32 row-major, out (n, K)
-// float32 row-major; Kc columns a block (T * Kc * 4 bytes of shared
-// memory at most 227 KB).
-int smem_gather_f32(int device, const void* idx, const void* table,
-                    void* out, int n, int T, int K, int Kc, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+// idx (n) int32, table (T, K) float32 row-major, out (n, K) float32
+// row-major; args: {device, n, T, K, vec, grid_x} (one pointer, not six
+// ints: the call is short enough that converting each argument shows).
+// Slabs of `vec` columns, grid (grid_x, K / vec); vec 4 needs K % 4 == 0
+// and table and out on 16-byte boundaries.
+int smem_gather_f32(const int* args, const void* idx, const void* table,
+                    void* out, void* stream) {
+  const int device = args[0], n = args[1], T = args[2], K = args[3];
+  const int vec = args[4], grid_x = args[5];
+  int rc = use_device(device);
+  if (rc != 0) return rc;
   if (n <= 0 || K <= 0) return 0;
-  const int64_t smem = (int64_t)T * Kc * 4;
-  if (T <= 0 || Kc <= 0 || smem > kMaxSmem || (K + Kc - 1) / Kc > 65535 ||
-      (int64_t)n * Kc > INT_MAX) {
+  const int64_t smem = (int64_t)T * vec * 4;
+  if (T <= 0 || grid_x <= 0 || (vec != 1 && vec != 4) || K % vec != 0 ||
+      (vec == 4 && !csr_walk::aligned16({table, out})) || smem > kMaxSmem ||
+      K / vec > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  err = allow_smem(smem_gather_kernel, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(1, (K + Kc - 1) / Kc);
-  smem_gather_kernel<<<grid, kGatherThreads, (int)smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(table),
-      static_cast<float*>(out), n, T, K, Kc);
-  return (int)cudaGetLastError();
+  const int* ip = static_cast<const int*>(idx);
+  const float* tp = static_cast<const float*>(table);
+  float* op = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_x, K / vec);
+  auto go = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err =
+          allow_smem(reinterpret_cast<const void*>(kernel), device);
+      if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<grid, kSlabThreads, (int)smem, s>>>(ip, tp, op, n, T, K);
+    return (int)cudaGetLastError();
+  };
+  return vec == 4 ? go(gather_slab_kernel<4>) : go(gather_slab_kernel<1>);
 }
 
 // h (T, K) float32 row-major, out (T, K) float32 row-major, R >= 1.
@@ -319,24 +480,28 @@ int edge_scan_loop_f32(int device, const void* h, void* out, int T, int K,
 // for implicit ones, x (N, K) float32 row-major, out (M, K) float32
 // row-major; the plan: stage_ptr (ceil(M / 256) + 1) int32 and stage_tile
 // int32, the staged tiles of each block of 256 rows (at most max_staged),
-// tiles of 2**tshift rows of x.
+// tiles of 2**tshift rows of x.  The instance: slabs of vec * lanes
+// columns, lanes a row (vec 4: 1 to 8 lanes, needing K % 4 == 0 and x and
+// out on 16-byte boundaries; vec 1: 1 to 32).
 int tiled_spmm_f32(int device, const void* rowptr, const void* col,
                    const void* val, const void* x, const void* stage_ptr,
                    const void* stage_tile, int max_staged, void* out, int M,
-                   int N, int K, int tshift, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+                   int N, int K, int tshift, int vec, int lanes,
+                   void* stream) {
+  int rc = use_device(device);
+  if (rc != 0) return rc;
   if (M <= 0 || K <= 0) return 0;
-  if (tshift < 0 || tshift > 12 || (K + kSlab - 1) / kSlab > 65535) {
+  if (tshift < 0 || tshift > 12 || max_staged < 0 ||
+      (vec == 4 && (K % 4 != 0 || !csr_walk::aligned16({x, out})))) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_tiles = ((N > 0 ? N : 1) + (1 << tshift) - 1) >> tshift;
   const int slot_bytes = (2 * n_tiles + 15) / 16 * 16;
   const int64_t smem =
-      slot_bytes + (int64_t)max_staged * (kSlab * 4 << tshift);
+      max_staged == 0
+          ? 0
+          : slot_bytes + (int64_t)max_staged * (vec * lanes * 4 << tshift);
   if (n_tiles > 32767 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock, (K + kSlab - 1) / kSlab);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* rp = static_cast<const int*>(rowptr);
   const int* ci = static_cast<const int*>(col);
   const float* v = static_cast<const float*>(val);
@@ -344,18 +509,24 @@ int tiled_spmm_f32(int device, const void* rowptr, const void* col,
   const int* sp = static_cast<const int*>(stage_ptr);
   const int* st = static_cast<const int*>(stage_tile);
   float* op = static_cast<float*>(out);
-  if (v != nullptr) {
-    err = allow_smem(tiled_spmm_kernel<true>, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    tiled_spmm_kernel<true><<<grid, kTileWarps * 32, (int)smem, s>>>(
-        rp, ci, v, xp, sp, st, op, M, N, K, tshift, n_tiles, slot_bytes);
-  } else {
-    err = allow_smem(tiled_spmm_kernel<false>, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    tiled_spmm_kernel<false><<<grid, kTileWarps * 32, (int)smem, s>>>(
-        rp, ci, v, xp, sp, st, op, M, N, K, tshift, n_tiles, slot_bytes);
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TILED_CASE(VEC_, LPR_)                                               \
+  if (vec == VEC_ && lanes == LPR_)                                          \
+    return launch_tiled<VEC_, LPR_>(device, rp, ci, v, xp, sp, st, op, M, N, \
+                                    K, tshift, n_tiles, slot_bytes,          \
+                                    (int)smem, s);
+  TILED_CASE(4, 1)
+  TILED_CASE(4, 2)
+  TILED_CASE(4, 4)
+  TILED_CASE(4, 8)
+  TILED_CASE(1, 1)
+  TILED_CASE(1, 2)
+  TILED_CASE(1, 4)
+  TILED_CASE(1, 8)
+  TILED_CASE(1, 16)
+  TILED_CASE(1, 32)
+#undef TILED_CASE
+  return (int)cudaErrorInvalidValue;  // no such instance
 }
 
 const char* kernel_error_string(int code) {

@@ -6,16 +6,19 @@ judged:
 
 * :func:`smem_gather` (K13a): ``table[idx]``, a row gather from a table
   held in shared memory (the probe's ``gather_kernel`` at T = 2048 and
-  ``gather8_kernel`` at T = 8, ``take_along_axis`` on a VMEM table).
+  ``gather8_kernel`` at T = 8, ``take_along_axis`` on a VMEM table),
+  each block holding a float4-wide column slab of every row
+  (:func:`gather_shape`).
 * :func:`edge_scan_loop` (K13b): ``sum_{i<R} cumsum(h + i, dim=0)``,
   the edge-axis scan a segment reduce is built from, ``R`` passes in one
   launch (the probe's ``_loop_time`` kernel with ``c_body``).
 * :func:`tiled_spmm` (K13c): the CSR SpMM of ``csr_spmm`` (K1), with
   X's row tiles staged in shared memory for the (row block, tile) pairs
   that :func:`tiled_spmm_plan` picks, and each edge of such a pair
-  gathered from its tile.  It sums each output in CSR edge order with
-  the same ``fmaf`` chain as K1, so the two agree bit for bit.  It is
-  used by the probe only; no route takes it.
+  gathered from its tile.  It walks as K1 does, over column slabs
+  (:func:`tiled_instance`), and sums each output in CSR edge order with
+  the same ``fmaf`` chain, so the two agree bit for bit.  It is used by
+  the probe only; no route takes it.
 
 Each wrapper launches its kernel for CUDA tensors (float32 data, int32
 indices, contiguous) and runs its plain PyTorch version (``*_plain``)
@@ -26,17 +29,23 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ... import _build
 from ...utils.convert import INDEX_DTYPE, ptr2ind
 
-ROWS_PER_BLOCK = 256       # K13c: a block's rows (16 warps of 16)
-SLAB = 32                  # K13c: a block's columns, one a lane
+ROWS_PER_BLOCK = 256       # K13c: a block's rows
+SLAB = 32                  # K13c: a block's column slab (16 was slower)
 MAX_SMEM = 232_448         # a block's shared memory on sm_90 (227 KB)
+# K13c's budget a block: two blocks and their 1 KB reserves fill an SM's
+# 228 KB, so that one block's staging overlaps another's walk.
+BLOCK_SMEM = 115_712
+SMS = 132                  # an H100 SXM's SMs: K13a's grids fill them
+SLAB_ROWS = 64             # K13a: output rows a block, at least
 
 _lib = None
 
@@ -46,10 +55,10 @@ def _kernel_lib():
     if _lib is None:
         lib = _build.load("smem_gather")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.smem_gather_f32.argtypes = [i, p, p, p, i, i, i, i, p]
+        lib.smem_gather_f32.argtypes = [p, p, p, p, p]
         lib.edge_scan_loop_f32.argtypes = [i, p, p, i, i, i, p]
         lib.tiled_spmm_f32.argtypes = [i, p, p, p, p, p, p, i, p, i, i, i,
-                                       i, p]
+                                       i, i, i, p]
         for fn in (lib.smem_gather_f32, lib.edge_scan_loop_f32,
                    lib.tiled_spmm_f32):
             fn.restype = ctypes.c_int
@@ -81,7 +90,48 @@ def _check_cuda(name: str, floats, ints) -> None:
             raise ValueError(f"{name} operands must be contiguous")
 
 
+_raw_stream = None
+
+
+def _stream(index: int) -> int:
+    """The raw handle of card ``index``'s current stream, without building
+    a ``torch.cuda.Stream`` (a microsecond a call, where K13a's kernel
+    takes about as long).  ``torch._C._cuda_getCurrentRawStream`` is
+    private; where a build lacks it, the public handle serves."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+            or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(index)
+
+
 # ---- K13a --------------------------------------------------------------------
+
+class GatherShape(NamedTuple):
+    """K13a's launch: ``vec`` columns a block's slab (4: 16-byte copies,
+    1: scalar), ``col_tiles`` slabs on ``gridDim.y`` and ``grid_x``
+    blocks on ``gridDim.x``, which split the output rows."""
+    vec: int
+    col_tiles: int
+    grid_x: int
+
+
+@functools.lru_cache(maxsize=64)
+def gather_shape(T: int, K: int, n: int, aligned: bool) -> GatherShape:
+    """K13a's launch for ``n`` rows of a ``(T, K)`` table, whose table and
+    output start on 16-byte boundaries (``aligned``) or not: a float4-wide
+    slab of all ``T`` rows a block (a one-column slab past 14,528 rows,
+    up to 58,112), and as many row chunks as keep the grid within one
+    wave of :data:`SMS` blocks, at :data:`SLAB_ROWS` output rows a chunk
+    at least.  Cached: each launch asks for it."""
+    vec = 4 if aligned and K % 4 == 0 and 16 * T <= MAX_SMEM else 1
+    if 4 * T > MAX_SMEM:
+        raise ValueError(f"a {T}-row column does not fit in a block's "
+                         "shared memory")
+    tiles = K // vec
+    return GatherShape(vec, tiles,
+                       max(1, min(SMS // tiles, -(-n // SLAB_ROWS))))
+
 
 def _check_gather(idx, table) -> None:
     if idx.dim() != 1 or table.dim() != 2:
@@ -90,43 +140,65 @@ def _check_gather(idx, table) -> None:
         raise TypeError("idx must be an integer tensor")
 
 
-def _gather_slab(T: int, K: int) -> int:
-    """K13a's columns a block: as many as fit ``T`` rows in a block's
-    shared memory, at most 32."""
-    kc = min(32, K, MAX_SMEM // (4 * T))
-    if kc < 1:
-        raise ValueError(f"a {T}-row table does not fit in shared memory")
-    return kc
-
-
 def smem_gather_plain(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: ``table.index_select(0, idx)``."""
     _check_gather(idx, table)
     return table.index_select(0, idx)
 
 
+@functools.lru_cache(maxsize=64)
+def _gather_args(device: int, T: int, K: int, n: int, aligned: bool):
+    """The launch's constant arguments packed as the C entry reads them
+    (``device, n, T, K, vec, grid_x``): one pointer a call where six
+    ``int`` conversions would take microseconds.  Returns ``(address,
+    array)``; the array lives while the cache or a caller holds it."""
+    sh = gather_shape(T, K, n, aligned)
+    arr = (ctypes.c_int * 6)(device, n, T, K, sh.vec, sh.grid_x)
+    return ctypes.addressof(arr), arr
+
+
+_gather_launch = None
+
+
 def smem_gather(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``(n, K)`` rows ``table[idx]`` of the ``(T, K)`` table.
 
-    On the card the table is staged in shared memory in slabs of
-    :func:`_gather_slab` columns (``T`` up to 58,112 rows); ``idx`` must
-    lie in ``[0, T)`` (an index outside it gives a NaN row there, and
-    raises on the CPU)."""
+    On the card the table is staged in shared memory
+    (:func:`gather_shape`); ``idx`` must lie in ``[0, T)`` (an index
+    outside it gives a NaN row there, and raises on the CPU).  At the
+    probe's sizes the call's host path takes longer than the kernel, so
+    the card's path makes only O(1) checks, takes the launch's arguments
+    from a cache, and passes five pointers to C."""
+    global _gather_launch
     _check_gather(idx, table)
-    dev = _device("smem_gather", idx, table)
-    if dev.type == "cpu":
+    if not table.is_cuda:
+        _device("smem_gather", idx, table)
         return smem_gather_plain(idx, table)
-    _check_cuda("smem_gather", [table], [idx])
-    (n,), (T, K) = idx.shape, table.shape
-    if n and not T:
+    if idx.dtype != INDEX_DTYPE:
+        raise TypeError("the smem_gather kernel takes int32 indices")
+    if table.dtype != torch.float32:
+        raise TypeError(f"the smem_gather kernel takes float32 data, got "
+                        f"{table.dtype}")
+    dev = table.get_device()
+    if idx.get_device() != dev:
+        raise ValueError("smem_gather operands lie on different devices")
+    if not (idx.is_contiguous() and table.is_contiguous()):
+        raise ValueError("smem_gather operands must be contiguous")
+    n = idx.shape[0]
+    T, K = table.shape
+    out = table.new_empty(n, K)  # two ints parse faster than a tuple
+    if n == 0 or K == 0:
+        return out
+    if T == 0:
         raise IndexError("smem_gather: indices into an empty table")
-    kc = _gather_slab(T, K) if T else 1
-    out = torch.empty((n, K), dtype=torch.float32, device=dev)
-    lib = _kernel_lib()
-    rc = lib.smem_gather_f32(
-        dev.index, idx.data_ptr(), table.data_ptr(), out.data_ptr(), n, T, K,
-        kc, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "smem_gather launch")
+    tp, op = table.data_ptr(), out.data_ptr()
+    # ``arr`` keeps the arguments alive should the cache drop them.
+    args, arr = _gather_args(dev, T, K, n, (tp | op) % 16 == 0)
+    if _gather_launch is None:
+        _gather_launch = _kernel_lib().smem_gather_f32
+    rc = _gather_launch(args, idx.data_ptr(), tp, op, _stream(dev))
+    if rc:
+        _build.check(_kernel_lib(), rc, "smem_gather launch")
     smem_gather.launches += 1
     return out
 
@@ -177,13 +249,51 @@ edge_scan_loop.launches = 0
 
 # ---- K13c --------------------------------------------------------------------
 
+class TiledInstance(NamedTuple):
+    """One instance of K13c's walk: ``vec`` columns a chunk (4: float4
+    loads, 1: scalar), ``lanes`` a row, ``rows_per_warp`` rows a warp at
+    once, a slab of ``width = vec * lanes`` columns a block, and
+    ``col_tiles`` slabs (``gridDim.y``).  Lane ``s`` of a row owns, in
+    slab ``t``, the columns ``t * width + s * vec + q`` for ``q < vec``."""
+    vec: int
+    lanes: int
+    rows_per_warp: int
+    width: int
+    col_tiles: int
+
+
+def _next_pow2(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=64)
+def tiled_instance(K: int, aligned: bool) -> TiledInstance:
+    """The instance K13c runs at width ``K`` (``K >= 1``) when ``x`` and
+    the output start on 16-byte boundaries (``aligned``) or not: float4
+    chunks where ``K % 4 == 0`` and aligned, else scalar ones; a slab of
+    :data:`SLAB` columns, narrowed to the power of two ``K`` needs; the
+    lanes that cover it at ``vec`` columns a lane."""
+    vec = 4 if aligned and K % 4 == 0 else 1
+    width = min(SLAB, max(vec, _next_pow2(K)))
+    lanes = width // vec
+    return TiledInstance(vec, lanes, 32 // lanes, width, -(-K // width))
+
+
+def tile_cap(n_cols: int, T: int) -> int:
+    """The most tiles of ``T`` rows a block of K13c stages, each
+    :data:`SLAB` columns wide: what fits in :data:`BLOCK_SMEM` beside the
+    slot table."""
+    return (BLOCK_SMEM - _slot_bytes(n_cols, T)) // (4 * SLAB * T)
+
+
 @dataclass(frozen=True)
 class TilePlan:
     """Which (row block, tile) pairs K13c stages: X's rows cut into tiles
     of ``T``, the matrix's rows into blocks of :data:`ROWS_PER_BLOCK`.
     ``stage_ptr`` ``(n_row_blocks + 1,)`` and ``stage_tile`` ``(n_staged,)``
     (int32, on the matrix's device) list each row block's staged tiles
-    in ascending order, at most ``max_staged`` a block.  The counts
+    in ascending order, at most ``max_staged`` a block, each
+    :data:`SLAB` columns wide in shared memory.  The counts
     describe the matrix it was made for: ``n_pairs`` pairs hold edges;
     the ``n_staged`` staged ones hold ``staged_edges`` edges and
     ``staged_rows`` tile rows in all."""
@@ -207,7 +317,9 @@ class TilePlan:
 
     def smem_bytes(self) -> int:
         """The kernel's shared memory a block: the slot table and the
-        most tiles a block stages."""
+        most tiles a block stages (at most :data:`BLOCK_SMEM`)."""
+        if not self.max_staged:
+            return 0
         return _slot_bytes(self.n_cols, self.T) \
             + 4 * SLAB * self.T * self.max_staged
 
@@ -224,10 +336,10 @@ def tiled_spmm_plan(rowptr: torch.Tensor, col: torch.Tensor, n_cols: int,
     1024): a (row block, tile) pair is staged when it holds at least
     ``stage_min`` edges (default ``T``: as many edges as the tile has
     rows, where staging starts to read fewer bytes than gathering), and
-    a row block stages at most as many tiles as fit in a block's shared
-    memory, those with the most edges.  Pairs without edges are never
-    staged; ``stage_min=0`` stages every other one that fits.  Torch glue
-    on the structure's device."""
+    a row block stages at most :func:`tile_cap` tiles, those with the
+    most edges.  Pairs without edges are never staged; ``stage_min=0``
+    stages every other one that fits.  Torch glue on the structure's
+    device."""
     if T < 32 or T > 1024 or T & (T - 1):
         raise ValueError(f"T must be a power of two in [32, 1024], got {T}")
     stage_min = T if stage_min is None else int(stage_min)
@@ -238,7 +350,7 @@ def tiled_spmm_plan(rowptr: torch.Tensor, col: torch.Tensor, n_cols: int,
     n_t = max(1, -(-n_cols // T))
     if n_t > 32767:
         raise ValueError(f"{n_t} tiles of {T} rows: at most 32767")
-    cap = (MAX_SMEM - _slot_bytes(n_cols, T)) // (4 * SLAB * T)
+    cap = tile_cap(n_cols, T)
     if E and not 0 <= int(col.min()) <= int(col.max()) < n_cols:
         raise ValueError(f"a column of col lies outside [0, {n_cols})")
     dev = rowptr.device
@@ -320,7 +432,9 @@ def tiled_spmm(rowptr: torch.Tensor, col: torch.Tensor,
     """``(M, K)`` float32 SpMM of the CSR matrix ``(rowptr, col, value)``
     (``value=None``: implicit ones) with ``x`` ``(N, K)``, what
     ``csr_spmm`` computes, staging the tiles of ``plan``
-    (:func:`tiled_spmm_plan` of the same structure)."""
+    (:func:`tiled_spmm_plan` of the same structure).  On the card the
+    instance is ``tiled_instance(K, aligned)``, kept in
+    ``tiled_spmm.last_instance``."""
     _check_tiled(rowptr, col, value, x, plan)
     dev = _device("tiled_spmm", rowptr, col, value, x)
     if dev.type == "cpu":
@@ -331,16 +445,21 @@ def tiled_spmm(rowptr: torch.Tensor, col: torch.Tensor,
         raise ValueError("the plan lies on another device")
     M, (N, K) = rowptr.shape[0] - 1, x.shape
     out = torch.empty((M, K), dtype=torch.float32, device=dev)
+    if M == 0 or K == 0:
+        return out
+    inst = tiled_instance(K, (x.data_ptr() | out.data_ptr()) % 16 == 0)
     lib = _kernel_lib()
     rc = lib.tiled_spmm_f32(
         dev.index, rowptr.data_ptr(), col.data_ptr(),
         None if value is None else value.data_ptr(), x.data_ptr(),
         plan.stage_ptr.data_ptr(), plan.stage_tile.data_ptr(),
         plan.max_staged, out.data_ptr(), M, N, K, plan.T.bit_length() - 1,
-        torch.cuda.current_stream(dev).cuda_stream)
+        inst.vec, inst.lanes, _stream(dev.index))
     _build.check(lib, rc, "tiled_spmm launch")
     tiled_spmm.launches += 1
+    tiled_spmm.last_instance = inst
     return out
 
 
 tiled_spmm.launches = 0
+tiled_spmm.last_instance = None

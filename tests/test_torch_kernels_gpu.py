@@ -785,6 +785,57 @@ def test_smem_gather_matches_plain_on_gpu(T, K):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ragged", "one row", "wide table",
+                                  "long table", "K % 4", "offset view",
+                                  "out of range"])
+def test_smem_gather_edges_on_gpu(case):
+    """K13a's edges, exactly: a row count that is no multiple of 4, one
+    row, a table of 250 column slabs (on gridDim.y), a table too long
+    for float4 slabs (one column a block), a width that is no multiple
+    of 4, a table 4 bytes off a 16-byte boundary (the scalar copies),
+    and indices outside [0, T) (a NaN row, the other rows exact)."""
+    _need_gpu()
+    import importlib
+
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        smem_gather, smem_gather_plain)
+    sg = importlib.import_module(
+        "pytorch_sparse_tpu_torch.ops.kernels.smem_gather")
+
+    T, K = {"ragged": (2047, 128), "one row": (1, 128),
+            "wide table": (1000, 1000), "long table": (20_000, 8),
+            "K % 4": (300, 33), "offset view": (2048, 128),
+            "out of range": (2048, 128)}[case]
+    rng = np.random.RandomState(66)
+    if case == "offset view":
+        buf = torch.from_numpy(_x(67, T * K + 1)).cuda()
+        table = buf[1:].view(T, K)
+        assert table.data_ptr() % 16 == 4
+    else:
+        table = torch.from_numpy(_x(67, T, K)).cuda()
+    n = 2 * T + 3
+    idx_np = rng.randint(0, T, n).astype(np.int32)
+    if case == "out of range":
+        idx_np[[0, 5, n - 1]] = [-1, T, 2**31 - 1]
+    idx = torch.from_numpy(idx_np).cuda()
+    shape = sg.gather_shape(T, K, n, table.data_ptr() % 16 == 0)
+    if case == "wide table":
+        assert shape.col_tiles == 250
+    if case in ("long table", "K % 4", "offset view"):
+        assert shape.vec == 1
+    before = smem_gather.launches
+    got = smem_gather(idx, table)
+    torch.cuda.synchronize()
+    assert smem_gather.launches == before + 1
+    bad = torch.from_numpy((idx_np < 0) | (idx_np >= T)).cuda()
+    assert bool(got[bad].isnan().all())
+    ok = ~bad
+    assert torch.equal(got[ok], smem_gather_plain(idx[ok], table))
+    empty = smem_gather(idx[:0], table)
+    assert empty.shape == (0, K) and smem_gather.launches == before + 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("T,K", [(2048, 128), (129, 33), (1, 5)])
 @pytest.mark.parametrize("R", [1, 3, 8])
 def test_edge_scan_loop_matches_plain_on_gpu(T, K, R):
@@ -845,8 +896,13 @@ def test_tiled_spmm_matches_plain_and_csr_on_gpu(kind, T, stage_min, K):
     rowptr, col, val = _tiled_case(kind, M, 30_000, 63)
     x = torch.from_numpy(_x(64, M, K)).cuda()
     plan = tiled_spmm_plan(rowptr, col, M, T=T, stage_min=stage_min)
-    if stage_min == 0:  # 24 tiles of 64 rows fit in shared memory
-        assert plan.n_staged == plan.n_pairs > 0
+    if stage_min == 0:
+        # Each row block stages every pair it holds, up to the 14 of its
+        # 24 tiles that fit in its 113 KB.
+        rb = np.repeat(np.arange(M), np.diff(rowptr.cpu().numpy())) // 256
+        pairs = np.unique(rb * 24 + col.cpu().numpy() // T)
+        assert plan.n_staged == np.minimum(
+            np.bincount(pairs // 24), 14).sum() > 0
     for v in (val, None):
         before = tiled_spmm.launches
         got = tiled_spmm(rowptr, col, v, x, plan)
@@ -855,6 +911,70 @@ def test_tiled_spmm_matches_plain_and_csr_on_gpu(kind, T, stage_min, K):
         assert torch.equal(got, csr_spmm(rowptr, col, v, x))
         assert rel_err(got, tiled_spmm_plain(rowptr, col, v, x, plan)) \
             <= 1e-5
+
+
+def _straddle_case(M, seed):
+    """A CSR matrix on the card whose first rows hold community edges
+    (pairs that stage) and a few far ones (rows that straddle staged and
+    unstaged tiles), whose last row block holds only scattered edges (a
+    block that stages nothing), and whose every seventh row is empty."""
+    rng = np.random.RandomState(seed)
+    rows, cols = [], []
+    for r in range(M):
+        if r % 7 == 3:
+            continue
+        if r < 1024:
+            base = (r // 256) * 256
+            c = np.concatenate([base + rng.randint(0, 256, 40),
+                                rng.randint(0, M, 3)])
+        else:
+            c = rng.randint(0, M, 5)
+        rows.append(np.full(c.size, r))
+        cols.append(np.sort(c))
+    row, col = np.concatenate(rows), np.concatenate(cols)
+    rowptr = np.concatenate([[0], np.cumsum(np.bincount(row, minlength=M))])
+    as_i32 = lambda a: torch.from_numpy(a.astype(np.int32)).cuda()  # noqa
+    return (as_i32(rowptr), as_i32(col),
+            torch.from_numpy(rng.randn(col.size).astype(np.float32)).cuda())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [64, 256])
+@pytest.mark.parametrize("K", [1, 8, 40, 128, 256])
+def test_tiled_spmm_edges_equal_csr_on_gpu(K, T):
+    """K13c bit for bit against K1 at every width class, with tiles of
+    64 and of 256 rows, values and ones: empty rows, rows whose edges
+    straddle staged and unstaged tiles, a block that stages nothing; at
+    K=128 also an operand 4 bytes off a 16-byte boundary (the scalar
+    instance).  Each launch is counted and keeps the instance it ran."""
+    _need_gpu()
+    import importlib
+
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        tiled_spmm, tiled_spmm_plan)
+    sg = importlib.import_module(
+        "pytorch_sparse_tpu_torch.ops.kernels.smem_gather")
+
+    M = 1500
+    rowptr, col, val = _straddle_case(M, 68)
+    plan = tiled_spmm_plan(rowptr, col, M, T=T, stage_min=100 * T // 64)
+    per_block = plan.stage_ptr.diff().tolist()
+    assert per_block[-1] == 0 and max(per_block) > 0
+    assert 0 < plan.staged_edges < col.shape[0]
+    xs = [torch.from_numpy(_x(69, M, K)).cuda()]
+    if K == 128:
+        buf = torch.from_numpy(_x(70, M * K + 1)).cuda()
+        xs.append(buf[1:].view(M, K))
+    for x in xs:
+        aligned = x.data_ptr() % 16 == 0
+        for v in (val, None):
+            before = tiled_spmm.launches
+            got = tiled_spmm(rowptr, col, v, x, plan)
+            torch.cuda.synchronize()
+            assert tiled_spmm.launches == before + 1
+            assert tiled_spmm.last_instance == sg.tiled_instance(K, aligned)
+            assert torch.equal(got, csr_spmm(rowptr, col, v, x.contiguous()))
+            assert not got[3::7].any()
 
 
 @pytest.mark.gpu

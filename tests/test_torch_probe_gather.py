@@ -41,6 +41,9 @@ from pytorch_sparse_tpu_torch.ops.kernels import (
 from pytorch_sparse_tpu_torch.segment import segment_sum_csr
 from pytorch_sparse_tpu_torch.testing import rel_err
 
+sg = importlib.import_module(
+    "pytorch_sparse_tpu_torch.ops.kernels.smem_gather")
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SCAN_REPS = (1, 3, 8)
 
@@ -112,6 +115,45 @@ def test_smem_gather_equals_the_jax_gather_kernels(jax_probe, kernel, T):
                                   out_j)
 
 
+def _gather_model(idx, table, sh):
+    """A numpy model of K13a's launch ``sh``: the output rows split over
+    the ``grid_x`` blocks of each column slab; a block holds its slab's
+    ``vec`` columns of every row of the table and copies each of its
+    output rows from there, NaN outside [0, T)."""
+    T, K = table.shape
+    n = idx.size
+    per = -(-n // sh.grid_x)
+    assert (n - 1) // per < sh.grid_x          # every row has a block
+    out = np.full((n, K), np.nan, np.float32)
+    for t in range(sh.col_tiles):
+        k0 = t * sh.vec
+        slab = table[:, k0:k0 + sh.vec].copy()   # the block's shared memory
+        for b in range(sh.grid_x):
+            for i in range(b * per, min(n, (b + 1) * per)):
+                if 0 <= idx[i] < T:
+                    out[i, k0:k0 + sh.vec] = slab[idx[i]]
+    return out
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("kernel,T", [("gather_kernel", 2048),
+                                      ("gather8_kernel", 8)])
+def test_gather_split_model_equals_the_jax_gather_kernels(jax_probe, kernel,
+                                                          T, aligned):
+    """K13a's split of the JAX probe's tables (which block and column slab
+    writes each output element), with 16-byte and with scalar copies,
+    gives the JAX kernels' rows exactly; an index outside the table gives
+    a NaN row."""
+    (idx_j, x_j), out_j = jax_probe[kernel]
+    sh = sg.gather_shape(T, x_j.shape[1], idx_j.shape[0], aligned)
+    assert sh.vec == (4 if aligned else 1)
+    np.testing.assert_array_equal(_gather_model(idx_j[:, 0], x_j, sh), out_j)
+    bad = np.array([-1, T, 0], np.int64)
+    got = _gather_model(bad, x_j, sh)
+    assert np.isnan(got[:2]).all()
+    np.testing.assert_array_equal(got[2], x_j[0])
+
+
 @pytest.mark.parametrize("R", SCAN_REPS)
 def test_edge_scan_loop_matches_the_jax_loop(jax_probe, R):
     h = probe.scan_input("cpu")
@@ -148,7 +190,13 @@ def test_tiled_spmm_matches_csr_and_jax(kind, T, stage_min, values):
     xt = torch.from_numpy(x)
     plan = tiled_spmm_plan(rowptr, col, 1500, T=T, stage_min=stage_min)
     if stage_min == 0:
-        assert plan.n_staged == plan.n_pairs > 0
+        # Each row block stages every pair it holds, up to the 14 of its
+        # 24 tiles that fit in its 113 KB.
+        rb = np.repeat(np.arange(1500), np.diff(rowptr.numpy())) // 256
+        pairs = np.unique(rb * 24 + col.numpy() // T)
+        per_rb = np.bincount(pairs // 24)
+        assert sg.tile_cap(1500, T) == 14
+        assert plan.n_staged == np.minimum(per_rb, 14).sum() > 0
     elif stage_min is not None:
         assert plan.n_staged == 0
     got = tiled_spmm(rowptr, col, val, xt, plan)
@@ -179,15 +227,18 @@ def test_tiled_spmm_plan_counts_and_checks():
 
 
 def test_tiled_spmm_plan_keeps_the_fullest_tiles_that_fit():
-    """Tiles of 1024 rows: one fits in a block's shared memory with the
-    slot table, so each row block keeps its pair with the most edges
-    (the lower tile on a tie)."""
+    """Tiles of 512 rows: one fits in a block's 113 KB with the slot
+    table, so each row block keeps its pair with the most edges (the
+    lower tile on a tie); a tile of 1024 rows does not fit."""
     rowptr = torch.tensor([0, 8] + [8] * 255 + [12], dtype=torch.int32)
     col = torch.tensor([1, 2, 1100, 1101, 1102, 2050, 2051, 2052,
                         10, 1030, 1031, 2999], dtype=torch.int32)
-    plan = tiled_spmm_plan(rowptr, col, 3000, T=1024, stage_min=1)
+    wide = tiled_spmm_plan(rowptr, col, 3000, T=1024, stage_min=1)
+    assert wide.n_pairs == 6 and wide.n_staged == wide.max_staged == 0
+    assert wide.smem_bytes() == 0
+    plan = tiled_spmm_plan(rowptr, col, 3000, T=512, stage_min=1)
     assert plan.n_pairs == 6 and plan.max_staged == 1
-    assert plan.stage_tile.tolist() == [1, 1]
+    assert plan.stage_tile.tolist() == [2, 2]
     assert plan.staged_edges == 3 + 2
     x = torch.randn(3000, 5)
     assert torch.equal(tiled_spmm(rowptr, col, None, x, plan),
@@ -238,6 +289,51 @@ def test_probe_runs_on_cpu_with_its_checks():
     assert set(res["verdict"]["graphs"]) == set(g)
     assert all(c["equal_k1"] for c in res["tiled"])
     assert [c["R"] for c in res["scan"]] == [1, 8, 40]
+
+
+def test_probe_verdict_judges_only_staged_cases_and_calls_close_times_ties():
+    """The verdict's staged SpMM is the fastest case that stages some
+    edges (a faster case that stages none does not count), the walk with
+    nothing staged is reported apart, and two times within ``TIE`` of the
+    larger are a tie."""
+    assert probe.compare(1.0, 1.0 + probe.TIE) == "ties with"
+    assert probe.compare(1.0, 1.1) == "beats"
+    assert probe.compare(1.1, 1.0) == "loses to"
+    assert probe.compare(None, 1.0) is None
+    lib = [1.0, 1.1, 1.0, 1.2, 1.0, 1.1, 1.0, 1.0, 1.1, 1.0]
+    assert probe.compare_pairs([t - 0.3 for t in lib], lib) == "beats"
+    assert probe.compare_pairs([t + 0.3 for t in lib], lib) == "loses to"
+    assert probe.compare_pairs([t - 0.01 for t in lib], lib) == "ties with"
+    assert probe.compare_pairs(lib[::-1], lib) == "ties with"
+
+    def case(T, share, dev_ms, no_staging=False, values=True):
+        return {"graph": "g", "T": T, "slab": 32, "values": values,
+                "no_staging": no_staging, "staged_edge_share": share,
+                "ms": dev_ms + 0.1, "device_ms": dev_ms, "k1_ms": 0.8,
+                "k1_device_ms": 0.7, "library_ms": 1.2,
+                "library_device_ms": 1.1, "smem_floor_ms": 0.1 * share}
+
+    gather = [{"T": probe.T, "exact": True, "ms": 0.0140,
+               "device_ms": 0.0043, "library_ms": 0.0138,
+               "library_device_ms": 0.0025, "pairs_won": 4,
+               "rounds_ms": [0.014] * 10,
+               "library_rounds_ms": [0.0138, 0.0141] * 5}]
+    tiled = [case(512, 0.0, 0.60), case(256, 0.4, 0.82),
+             case(128, 0.6, 0.90), case(256, 0.4, 0.50, values=False),
+             case(128, 0.0, 0.71, no_staging=True)]
+    v = probe.verdict({"gather": gather, "tiled": tiled}, ["g"])
+    g = v["graphs"]["g"]
+    assert g["staged"]["T"] == 256 and g["staged"]["k1_device"] == "loses to"
+    assert g["no_staging"]["k1_device"] == "ties with"
+    assert g["no_staging"]["library_device"] == "beats"
+    assert v["gather"]["library"] == "ties with"
+    assert v["gather"]["library_device"] == "loses to"
+    line = probe.verdict_line("card", v)
+    assert "won 4" in line and "nothing staged" in line
+    v = probe.verdict({"gather": gather, "tiled": [tiled[0], tiled[-1]]},
+                      ["g"])
+    assert v["graphs"]["g"]["staged"] is None
+    assert "stages no edge" in probe.verdict_line("card", v)
 
 
 @pytest.mark.parametrize("fn", ["smem_gather", "edge_scan_loop",
