@@ -19,15 +19,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    the f32 store at K=47, phase 15's last width, and with the last row
    block's slots (``block_spmm``) or column block's slots
    (``block_spmm_t``) taken away, a block with no slot; ``edge_dot`` on
-   the uniform graph at K=128, 256 and 40, on the empty-rows matrix, and
-   at K=128 on the community hybrid and Reddit-10% graphs of phase 4b.
+   the uniform graph at K=128, 256, 40 and GAT's head width 8, on the
+   empty-rows matrix, and at K=128 on the community hybrid and
+   Reddit-10% graphs of phase 4b (each case names the instance of the
+   per-edge walk that ran, and two launches must give the same bits).
    ``csr_spmm_minmax`` (min and max; ``out`` and ``arg`` must equal the
    plain version's exactly) on the uniform graph at K=128, 256 and 40
    with values and implicit ones, on the empty-rows matrix, on a
    tie-heavy integer operand, with a bf16 operand, and at K=128 on the
    community hybrid and Reddit-10% graphs; ``minmax_edge_dot`` and
-   ``minmax_spmm_t`` on the max argout of each f32 case (each
-   ``minmax_spmm_t`` case names the instance of the walk that ran);
+   ``minmax_spmm_t`` on the max argout of each f32 case (each case names
+   the instance of the walk that ran; two launches of
+   ``minmax_edge_dot`` must give the same bits);
    ``edge_softmax`` at 8 heads and 1 on the uniform graph with
    self-loops and on the community hybrid graph; ``edge_softmax_bwd`` at
    8 heads, 1 and 3 on the uniform graph with self-loops.
@@ -780,11 +783,17 @@ def kernel_case(torch, label, got, ref, failures, name, **timing):
 
 
 def last_instance(fn):
-    """The instance of the CSR walk that the wrapper ``fn`` (``csr_spmm``,
-    ``shard_spmm``, ``shard_spmm_minmax`` or ``minmax_spmm_t``) last
+    """The instance of the CSR walk (``csr_spmm``, ``shard_spmm``,
+    ``shard_spmm_minmax``, ``minmax_spmm_t``) or of the per-edge walk
+    (``edge_dot``, ``minmax_edge_dot``) that the wrapper ``fn`` last
     launched, as a dict; None before a launch."""
     inst = fn.last_instance
     return None if inst is None else inst._asdict()
+
+
+def bits_equal(torch, a, b):
+    """Equal bit for bit (NaN included): two launches of one kernel."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def kernel_entry(name, source, replaces, cases, library, shape, units=None):
@@ -1741,15 +1750,18 @@ def main(argv=None) -> int:
             "torch.sparse_csr_tensor(...) @ x",
             f"M={Mu} E={Eu} K=128 f32 values"))
 
-        # edge_dot: the grad_value pass, <x[col e], g[row e]> per edge.
-        # Besides the uniform graph (about 7 edges a row), the two
-        # community graphs whose value gradients phase 4b takes: rows of
-        # about 67 and 494 edges run the kernel's 32-edge loop many times.
+        # edge_dot: the grad_value pass, <x[col e], g[row e]> per edge,
+        # on the per-edge walk.  Besides the uniform graph (about 7 edges
+        # a row) at K=128, GAT's K=8 (a head's width, 16 rows a warp) and
+        # K=40 (its output layer, 2 rows a warp), the two community graphs
+        # whose value gradients phase 4b takes: rows of about 67 and 494
+        # edges.  Each case runs twice and must give the same bits.
         cases = []
         for label, A_, k in [
             ("K=128", A_u, 128),
             ("K=256", A_u, 256),
             ("K=40", A_u, 40),
+            ("GAT head K=8", A_u, 8),
             ("empty rows K=40", A_e, 40),
             ("community hybrid K=128", A_h, 128),
             ("community Reddit-10% K=128", A_r, 128),
@@ -1759,11 +1771,14 @@ def main(argv=None) -> int:
             x = operand(torch, n_, k, 2, device)
             g = operand(torch, n_, k, 4, device)
             got = edge_dot(rp, cl, x, g)
+            inst = last_instance(edge_dot)
             ref = edge_dot_plain(rp, cl, x, g)
+            again = edge_dot(rp, cl, x, g)
             sync()
+            if not bits_equal(torch, got, again):
+                failures.append(f"edge_dot {label}: two launches differ")
             timing = {}
             if label not in ("K=256", "empty rows K=40"):
-                # K=40 is the known weak spot.
                 timing = {
                     "ms": timer(lambda: edge_dot(rp, cl, x, g)),
                     "plain_ms": timer(lambda: edge_dot_plain(rp, cl, x, g)),
@@ -1788,8 +1803,8 @@ def main(argv=None) -> int:
                 except (AttributeError, RuntimeError) as exc:
                     timing["library_missing"] = repr(exc)
             cases.append(kernel_case(torch, label, got, ref, failures,
-                                     "edge_dot", **timing))
-            del got, ref, x, g
+                                     "edge_dot", instance=inst, **timing))
+            del got, ref, again, x, g
         kernels.append(kernel_entry(
             "edge_dot", "edge_dot.cu", "ops/kernels/ell.py:353", cases,
             "torch.sparse.sampled_addmm(csr pattern, g, x^T, beta=0) "
@@ -2061,10 +2076,15 @@ def main(argv=None) -> int:
             (b7a, by7a), (b7b, by7b) = minmax_bwd_bounds(
                 torch, cl, arg, n_, vv is not None)
             got = minmax_edge_dot(rp, cl, x, g, arg)
+            inst = last_instance(minmax_edge_dot)
             ref = minmax_edge_dot_plain(rp, cl, x, g, arg)
+            if not bits_equal(torch, got, minmax_edge_dot(rp, cl, x, g, arg)):
+                failures.append(f"minmax_edge_dot {label}: two launches "
+                                "differ")
             sync()
             k7a_cases.append(kernel_case(
                 torch, label, got, ref, failures, "minmax_edge_dot",
+                instance=inst,
                 ms=timer(lambda: minmax_edge_dot(rp, cl, x, g, arg)),
                 plain_ms=plain_timer(
                     lambda: minmax_edge_dot_plain(rp, cl, x, g, arg)),

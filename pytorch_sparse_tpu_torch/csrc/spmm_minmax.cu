@@ -33,23 +33,28 @@
 // csr_minmax reads what csr_spmm reads (one K-wide x row per edge, its
 // index and value) and writes arg beside out; a compare per element is
 // far below the card's rate.  minmax_edge_dot reads g[row] and arg[row]
-// once per row and only the x entries whose (row, k) the edge won (a load
-// predicated on a register compare), so each row needs about 1/deg of
-// the x bytes that edge_dot reads.  minmax_spmm_t reads an arg row per
+// once per row and only the 16-byte x chunks holding an entry whose
+// (row, k) the edge won (a load predicated on a register compare): about
+// 1/deg of the x elements that edge_dot reads, but won entries spread
+// over the row, so at K=128 and 7 edges a row about 70% of its 32-byte
+// sectors.  minmax_spmm_t reads an arg row per
 // edge and only the g chunks holding an entry that edge won: on the
 // ogbn-arxiv-scale uniform graph its 86.7 MB argout outgrows L2, and
 // the arg rows (597 MB at K=128) and about half as many g bytes come
 // from device memory.
 //
-// Design of csr_minmax and minmax_edge_dot, after edge_dot.cu: one warp
-// per row.  Lanes own columns k = lane + 32*j (KPL per lane, K masked,
-// wide K in column tiles on gridDim.y).  Each lane loads one edge's
-// (col, val), so the index reads are coalesced, and __shfl_sync
-// broadcasts them in edge order.  csr_minmax keeps the running best and
-// its edge id in registers.  minmax_edge_dot keeps g[row] and arg[row]
-// in registers, reduces each edge's dot across the warp with
-// __shfl_xor_sync only when some lane's (row, k) was won by that edge,
-// and writes 32 edges' results with one coalesced store.
+// Design of csr_minmax: one warp per row.  Lanes own columns k = lane +
+// 32*j (KPL per lane, K masked, wide K in column tiles on gridDim.y).
+// Each lane loads one edge's (col, val), so the index reads are
+// coalesced, and __shfl_sync broadcasts them in edge order; the running
+// best and its edge id stay in registers.
+//
+// minmax_edge_dot is the per-edge walk of edge_walk.cuh (edge_dot.cu's):
+// the lanes K needs keep float4 chunks of g[row] and int4 chunks of
+// arg[row] in registers; for 8 edges at a time each lane issues the x
+// chunks in which the edge won an entry, adds the won products, and one
+// transposing butterfly a batch (skipped where no lane of the row won)
+// sums the lanes' partials.
 //
 // minmax_spmm_t is the CSR walk of csr_walk.cuh over the CSC view (its
 // instances: int4 and float4 chunks, the lanes K needs, several columns
@@ -74,6 +79,7 @@
 #include <stdint.h>
 
 #include "csr_walk.cuh"
+#include "edge_walk.cuh"
 
 namespace {
 
@@ -117,12 +123,6 @@ struct Elem<__nv_bfloat16> {
     return __float2bfloat16_rn(v);
   }
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
-  return v;
-}
 
 template <typename T, int KPL, bool HAS_VAL, bool IS_MIN>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -185,66 +185,6 @@ csr_minmax_kernel(const int* __restrict__ rowptr, const int* __restrict__ col,
       orow[k] = Elem<T>::store(best[j]);
       arow[k] = best_e[j];
     }
-  }
-}
-
-// KPL > 0: g[row] and arg[row] live in KPL registers per lane (K <= 32 * KPL).
-// KPL == 0: any K, both read from global memory.
-template <int KPL>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-minmax_edge_dot_kernel(const int* __restrict__ rowptr,
-                       const int* __restrict__ col,
-                       const float* __restrict__ x,
-                       const float* __restrict__ g,
-                       const int* __restrict__ arg, float* __restrict__ out,
-                       int M, int K) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= M) return;  // uniform across the warp
-  const float* __restrict__ grow = g + (int64_t)row * K;
-  const int* __restrict__ arow = arg + (int64_t)row * K;
-
-  float g_reg[KPL > 0 ? KPL : 1];
-  int a_reg[KPL > 0 ? KPL : 1];
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int k = lane + 32 * j;
-    g_reg[j] = k < K ? grow[k] : 0.f;
-    a_reg[j] = k < K ? arow[k] : -1;  // -1 matches no edge
-  }
-
-  const int start = rowptr[row];
-  const int end = rowptr[row + 1];
-  for (int base = start; base < end; base += 32) {
-    const int n = min(32, end - base);
-    const int my_c = lane < n ? col[base + lane] : 0;
-    float mine = 0.f;
-    for (int t = 0; t < n; ++t) {
-      const int c = __shfl_sync(kFullMask, my_c, t);
-      const int e = base + t;
-      const float* __restrict__ xr = x + (int64_t)c * K;
-      float part = 0.f;
-      bool hit = false;
-      if (KPL > 0) {
-#pragma unroll
-        for (int j = 0; j < KPL; ++j) {
-          if (a_reg[j] == e) {
-            part = fmaf(__ldg(xr + lane + 32 * j), g_reg[j], part);
-            hit = true;
-          }
-        }
-      } else {
-        for (int k = lane; k < K; k += 32) {
-          if (__ldg(arow + k) == e) {
-            part = fmaf(__ldg(xr + k), __ldg(grow + k), part);
-            hit = true;
-          }
-        }
-      }
-      const float dot = __any_sync(kFullMask, hit) ? warp_sum(part) : 0.f;
-      if (lane == t) mine = dot;
-    }
-    if (lane < n) out[base + lane] = mine;
   }
 }
 
@@ -411,15 +351,6 @@ void launch_minmax_type(bool is_min, const int* rowptr, const int* col,
   }
 }
 
-template <int KPL>
-void launch_edge_dot(const int* rowptr, const int* col, const float* x,
-                     const float* g, const int* arg, float* out, int M, int K,
-                     cudaStream_t stream) {
-  const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  minmax_edge_dot_kernel<KPL><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      rowptr, col, x, g, arg, out, M, K);
-}
-
 }  // namespace
 
 extern "C" {
@@ -457,32 +388,12 @@ int csr_spmm_minmax(int device, int dtype, int is_min, const void* rowptr,
 }
 
 // rowptr (M+1) int32, col (E) int32, x (N, K) float32, g (M, K) float32,
-// arg (M, K) int32, out (E) float32; all row-major.
+// arg (M, K) int32, out (E) float32; all row-major; K >= 1.
 int minmax_edge_dot_f32(int device, const void* rowptr, const void* col,
                         const void* x, const void* g, const void* arg,
                         void* out, int M, int K, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (M <= 0) return 0;
-  const int* rp = static_cast<const int*>(rowptr);
-  const int* ci = static_cast<const int*>(col);
-  const float* xp = static_cast<const float*>(x);
-  const float* gp = static_cast<const float*>(g);
-  const int* ap = static_cast<const int*>(arg);
-  float* op = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K <= 32) {
-    launch_edge_dot<1>(rp, ci, xp, gp, ap, op, M, K, s);
-  } else if (K <= 64) {
-    launch_edge_dot<2>(rp, ci, xp, gp, ap, op, M, K, s);
-  } else if (K <= 128) {
-    launch_edge_dot<4>(rp, ci, xp, gp, ap, op, M, K, s);
-  } else if (K <= 256) {
-    launch_edge_dot<8>(rp, ci, xp, gp, ap, op, M, K, s);
-  } else {
-    launch_edge_dot<0>(rp, ci, xp, gp, ap, op, M, K, s);
-  }
-  return (int)cudaGetLastError();
+  return edge_walk::run<true>(device, rowptr, col, x, g, arg, out, M, K,
+                              stream);
 }
 
 // colptr (N+1) int32, csc_row and csr2csc (E) int32 in CSC order, val (E)

@@ -14,9 +14,9 @@ They replace the JAX package's ``pytorch_sparse_tpu/ops/kernels/ell.py``:
 ``ell_spmm_minmax`` (forward) and ``ell_minmax_bwd`` (both backward
 halves), which run over the ELL view and its transpose.  The CUDA
 kernels (``csrc/spmm_minmax.cu``) read CSR and the cached CSC view
-directly: the forward and ``minmax_edge_dot`` one warp per row,
-``minmax_spmm_t`` the CSR walk of ``csrc/csr_walk.cuh`` over the CSC
-view's columns.
+directly: the forward one warp per row, ``minmax_edge_dot`` the per-edge
+walk of ``csrc/edge_walk.cuh`` (``edge_dot``'s), ``minmax_spmm_t`` the
+CSR walk of ``csrc/csr_walk.cuh`` over the CSC view's columns.
 
 The argout contract is the JAX ELL path's (``ts.spmm_max`` run eagerly):
 strict comparison, so ties keep the first CSR edge; the running best
@@ -34,8 +34,8 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``) for CPU tensors.  Other devices raise.
 ``csr_spmm_minmax.launches``, ``minmax_edge_dot.launches`` and
 ``minmax_spmm_t.launches`` count kernel launches;
-``minmax_spmm_t.last_instance`` keeps the instance of the walk it last
-ran.
+``minmax_edge_dot.last_instance`` and ``minmax_spmm_t.last_instance``
+keep the instance of the walk each last ran.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ from ... import _build
 from ...segment import segment_max, segment_min, segment_sum
 from ...utils.convert import INDEX_DTYPE, ptr2ind
 from .csr_spmm import launch_instance
+from .edge_dot import launch_edge_instance
 
 _lib = None
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -247,7 +248,10 @@ def minmax_edge_dot(rowptr: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
     forward's argout.
 
     CUDA tensors run the hand-written kernel: ``x`` and ``g`` float32,
-    row-major contiguous.  CPU tensors run :func:`minmax_edge_dot_plain`.
+    row-major contiguous.  The instance is ``edge_dot.
+    launch_edge_instance(K, x, g, arg)`` (kept in
+    ``minmax_edge_dot.last_instance``); at ``K == 0`` every entry is 0 and
+    nothing is launched.  CPU tensors run :func:`minmax_edge_dot_plain`.
     """
     _check_edge_dot(rowptr, col, x, g, arg)
     dev = x.device
@@ -259,6 +263,8 @@ def minmax_edge_dot(rowptr: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
     if col.shape[0] >= 2**31:
         raise ValueError("minmax_edge_dot indexes edges with int32")
     M, K = rowptr.shape[0] - 1, x.shape[1]
+    if K == 0:
+        return torch.zeros(col.shape[0], dtype=torch.float32, device=dev)
     out = torch.empty(col.shape[0], dtype=torch.float32, device=dev)
     lib = _kernel_lib()
     rc = lib.minmax_edge_dot_f32(
@@ -267,10 +273,12 @@ def minmax_edge_dot(rowptr: torch.Tensor, col: torch.Tensor, x: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "minmax_edge_dot launch")
     minmax_edge_dot.launches += 1
+    minmax_edge_dot.last_instance = launch_edge_instance(K, x, g, arg)
     return out
 
 
 minmax_edge_dot.launches = 0
+minmax_edge_dot.last_instance = None
 
 
 # ----------------------------------------------------------------------

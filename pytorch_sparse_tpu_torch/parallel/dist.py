@@ -34,8 +34,8 @@ rows) and an optional edge-space ``value`` override whose gradient comes
 back in original edge ids.  Each is one ``torch.autograd.Function`` per
 rank whose backward runs the transposed collectives: reduce-scatter for
 the all-gather, the reverse rotation for the ring (each gradient block
-travels back to its owner), the reverse ``all_to_all`` and an
-``index_add_`` at the served rows for the halo.
+travels back to its owner), the reverse ``all_to_all`` and, for the
+halo, a sum at the served rows in a fixed order (``_Served``).
 
 Gradients follow ``torch.distributed``'s data-parallel convention.  The
 gradient of a rank's shard ``x`` is that of the sum of every rank's
@@ -78,6 +78,7 @@ from ..ops.kernels.hybrid import (
     quantization_rel_err)
 from ..ops.kernels.shard_spmm import NO_EDGE, shard_spmm, shard_spmm_minmax
 from ..ops.kernels.spmm_minmax import minmax_edge_dot, minmax_spmm_t
+from ..segment import Runs
 from ..utils.convert import INDEX_DTYPE
 from ..utils.host_sort import lexsort2, stable_argsort
 from . import _comm
@@ -242,15 +243,53 @@ class _Tiers:
         return _View(self._A, self.cols, int(sum(self.sizes)))
 
 
+class _Served:
+    """The rows a rank serves on one fabric, as packets of ``H`` slots:
+    ``index`` ``(n*H,)``, the local row of each slot (a padding slot reads
+    row 0), and the sum of the gradients that come back.  A row served to
+    several peers fills several slots; ``add_into`` sums each row's
+    gradients in slot order (``Runs`` over the live slots sorted stably
+    by row) and adds the sum once at the row, so that the card gives the
+    same bits on every run."""
+
+    def __init__(self, ukey: np.ndarray, starts: np.ndarray, keys, H: int,
+                 Nb: int, device):
+        """The packets of the local rows listed under each of ``keys`` in
+        the sorted ``key * Nb + row`` array ``ukey`` (key ``k``'s rows at
+        ``starts[k]:starts[k + 1]``), zero-padded to ``H``."""
+        keys = list(keys)
+        serve = np.zeros((len(keys), H), np.int64)
+        live = np.zeros((len(keys), H), bool)
+        for j, k in enumerate(keys):
+            lo, hi = starts[k], starts[k + 1]
+            serve[j, :hi - lo] = ukey[lo:hi] % Nb
+            live[j, :hi - lo] = True
+        serve, live = serve.reshape(-1), live.reshape(-1)
+        self.index = torch.from_numpy(serve).to(device)
+        slots = np.flatnonzero(live)
+        slots = slots[np.argsort(serve[slots], kind="stable")]
+        rows, first = np.unique(serve[slots], return_index=True)
+        self._slots = torch.from_numpy(slots).to(device)
+        self._rows = torch.from_numpy(rows).to(device)
+        self._runs = Runs(np.append(first, slots.size), device)
+
+    def add_into(self, grad_x: torch.Tensor, back: torch.Tensor) -> None:
+        """``grad_x[row] += (the sum of back[slot] over the row's slots)``,
+        ``back`` ``(n*H, K)`` in slot order."""
+        if self._rows.numel():
+            sums = self._runs.sum(back.index_select(0, self._slots))
+            grad_x.index_add_(0, self._rows, sums.to(grad_x.dtype))
+
+
 class _HaloTables(_Tiers):
     """The flat halo: the halo width ``H``, the rows this rank serves
-    (``serve``, ``(P*H,)``: ``P`` packets of ``H`` local rows) and one
-    buffer tier, the received ``(P*H, K)`` halo."""
+    (``served``; ``serve`` its ``(P*H,)`` index: ``P`` packets of ``H``
+    local rows) and one buffer tier, the received ``(P*H, K)`` halo."""
 
-    def __init__(self, A, H, serve, cols):
+    def __init__(self, A, H, served: _Served, cols):
         super().__init__(A, cols, (A._c // A.Nb != A.rank).astype(np.int8),
                          (A.Nb, A.P * H))
-        self.H, self.serve = H, serve
+        self.H, self.served, self.serve = H, served, served.index
 
     @property
     def interior(self) -> _Group:
@@ -270,7 +309,7 @@ class _HaloTables(_Tiers):
                                    async_op=True)
 
         def finish(grad_x):
-            grad_x.index_add_(0, self.serve, pending.wait())
+            self.served.add_into(grad_x, pending.wait())
         return finish
 
 
@@ -507,10 +546,9 @@ class ShardedSparseMatrix(_RowShard):
         counts = np.bincount(ukey // Nb, minlength=P * P)
         H = max(1, int(counts.max()) if counts.size else 1)
         starts = np.concatenate([[0], np.cumsum(counts)])
-        serve = np.zeros((P, H), np.int64)
-        for p in range(P):
-            s, e = starts[p * P + me], starts[p * P + me + 1]
-            serve[p, :e - s] = ukey[s:e] % Nb
+        # Key p*P + me lists the rows this rank serves to client p.
+        served = _Served(ukey, starts, range(me, P * P, P), H, Nb,
+                         self.device)
         qb = self._c // Nb
         own = qb == me
         cols = np.where(own, self._c - me * Nb, 0)
@@ -518,8 +556,7 @@ class ShardedSparseMatrix(_RowShard):
         q, local = qb[fpos], self._c[fpos] % Nb
         slot = np.searchsorted(ukey, (me * P + q) * Nb + local)
         cols[fpos] = Nb + q * H + slot - starts[me * P + q]
-        return _HaloTables(self, H, torch.from_numpy(serve.reshape(-1)).to(
-            self.device), cols)
+        return _HaloTables(self, H, served, cols)
 
     @property
     def halo_width(self) -> int:

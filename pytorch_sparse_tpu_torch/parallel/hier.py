@@ -26,7 +26,8 @@ arrives, so the sum is ``interior + intra + cross`` and min/max ties go
 to the lower global edge id across the three groups.  Backward runs the
 transposes: the union's gradient is reduce-scattered over ``ici`` and
 sent back over ``dcn``, the halo's back over ``ici``, and each server
-adds what returns at its served rows.  ``local_format="hybrid"`` runs
+adds what returns at its served rows, each row's returns summed in a
+fixed order (``dist._Served``).  ``local_format="hybrid"`` runs
 the interior's dense blocks on the block kernel and each frontier tier,
 when its dense store is built, as one dense product.
 
@@ -49,34 +50,25 @@ import torch
 
 from . import _comm
 from .dist import (
-    _ExchangeHybridSpmm, _ExchangeSpmm, _Hybrid, _RowShard, _Tiers,
+    _ExchangeHybridSpmm, _ExchangeSpmm, _Hybrid, _RowShard, _Served, _Tiers,
     _build_frontier_dense, _check_x, _is_min_of, _postprocess, _worst)
 from .mesh import data_axis, dcn_axis
-
-
-def _served(ukey: np.ndarray, starts: np.ndarray, first: int, n: int,
-            H: int, Nb: int) -> np.ndarray:
-    """The ``(n, H)`` local rows listed under keys ``first .. first+n-1``
-    of the sorted ``key * Nb + row`` array ``ukey``, zero-padded."""
-    serve = np.zeros((n, H), np.int64)
-    for j in range(n):
-        lo, hi = starts[first + j], starts[first + j + 1]
-        serve[j, :hi - lo] = ukey[lo:hi] % Nb
-    return serve
 
 
 class _HierTables(_Tiers):
     """The three tiers (``x``, the ``(C*Hi, K)`` ICI halo, the
     ``(C*S*Hx, K)`` DCN union) and the rows this rank serves on each
-    fabric: ``serve_ici`` ``(C*Hi,)`` (``Hi`` rows for each chip of its
-    slice) and ``serve_dcn`` ``(S*Hx,)`` (the union each slice reads)."""
+    fabric (``served_ici``, ``served_dcn``): ``serve_ici`` ``(C*Hi,)``
+    (``Hi`` rows for each chip of its slice) and ``serve_dcn``
+    ``(S*Hx,)`` (the union each slice reads)."""
 
-    def __init__(self, A, cols, tier, Hi, Hx, serve_ici, serve_dcn,
-                 wire_stats):
+    def __init__(self, A, cols, tier, Hi, Hx, served_ici: _Served,
+                 served_dcn: _Served, wire_stats):
         S, C = A.S, A.C
         super().__init__(A, cols, tier, (A.Nb, C * Hi, C * S * Hx))
         self.Hi, self.Hx = Hi, Hx
-        self.serve_ici, self.serve_dcn = serve_ici, serve_dcn
+        self.served_ici, self.served_dcn = served_ici, served_dcn
+        self.serve_ici, self.serve_dcn = served_ici.index, served_dcn.index
         self.wire_stats = wire_stats
 
     def exchange(self, x: torch.Tensor):
@@ -99,8 +91,8 @@ class _HierTables(_Tiers):
             async_op=True)
 
         def finish(grad_x):
-            grad_x.index_add_(0, self.serve_ici, back_ici.wait())
-            grad_x.index_add_(0, self.serve_dcn, back_dcn.wait())
+            self.served_ici.add_into(grad_x, back_ici.wait())
+            self.served_dcn.add_into(grad_x, back_dcn.wait())
         return finish
 
 
@@ -181,8 +173,11 @@ class HierShardedSparseMatrix(_RowShard):
             "dcn_row_slots": Pn * S * Hx,
             "ici_row_slots": Pn * C * Hi + Pn * (C * S * Hx),
         }
-        serve_ici = _served(ukey_i, st_i, me * C, C, Hi, Nb)
-        serve_dcn = _served(ukey_x, st_x, me * S, S, Hx, Nb)
+        dev = self.device
+        served_ici = _Served(ukey_i, st_i, range(me * C, me * C + C), Hi,
+                             Nb, dev)
+        served_dcn = _Served(ukey_x, st_x, range(me * S, me * S + S), Hx,
+                             Nb, dev)
         # This shard's columns into [x ; halo (C*Hi) ; union (C*S*Hx)].
         s, c = self.s, self.c
         qb = self._c // Nb
@@ -198,11 +193,8 @@ class HierShardedSparseMatrix(_RowShard):
         sq, cq = qb[m] // C, qb[m] % C
         cols[m] = (Nb + C * Hi + (cq * S + sq) * Hx
                    + np.searchsorted(ukey_x, k * Nb + lc[m]) - st_x[k])
-        dev = self.device
-        return _HierTables(
-            self, cols, my_tier, Hi, Hx,
-            torch.from_numpy(serve_ici.reshape(-1)).to(dev),
-            torch.from_numpy(serve_dcn.reshape(-1)).to(dev), wire_stats)
+        return _HierTables(self, cols, my_tier, Hi, Hx, served_ici,
+                           served_dcn, wire_stats)
 
     @property
     def Hi(self) -> int:

@@ -4,6 +4,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -51,6 +52,59 @@ def segment_sum_csr(data: torch.Tensor, rowptr: torch.Tensor) -> torch.Tensor:
     if rowptr.shape[0] == 0 or int(rowptr[-1]) != data.shape[0]:
         raise ValueError("rowptr must end at the number of rows of data")
     return _SegmentSumCsr.apply(data, rowptr)
+
+
+class Runs:
+    """The runs of a sorted layout, ``data[ptr[r]:ptr[r + 1]]`` for the
+    host pointer ``ptr`` (non-decreasing, from 0), and their sums in one
+    fixed order on every device: each run added left to right from 0,
+    the JAX package's ``segment_sum(..., indices_are_sorted=True)``.
+
+    float32 data takes :func:`segment_sum_csr` (on the card, the CSR
+    kernel over the identity columns); other dtypes take one
+    ``index_add`` pass per place in the runs, pass ``d`` adding the
+    ``d``-th element of every run longer than ``d``, so that no two
+    writes of a pass reach one run and the card's atomics add in a fixed
+    order.  Both keep the gradient of ``data``."""
+
+    def __init__(self, ptr: np.ndarray, device):
+        ptr = np.asarray(ptr, np.int64)
+        if ptr.ndim != 1 or ptr.size == 0 or ptr[0] != 0 or np.any(
+                np.diff(ptr) < 0):
+            raise ValueError("a run pointer is non-decreasing from 0")
+        if ptr[-1] >= 2**31:
+            raise ValueError("runs index their elements with int32")
+        self.n, self.total = ptr.size - 1, int(ptr[-1])
+        self.rowptr = torch.from_numpy(ptr.astype(np.int32)).to(device)
+        self._ptr = ptr
+        self._passes = None
+
+    def passes(self):
+        """``(runs, elements)`` index pairs, one a place ``d`` in the
+        runs: the runs longer than ``d`` and their ``d``-th elements."""
+        if self._passes is None:
+            lens = np.diff(self._ptr)
+            dev = self.rowptr.device
+            self._passes = []
+            for d in range(int(lens.max(initial=0))):
+                runs = np.flatnonzero(lens > d)
+                self._passes.append((
+                    torch.from_numpy(runs).to(dev),
+                    torch.from_numpy(self._ptr[runs] + d).to(dev)))
+        return self._passes
+
+    def sum(self, data: torch.Tensor) -> torch.Tensor:
+        """``(n, ...)``: the sum of each run of ``data`` ``(total, ...)``
+        (0 for an empty run)."""
+        if data.shape[0] != self.total:
+            raise ValueError("data must have one row per element of the "
+                             "runs")
+        if data.dtype == torch.float32:
+            return _SegmentSumCsr.apply(data.contiguous(), self.rowptr)
+        out = data.new_zeros((self.n,) + tuple(data.shape[1:]))
+        for runs, elems in self.passes():
+            out = out.index_add(0, runs, data.index_select(0, elems))
+        return out
 
 
 def segment_count(segment_ids: torch.Tensor,

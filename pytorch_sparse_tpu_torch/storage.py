@@ -20,7 +20,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .segment import segment_max, segment_mean, segment_min, segment_sum
+from .segment import Runs, segment_max, segment_min
 from .typing import DeviceLike, resolve_device
 from .utils.convert import INDEX_DTYPE
 from .utils.host_sort import lexsort2, lexsort2_decode
@@ -520,12 +520,22 @@ class SparseStorage:
         new_value = None
         value = self._value
         if value is not None and value.requires_grad:
-            # Reduce on the device so that the gradient reaches ``value``.
-            seg = torch.from_numpy(np.cumsum(keep) - 1).to(value.device)
-            reducer = {"add": segment_sum, "sum": segment_sum,
-                       "mean": segment_mean, "min": segment_min,
-                       "max": segment_max}[reduce]
-            new_value = reducer(value, seg, new_row.shape[0])
+            # Reduce on the device so that the gradient reaches ``value``;
+            # sums add each run of duplicates in edge order (Runs), so
+            # the card gives the same bits on every run.
+            starts = np.flatnonzero(keep)
+            if reduce in ("add", "sum", "mean"):
+                ptr = np.concatenate([starts, [E]])
+                new_value = Runs(ptr, value.device).sum(value)
+                if reduce == "mean":
+                    cnt = torch.from_numpy(np.diff(ptr)).to(
+                        device=value.device, dtype=new_value.dtype)
+                    new_value = new_value / cnt.reshape(
+                        (-1,) + (1,) * (new_value.dim() - 1))
+            else:
+                seg = torch.from_numpy(np.cumsum(keep) - 1).to(value.device)
+                reducer = segment_min if reduce == "min" else segment_max
+                new_value = reducer(value, seg, new_row.shape[0])
         elif value is not None:
             starts_trunc = np.flatnonzero(keep)
             v = _to_numpy(value)

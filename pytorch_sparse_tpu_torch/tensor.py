@@ -9,8 +9,10 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from .segment import Runs
 from .storage import SparseStorage
 from .typing import DeviceLike, resolve_device
 
@@ -153,15 +155,26 @@ class SparseTensor:
     clone = copy
 
     def to_dense(self, dtype=None) -> torch.Tensor:
-        """Dense (M, N, ...) tensor; duplicate entries add up."""
+        """Dense (M, N, ...) tensor; duplicate entries add up, each
+        position's in edge order (``segment.Runs``), so that the card
+        gives the same bits on every run."""
         row, col, value = self.coo()
         M, N = self.sparse_sizes()
         if value is None:
             value = torch.ones(row.shape, dtype=dtype or torch.float32,
                                device=row.device)
         out = value.new_zeros((M, N) + tuple(value.shape[1:]))
-        return out.index_put_((row.long(), col.long()), value,
-                              accumulate=True)
+        # The storage keeps (row, col) sorted: duplicates are adjacent.
+        hrow = self.storage.numpy_view("row")
+        hcol = self.storage.numpy_view("col")
+        new = np.concatenate([[True], (hrow[1:] != hrow[:-1])
+                              | (hcol[1:] != hcol[:-1])])
+        if not new.all():
+            first = np.flatnonzero(new)
+            value = Runs(np.append(first, new.size), row.device).sum(value)
+            keep = torch.from_numpy(first).to(row.device)
+            row, col = row[keep], col[keep]
+        return out.index_put_((row.long(), col.long()), value)
 
     def __repr__(self) -> str:
         M, N = self.sparse_sizes()

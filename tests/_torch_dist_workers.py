@@ -350,3 +350,44 @@ def run_2d(rank, world_size, P, Pf, M, K, graph, block_B, seed,
         res["indivisible_raises"] = "divisible" in str(e)
     res["staged_bytes"] = grid.staged_bytes
     return res if rank == 0 else {}
+
+
+def uniform_coo(M, E, seed):
+    """A coalesced, CSR-sorted uniform random ``(row, col, value)``:
+    ``E`` draws over ``M`` nodes, N(0, 1) float32 values.  At a few dozen
+    draws a node, every row is read by rows of every other block, so the
+    halo and hierarchical layouts serve it to several peers."""
+    rng = np.random.RandomState(seed)
+    key = np.unique(rng.randint(0, M, E).astype(np.int64) * M
+                    + rng.randint(0, M, E))
+    return key // M, key % M, rng.randn(key.size).astype(np.float32)
+
+
+def run_served_backward(rank, world_size, M, K, E, seed, grid=None,
+                        device="cpu", runs=1):
+    """The gradient of ``x`` through the sum ``A @ x`` of the flat halo
+    schedule (``grid`` None) or the hierarchical one on an ``(S, C)``
+    grid, on ``uniform_coo(M, E, seed)``, under the output gradient
+    ``operand(seed + 2, M, K)``: ``runs`` passes, each the whole ``(M,
+    K)`` gradient gathered on the host."""
+    row, col, val = uniform_coo(M, E, seed)
+    if grid is None:
+        mesh = make_mesh(world_size, device=device)
+        A = ShardedSparseMatrix.from_sparse_tensor(_tensor(row, col, val, M),
+                                                   mesh)
+    else:
+        hier = make_mesh_hier(*grid, device=device)
+        A = HierShardedSparseMatrix.from_sparse_tensor(
+            _tensor(row, col, val, M), hier)
+    x = A.shard_dense(torch.from_numpy(operand(seed + 1, M, K)))
+    gout = A.shard_dense(torch.from_numpy(operand(seed + 2, M, K)))
+    grads = []
+    for _ in range(runs):
+        xr = x.clone().requires_grad_(True)
+        if grid is None:
+            out = dist_spmm(A, xr, "halo", "sum", "ell")
+        else:
+            out = dist_spmm_hier(A, xr, "sum", "ell")
+        (gx,) = torch.autograd.grad(out, xr, gout)
+        grads.append(A.unshard_dense(gx).cpu())
+    return grads

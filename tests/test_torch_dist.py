@@ -346,3 +346,55 @@ def test_spawn_returns_every_rank_or_raises(bad):
     with pytest.raises(Exception, match="rank 1 fails on purpose"):
         W.spawn(W.rank_or_raise, 3, "gloo", args=dict(bad=bad), timeout=120,
                 threads=1)
+
+
+# ----------------------------------------------------------------------
+# The halo backward where a row is served to several peers
+# ----------------------------------------------------------------------
+
+SERVED = dict(M=240, K=5, E=3000, seed=23)
+
+
+def served_peers(row, col, M, P, C=None):
+    """The most peers one row is served to: on the flat layout (``C``
+    None) the row blocks other than its own that read it; on a
+    hierarchical ``(P // C, C)`` grid the most over its two fabrics (the
+    other chips of its slice that read it, and the other slices)."""
+    Mb = -(-M // P)
+    owner, block = row // Mb, col // Mb
+    far = owner != block
+    if C is None:
+        pairs = np.unique(col[far] * P + owner[far])
+        return int(np.bincount(pairs // P).max(initial=0))
+    ici = far & (owner // C == block // C)
+    dcn = owner // C != block // C
+    most = 0
+    for m, peer in ((ici, owner % C), (dcn, owner // C)):
+        pairs = np.unique(col[m] * P + peer[m])
+        most = max(most, int(np.bincount(pairs // P).max(initial=0)))
+    return most
+
+
+def jax_x_grad(row, col, val, M, x_np, gout_np):
+    """``jax.grad`` of ``<A @ x, gout>`` in ``x`` on one device."""
+    A = jts.SparseTensor(row=jnp.asarray(row.astype(np.int32)),
+                         col=jnp.asarray(col.astype(np.int32)),
+                         value=jnp.asarray(val), sparse_sizes=(M, M))
+    return np.asarray(jax.grad(
+        lambda xx: (jts.matmul(A, xx) * gout_np).sum())(jnp.asarray(x_np)))
+
+
+@pytest.mark.parametrize("ws", [3, 4])
+def test_halo_backward_sums_rows_served_to_several_peers(ws):
+    """Every row is served to two or more peers; the gradients that come
+    back for a row are summed in a fixed order and added once: the
+    gathered gradient of ``x`` matches JAX's to 1e-5, twice alike."""
+    M, K, E, seed = (SERVED[k] for k in ("M", "K", "E", "seed"))
+    row, col, val = W.uniform_coo(M, E, seed)
+    assert served_peers(row, col, M, ws) >= 2
+    got = W.spawn(W.run_served_backward, ws, "gloo",
+                  args=dict(SERVED, runs=2), threads=1)[0]
+    ref = jax_x_grad(row, col, val, M, W.operand(seed + 1, M, K),
+                     W.operand(seed + 2, M, K))
+    assert torch.equal(got[0], got[1])
+    assert rel_err(got[0], ref) <= 1e-5

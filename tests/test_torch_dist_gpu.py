@@ -323,3 +323,20 @@ def test_2d_on_cuda_matches_the_cpu():
     ref = _grid_run(W.run_2d, (2, 2), "gloo", "cpu", **kw)
     assert got["indivisible_raises"] and got["x_cols"] == 20
     _compare(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [None, (1, 4), (4, 1)],
+                         ids=["halo", "hier-1x4", "hier-4x1"])
+def test_served_backward_is_deterministic_on_gpu(grid):
+    """Four gloo processes on the card: the gradient of ``x`` through the
+    halo (or hierarchical) sum, where rows are served to several peers,
+    is the same bits in two passes and within 1e-5 of the CPU's."""
+    _need_gpu()
+    kw = dict(M=2048, K=64, E=60_000, seed=29, grid=grid)
+    got = W.spawn(W.run_served_backward, 4, "gloo",
+                  args=dict(kw, device="cuda", runs=2), timeout=300)[0]
+    ref = W.spawn(W.run_served_backward, 4, "gloo",
+                  args=dict(kw, device="cpu"), timeout=300)[0]
+    assert torch.equal(got[0], got[1])
+    assert rel_err(got[0], ref[0]) <= 1e-5

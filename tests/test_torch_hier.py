@@ -40,7 +40,8 @@ from pytorch_sparse_tpu.parallel import hier as jhier
 from pytorch_sparse_tpu_torch.testing import rel_err
 
 import _torch_dist_workers as W
-from test_torch_dist import check_case, jax_reference
+from test_torch_dist import (
+    SERVED, check_case, jax_reference, jax_x_grad, served_peers)
 
 M, K, BLOCK_B, SEED = 118, 6, 8, 5
 GRAPH = (12, 1600, 150, 3, 7)
@@ -352,3 +353,21 @@ def test_dist_gcn_hier_step_matches_jax_dist_gcn(gcn_port, gcn_params,
     assert abs(float(got["loss"]) - float(loss)) <= 1e-5 * abs(float(loss))
     for p, r in zip(got["params"], _flat(new)):
         assert rel_err(p, r) <= 1e-5
+
+
+@pytest.mark.parametrize("grid", [(1, 3), (3, 1), (1, 4), (4, 1)],
+                         ids=["1x3", "3x1", "1x4", "4x1"])
+def test_hier_backward_sums_rows_served_to_several_peers(grid):
+    """On one fabric (ICI on a (1, C) grid, DCN on an (S, 1) one) a row
+    is served to two or more peers; its returned gradients are summed in
+    a fixed order and added once: the gathered gradient of ``x`` matches
+    JAX's to 1e-5, twice alike."""
+    M, K, E, seed = (SERVED[k] for k in ("M", "K", "E", "seed"))
+    row, col, val = W.uniform_coo(M, E, seed)
+    assert served_peers(row, col, M, grid[0] * grid[1], grid[1]) >= 2
+    got = W.spawn(W.run_served_backward, grid[0] * grid[1], "gloo",
+                  args=dict(SERVED, grid=grid, runs=2), threads=1)[0]
+    ref = jax_x_grad(row, col, val, M, W.operand(seed + 1, M, K),
+                     W.operand(seed + 2, M, K))
+    assert torch.equal(got[0], got[1])
+    assert rel_err(got[0], ref) <= 1e-5

@@ -1177,3 +1177,191 @@ def test_minmax_spmm_t_walk_on_gpu(K):
         assert minmax_spmm_t.last_instance == walk_instance(K, False)
         assert torch.equal(off, got)
     assert not bool(got[st.colptr()[1:] == st.colptr()[:-1]].any())
+
+
+# ----------------------------------------------------------------------
+# The per-edge walk (edge_walk.cuh): K4 edge_dot and K7a minmax_edge_dot
+# ----------------------------------------------------------------------
+
+EDGE_WIDTHS = [1, 8, 40, 47, 128, 256, 300]
+
+
+def _edge_walk_inputs(K, seed, case="random"):
+    """A CUDA CSR with rows of degree 0 to 2,000 (WALK_DEGREES), x and g,
+    and the max argout of x (``csr_spmm_minmax``): ``random`` N(0, 1),
+    ``ties`` small integers, ``inf`` a fifth of x -inf and some +inf,
+    ``nan`` 2% NaN."""
+    N, M = 900, len(WALK_DEGREES) * 12
+    rowptr, col, val = _degree_csr(WALK_DEGREES * 12, N, seed)
+    rng = np.random.RandomState(seed + 1)
+    x = rng.randn(N, K).astype(np.float32)
+    if case == "ties":
+        x = rng.randint(-2, 3, (N, K)).astype(np.float32)
+    elif case == "inf":
+        x[rng.rand(N, K) < 0.2] = -np.inf
+        x[rng.rand(N, K) < 0.02] = np.inf
+    elif case == "nan":
+        x[rng.rand(N, K) < 0.02] = np.nan
+    x = torch.from_numpy(x).cuda()
+    g = torch.from_numpy(_x(seed + 2, M, K)).cuda()
+    _, arg = csr_spmm_minmax(rowptr, col, val, x, False)
+    return rowptr, col, x, g, arg
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit (NaN included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _off(t):
+    """A copy of ``t`` 4 bytes off a 16-byte boundary."""
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    off = flat[1:].view(t.shape)
+    off.copy_(t)
+    assert off.data_ptr() % 16 == 4
+    return off
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", EDGE_WIDTHS)
+def test_edge_dot_walk_matches_plain_on_gpu(K):
+    """K4 on rows of degree 0 to 2,000 at every instance class: within
+    1e-5 of the plain version, bit-equal across launches, the instance
+    the Python mirror chooses; x or g off 16 bytes runs the scalar
+    instance, within 1e-5 too."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels.edge_dot import edge_instance
+
+    rowptr, col, x, g, _ = _edge_walk_inputs(K, 80)
+    ref = edge_dot_plain(rowptr, col, x, g)
+    before = edge_dot.launches
+    got = edge_dot(rowptr, col, x, g)
+    assert edge_dot.launches == before + 1
+    assert edge_dot.last_instance == edge_instance(K, True)
+    _same(got, ref, 1e-5)
+    assert _bits_equal(edge_dot(rowptr, col, x, g), got)
+    for xo, go in ((_off(x), g), (x, _off(g))):
+        off = edge_dot(rowptr, col, xo, go)
+        assert edge_dot.last_instance == edge_instance(K, False)
+        _same(off, ref, 1e-5)
+        assert _bits_equal(edge_dot(rowptr, col, xo, go), off)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "ties", "inf", "nan", "empty"])
+@pytest.mark.parametrize("K", EDGE_WIDTHS)
+def test_minmax_edge_dot_walk_matches_plain_on_gpu(case, K):
+    """K7a on the max argout, rows of degree 0 to 2,000, at every
+    instance class and in the random, ties, inf and nan cases (``empty``:
+    the argout of rows that lost all their edges, E, and g NaN there):
+    within 1e-5 of the plain version (NaN where it has NaN), bit-equal
+    across launches, the Python mirror's instance; arg off 16 bytes runs
+    the scalar instance."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels.edge_dot import edge_instance
+
+    rowptr, col, x, g, arg = _edge_walk_inputs(
+        K, 81, "random" if case == "empty" else case)
+    E = col.shape[0]
+    if case == "empty":
+        lost = torch.arange(arg.shape[0], device="cuda") % 3 == 0
+        arg[lost] = E
+        g[lost] = float("nan")
+    ref = minmax_edge_dot_plain(rowptr, col, x, g, arg)
+    before = minmax_edge_dot.launches
+    got = minmax_edge_dot(rowptr, col, x, g, arg)
+    assert minmax_edge_dot.launches == before + 1
+    assert minmax_edge_dot.last_instance == edge_instance(K, True)
+    _same(got, ref, 1e-5)
+    assert _bits_equal(minmax_edge_dot(rowptr, col, x, g, arg), got)
+    if case == "empty":
+        assert bool(torch.isfinite(got).all())
+    off = minmax_edge_dot(rowptr, col, x, g, _off(arg))
+    assert minmax_edge_dot.last_instance == edge_instance(K, False)
+    _same(off, ref, 1e-5)
+
+
+@pytest.mark.gpu
+def test_edge_instance_matches_the_kernels_choice_on_gpu():
+    """The Python choice of the edge walk's instance and the C code's
+    (``edge_walk_instance``, exported by both libraries) agree at every
+    width of one or two passes, aligned or not."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch import _build
+    from pytorch_sparse_tpu_torch.ops.kernels.edge_dot import (
+        edge_instance, kernel_edge_instance)
+
+    import ctypes
+
+    mm = _build.load("spmm_minmax")
+    mm.edge_walk_instance.argtypes = [ctypes.c_int, ctypes.c_int,
+                                      ctypes.POINTER(ctypes.c_int)]
+    for K in range(1, 513):
+        for aligned in (True, False):
+            want = edge_instance(K, aligned)
+            assert kernel_edge_instance(K, aligned) == want, (K, aligned)
+            arr = (ctypes.c_int * 5)()
+            mm.edge_walk_instance(K, int(aligned), arr)
+            assert tuple(arr) == (want.vec, want.lanes, want.chunks,
+                                  want.passes, want.edges_in_flight)
+
+
+@pytest.mark.gpu
+def test_edge_walks_at_zero_width_launch_nothing_on_gpu():
+    _need_gpu()
+    rowptr, col, _ = _degree_csr([0, 3, 5], 10, 82)
+    x = torch.zeros((10, 0), device="cuda")
+    g = torch.zeros((3, 0), device="cuda")
+    arg = torch.zeros((3, 0), dtype=torch.int32, device="cuda")
+    before = (edge_dot.launches, minmax_edge_dot.launches)
+    assert torch.equal(edge_dot(rowptr, col, x, g),
+                       torch.zeros(8, device="cuda"))
+    assert torch.equal(minmax_edge_dot(rowptr, col, x, g, arg),
+                       torch.zeros(8, device="cuda"))
+    assert (edge_dot.launches, minmax_edge_dot.launches) == before
+
+
+# ----------------------------------------------------------------------
+# Sums over repeated indices in a fixed order (coalesce, to_dense)
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("reduce", ["add", "mean"])
+def test_coalesce_of_a_grad_value_is_deterministic_on_gpu(reduce, dtype):
+    """Duplicates (about 100 a position) of a CUDA value that requires
+    grad sum in edge order: two runs give the same bits, the CPU's bits,
+    and the value's gradient."""
+    _need_gpu()
+    rng = np.random.RandomState(83)
+    pos = np.sort(rng.randint(0, 4000, 400_000))
+    row, col = pos // 64, pos % 64
+    val = rng.randn(pos.size)
+
+    def run(dev):
+        v = torch.from_numpy(val).to(dev, dtype).requires_grad_(True)
+        A = pts.SparseTensor(row=row, col=col, sparse_sizes=(64, 64),
+                             is_sorted=True, trust_data=True, device=dev)
+        out = A.set_value(v, layout="coo").coalesce(reduce).storage.value()
+        (grad,) = torch.autograd.grad(out, v, torch.ones_like(out))
+        return out.detach().cpu(), grad.cpu()
+
+    a, b, cpu = run("cuda"), run("cuda"), run("cpu")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[0], cpu[0]) and torch.equal(a[1], cpu[1])
+
+
+@pytest.mark.gpu
+def test_to_dense_of_duplicates_is_deterministic_on_gpu():
+    _need_gpu()
+    rng = np.random.RandomState(84)
+    row, col = rng.randint(0, 50, 300_000), rng.randint(0, 40, 300_000)
+    val = rng.randn(row.size).astype(np.float32)
+
+    def run(dev):
+        return pts.SparseTensor(row=row, col=col, value=val,
+                                sparse_sizes=(50, 40),
+                                device=dev).to_dense().cpu()
+
+    a, b = run("cuda"), run("cuda")
+    assert torch.equal(a, b) and torch.equal(a, run("cpu"))

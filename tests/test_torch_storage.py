@@ -115,6 +115,63 @@ def test_coalesce_matches(reduce):
     assert Bc.is_coalesced()
 
 
+@pytest.mark.parametrize("width", [(), (3,)])
+@pytest.mark.parametrize("reduce", ["add", "mean", "min", "max"])
+def test_coalesce_of_a_value_that_requires_grad_matches_jax(reduce, width):
+    """The device reduction of duplicates (sums in edge order, the
+    ordered ``segment.Runs``) and its gradient in the value, against
+    JAX's ``coalesce`` under ``jax.grad``."""
+    import jax
+
+    row, col, _ = _coo(9, 25, 20, 500)
+    rng = np.random.RandomState(10)
+    val = rng.randn(row.size, *width).astype(np.float32)
+    A, B = _pair(row, col, None, (25, 20))
+    nnz = A.coalesce(reduce).nnz()
+    gout = rng.randn(nnz, *width).astype(np.float32)
+
+    def jax_out(v):
+        return A.set_value(v, layout="coo").coalesce(reduce).storage.value()
+
+    ref = np.asarray(jax_out(jnp.asarray(val)))
+    ref_grad = np.asarray(jax.grad(
+        lambda v: (jax_out(v) * gout).sum())(jnp.asarray(val)))
+    v = torch.from_numpy(val).requires_grad_(True)
+    out = B.set_value(v, layout="coo").coalesce(reduce).storage.value()
+    (grad,) = torch.autograd.grad(out, v, torch.from_numpy(gout))
+    np.testing.assert_allclose(_np(out), ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_np(grad), ref_grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_runs_sum_other_dtypes_pass_by_place(dtype):
+    """Dtypes other than float32 sum a run one place a pass (no two
+    writes of a pass reach one run), left to right from 0 as the float32
+    path does, and keep the gradient; empty runs give 0."""
+    rng = np.random.RandomState(11)
+    lens = rng.randint(0, 9, 60)
+    lens[::7] = 0
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    data64 = rng.randn(int(ptr[-1]), 2)
+    runs = pseg.Runs(ptr, "cpu")
+    assert len(runs.passes()) == lens.max()
+    for runs_d, elems in runs.passes():
+        assert np.unique(runs_d.numpy()).size == runs_d.numel()
+    data = torch.from_numpy(data64).to(dtype).requires_grad_(True)
+    got = runs.sum(data)
+    want = torch.zeros((lens.size, 2), dtype=dtype)
+    for r in range(lens.size):
+        for e in range(ptr[r], ptr[r + 1]):
+            want[r] = want[r] + data.detach()[e]
+    assert torch.equal(got.detach(), want)
+    assert torch.equal(
+        runs.sum(data.detach().float()),
+        pseg.segment_sum_csr(data.detach().float(),
+                             torch.from_numpy(ptr.astype(np.int32))))
+    (grad,) = torch.autograd.grad(got.sum(), data)
+    assert torch.equal(grad, torch.ones_like(grad))
+
+
 def test_set_value_csc_layout_and_hybrid_guard():
     row, col, val = _coo(7, 30, 30, 100, dup=False)
     A, B = _pair(row, col, val, (30, 30))

@@ -1,10 +1,12 @@
 """Time the CSR walks on a CUDA card: ``csr_spmm`` (K1), ``shard_spmm``
 (K11a), ``shard_spmm_minmax`` (K11b) and ``minmax_spmm_t`` (K7b), with
-two controls that bracket each.
+two controls that bracket each, and the per-edge walks ``edge_dot`` (K4)
+and ``minmax_edge_dot`` (K7a) beside K1 on the same graphs.
 
 Usage (from the repo root; one card)::
 
     python tools/time_csr_walk.py [--root DIR] [--reps N] [--out FILE]
+                                  [--edge-only]
 
 ``--root`` is the checkout whose ``pytorch_sparse_tpu_torch`` is
 timed (default: this one), so that two commits can be compared in one
@@ -36,7 +38,18 @@ to ``--out``) with a case per line of ``cases``:
   the uniform graph and the community hybrid, K11a's and K11b's
   interior, and K7b on the uniform graph (its ``arg`` and ``g`` rows;
   the scattered rows are copies of each edge's own rows, so every edge
-  wins what it won).
+  wins what it won);
+* K4 on the uniform graph at K = 8 (GAT's heads), 40, 128 and 256, on
+  the community hybrid and Reddit-10% graphs at K=128, with the
+  resident and scattered controls at K=128 on the uniform graph, and K1
+  on Reddit-10% at K=128 (K1's uniform and community hybrid cases are
+  above);
+* K7a on the max argout of K6 on the uniform graph at K = 40, 128 and
+  256 and on the community hybrid and Reddit-10% graphs at K=128.
+
+``--edge-only`` stops after K4 and K7a (K1 and its controls come
+first, K11a, K11b and K7b are left out): a quicker run for comparing
+variants of the per-edge walk.
 
 Each case's ``ms`` is CUDA events around ``--reps`` launches after one
 warm-up (the host's launch path where it is slower than the kernel);
@@ -44,13 +57,16 @@ warm-up (the host's launch path where it is slower than the kernel);
 ``torch.profiler`` trace of ``TRACE_CALLS`` calls; ``bound_ms`` is the
 operand-once bound (each input read once, the output written once, at
 3.35 TB/s) and ``row_per_edge_ms`` the bound that reads one operand row
-(K7b: one ``arg`` and one ``g`` row) per edge.  ``digest`` is a SHA-1 of
+(K7b: one ``arg`` and one ``g`` row; K4 and K7a: one ``x`` row) per
+edge.  ``digest`` is a SHA-1 of
 the output's bytes (K11b: ``out`` then ``arg``) from one call on fresh
-inputs, so that two trees' outputs can be compared bit for bit.  Where
+inputs, so that two trees' outputs can be compared bit for bit; ``sass``
+a SHA-1 of each kernel's machine code (``cuobjdump -sass``), so that two
+trees' builds of a kernel can be compared instruction for instruction.  Where
 the tree has ``ops.kernels.csr_spmm.walk_instance``, each K1 and K11a
 case names the instance that ran (vector width, lanes a row, rows a
-warp, chunks a lane, column tiles); K11b and K7b name the wrapper's own
-``last_instance`` where it has one.
+warp, chunks a lane, column tiles); K11b, K7b, K4 and K7a name the
+wrapper's own ``last_instance`` where it has one.
 """
 
 import argparse
@@ -66,7 +82,8 @@ RESIDENT_ROWS = 256
 TRACE_CALLS = 10
 # The walk kernels' names in this tree and in older ones.
 WALK_KERNEL = re.compile(r"walk_kernel|csr_spmm_kernel|shard_spmm_kernel|"
-                         r"shard_minmax_kernel|minmax_spmm_t_kernel")
+                         r"shard_minmax_kernel|minmax_spmm_t_kernel|"
+                         r"edge_dot_kernel")
 
 
 def _device_us(evt) -> float:
@@ -101,6 +118,42 @@ def ptxas_summary(log: str):
     return rows
 
 
+def cuobjdump_path():
+    """``cuobjdump`` of the CUDA toolkit, or None."""
+    import shutil
+
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "cuobjdump")
+    return cand if os.path.exists(cand) else shutil.which("cuobjdump")
+
+
+def sass_digests(lib_path):
+    """``{kernel: SHA-1 of its SASS}`` of a built library (``cuobjdump
+    -sass``), the kernel's name with the anonymous namespace's per-file
+    tag removed, so that two trees' builds of the same kernel compare
+    equal where their machine code is the same; {} without cuobjdump."""
+    import subprocess
+
+    tool = cuobjdump_path()
+    if tool is None:
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    out, name, body = {}, None, []
+    for ln in text.splitlines() + ["Function : <end>"]:
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            if name is not None:
+                out[name] = hashlib.sha1(
+                    "\n".join(body).encode()).hexdigest()[:16]
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "",
+                          m.group(1))
+            body = []
+        elif name is not None and "/*" in ln:
+            body.append(" ".join(ln.split()))  # column widths vary
+    return out
+
+
 def kernel_instance(fn):
     """The instance the wrapper ``fn`` last launched, where it keeps
     one."""
@@ -113,6 +166,9 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--out")
+    ap.add_argument("--edge-only", action="store_true",
+                    help="time K1's uniform and community cases and the "
+                         "per-edge walks (K4, K7a) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -128,8 +184,8 @@ def main(argv=None) -> int:
     import pytorch_sparse_tpu_torch as ts
     from pytorch_sparse_tpu_torch import _build
     from pytorch_sparse_tpu_torch.ops.kernels import (
-        csr_spmm, csr_spmm_minmax, minmax_spmm_t, shard_spmm,
-        shard_spmm_minmax)
+        csr_spmm, csr_spmm_minmax, edge_dot, minmax_edge_dot, minmax_spmm_t,
+        shard_spmm, shard_spmm_minmax)
     from pytorch_sparse_tpu_torch.parallel import (
         HierShardedSparseMatrix, ShardedSparseMatrix, data_axis, dcn_axis)
     from pytorch_sparse_tpu_torch.segment import segment_sum_csr
@@ -147,10 +203,11 @@ def main(argv=None) -> int:
     res = {"root": root, "card": card, "torch": torch.__version__,
            "reps": args.reps, "cases": []}
     t0 = time.time()
-    libs = ("csr_spmm", "shard_spmm", "spmm_minmax")
+    libs = ("csr_spmm", "shard_spmm", "spmm_minmax", "edge_dot")
     _build.build(libs)
     res["build_s"] = time.time() - t0
     res["ptxas"] = {n: ptxas_summary(_build.build_log(n)) for n in libs}
+    res["sass"] = {n: sass_digests(_build.library_path(n)) for n in libs}
 
     def timed(fn):
         """(CUDA-event ms a call, the walk kernel's device ms a call)."""
@@ -259,6 +316,79 @@ def main(argv=None) -> int:
     controls("csr_spmm", "community hybrid", rowptr, col, val,
              lambda c, x: csr_spmm(rowptr, c, val, x), Mh, Mh)
     del rowptr, col, val
+
+    Mr, Er, nr = cs.REDDIT10
+    A_r = community_graph(Mr, Er, n_comm=nr, seed=1, equal_sizes=True,
+                          device=device)
+
+    # ---- K4 and K7a: the per-edge walks, beside K1 -----------------------
+    def edge_row_per_edge_ms(M, E, k):
+        """One x row per edge, g (K7a: and arg) once, the structure and
+        the (E,) output once."""
+        nbytes = 4 * (M + 1) + 8 * E + 4 * k * E + 4 * M * k
+        return nbytes / cs.HBM_BYTES_PER_S * 1e3
+
+    def k4_case(graph, A, k, col_of=None, x_rows=None, seed=2):
+        """K4 on ``A``'s structure at width ``k``; ``col_of(col)`` maps the
+        gathered rows (the controls) into an operand of ``x_rows`` rows."""
+        rowptr, col = A.csr()[:2]
+        M = A.sparse_size(0)
+        n_x = x_rows or A.sparse_size(1)
+        c = col if col_of is None else col_of(col)
+        x = cs.operand(torch, n_x, k, seed, device)
+        g = cs.operand(torch, M, k, 4, device)
+
+        def fn():
+            return edge_dot(rowptr, c, x, g)
+        dig = digest(fn())
+        bound = cs.csr_bounds(M, c.shape[0], k, int(torch.unique(c).numel()),
+                              True)
+        record("edge_dot", graph, k, timed(fn), bound,
+               edge_row_per_edge_ms(M, c.shape[0], k), M, c.shape[0],
+               kernel_instance(edge_dot), dig)
+
+    def k7a_case(graph, A, k):
+        rowptr, col, val = A.csr()
+        M, N = A.sparse_sizes()
+        x = cs.operand(torch, N, k, 2, device)
+        _, arg = csr_spmm_minmax(rowptr, col, val, x, False)
+        g = cs.operand(torch, M, k, 4, device)
+
+        def fn():
+            return minmax_edge_dot(rowptr, col, x, g, arg)
+        dig = digest(fn())
+        bound = cs.minmax_bwd_bounds(torch, col, arg, N, val is not None)[0]
+        record("minmax_edge_dot", graph, k, timed(fn), bound,
+               edge_row_per_edge_ms(M, col.shape[0], k), M, col.shape[0],
+               kernel_instance(minmax_edge_dot), dig)
+
+    for k in (8, 40, 128, 256):
+        k4_case("uniform", A_u, k)
+    k4_case("uniform, control resident", A_u, cs.K,
+            col_of=lambda c: torch.remainder(c, RESIDENT_ROWS),
+            x_rows=RESIDENT_ROWS, seed=41)
+    gen = torch.Generator(device=device).manual_seed(42)
+    k4_case("uniform, control scattered", A_u, cs.K,
+            col_of=lambda c: torch.randperm(
+                c.shape[0], generator=gen, device=device).to(torch.int32),
+            x_rows=Eu)
+    torch.cuda.empty_cache()
+    for k in (40, 128, 256):
+        k7a_case("uniform", A_u, k)
+    torch.cuda.empty_cache()
+    rowptr, col, val = A_r.csr()
+    x = cs.operand(torch, Mr, cs.K, 2, device)
+    case("csr_spmm", "community Reddit-10%", cs.K,
+         lambda: csr_spmm(rowptr, col, val, x), Mr, A_r.nnz(),
+         int(torch.unique(col).numel()), Mr, True, inst=instance(cs.K, x))
+    del x, rowptr, col, val
+    for graph, A_ in (("community hybrid", A_h),
+                      ("community Reddit-10%", A_r)):
+        k4_case(graph, A_, cs.K)
+        k7a_case(graph, A_, cs.K)
+        torch.cuda.empty_cache()
+    if args.edge_only:
+        return finish(res, args.out)
 
     # ---- K11a: shard 0 of the community hybrid graph over 4 ranks -------
     shard0 = ShardedSparseMatrix.from_sparse_tensor(
@@ -426,20 +556,25 @@ def main(argv=None) -> int:
     del A_u
     t_args, n_, col = k7b_inputs(A_h, cs.K)
     k7b_case("community hybrid", t_args, n_, cs.K, col)
-    del t_args, A_h
+    del t_args
     torch.cuda.empty_cache()
-    Mr, Er, nr = cs.REDDIT10
-    A_r = community_graph(Mr, Er, n_comm=nr, seed=1, equal_sizes=True,
-                          device=device)
     t_args, n_, col = k7b_inputs(A_r, cs.K)
     k7b_case("community Reddit-10%", t_args, n_, cs.K, col)
-    del t_args, A_r
+    del t_args
 
+    del A_r, A_h
+
+
+    return finish(res, args.out)
+
+
+def finish(res, out) -> int:
+    """Print the result as one JSON line, and write it to ``out``."""
     line = json.dumps(res)
     print(line, flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
             f.write(line + "\n")
     return 0
 
