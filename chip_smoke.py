@@ -30,10 +30,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    community hybrid and Reddit-10% graphs; ``minmax_edge_dot`` and
    ``minmax_spmm_t`` on the max argout of each f32 case (each case names
    the instance of the walk that ran; two launches of
-   ``minmax_edge_dot`` must give the same bits);
-   ``edge_softmax`` at 8 heads and 1 on the uniform graph with
-   self-loops and on the community hybrid graph; ``edge_softmax_bwd`` at
-   8 heads, 1 and 3 on the uniform graph with self-loops.
+   ``csr_spmm_minmax`` and of ``minmax_edge_dot`` must give the same
+   bits); ``edge_softmax`` at 8 heads and 1 on the uniform graph with
+   self-loops and on the community hybrid graph, and at 1 head on
+   logits 4 bytes off a 16-byte boundary (each case names the instance
+   of the row sweep that ran; two launches must give the same bits);
+   ``edge_softmax_bwd`` at 8 heads, 1 and 3 on the uniform graph with
+   self-loops.
    ``block_spmm_dblocks`` on phase 9's block-aligned hybrid (both forms,
    f32 and bf16 stores, K=256 and 40; a bf16 store must equal the f32
    store's sums rounded once) and on a ragged case (B=100, K=70).
@@ -784,16 +787,18 @@ def kernel_case(torch, label, got, ref, failures, name, **timing):
 
 def last_instance(fn):
     """The instance of the CSR walk (``csr_spmm``, ``shard_spmm``,
-    ``shard_spmm_minmax``, ``minmax_spmm_t``) or of the per-edge walk
-    (``edge_dot``, ``minmax_edge_dot``) that the wrapper ``fn`` last
-    launched, as a dict; None before a launch."""
+    ``shard_spmm_minmax``, ``minmax_spmm_t``, ``csr_spmm_minmax``), of
+    the per-edge walk (``edge_dot``, ``minmax_edge_dot``) or of the row
+    sweep (``edge_softmax``) that the wrapper ``fn`` last launched, as a
+    dict; None before a launch."""
     inst = fn.last_instance
     return None if inst is None else inst._asdict()
 
 
 def bits_equal(torch, a, b):
     """Equal bit for bit (NaN included): two launches of one kernel."""
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.view(bits), b.view(bits))
 
 
 def kernel_entry(name, source, replaces, cases, library, shape, units=None):
@@ -2050,17 +2055,22 @@ def main(argv=None) -> int:
             for is_min in (False, True):
                 name = f"{'min' if is_min else 'max'} {label}"
                 got, arg = csr_spmm_minmax(rp, cl, vv, x, is_min)
+                inst = last_instance(csr_spmm_minmax)
                 ref, ref_arg = csr_spmm_minmax_plain(rp, cl, vv, x, is_min)
+                again, arg_again = csr_spmm_minmax(rp, cl, vv, x, is_min)
                 sync()
                 abs_e, rel_e = errors(got, ref)
                 mism = int((arg != ref_arg).sum())
-                ok = mism == 0 and abs_e == 0.0
+                same_bits = bits_equal(torch, got, again) and \
+                    torch.equal(arg, arg_again)
+                ok = mism == 0 and abs_e == 0.0 and same_bits
                 if not ok:
                     failures.append(f"csr_spmm_minmax {name}: {mism} arg "
-                                    f"mismatches, out abs err {abs_e:.3g}")
+                                    f"mismatches, out abs err {abs_e:.3g}, "
+                                    f"two launches equal: {same_bits}")
                 k6_cases.append({
                     "case": name, "max_abs_err": abs_e, "max_rel_err": rel_e,
-                    "arg_mismatches": mism, "ok": ok,
+                    "arg_mismatches": mism, "instance": inst, "ok": ok,
                     "ms": timer(lambda: csr_spmm_minmax(rp, cl, vv, x,
                                                         is_min)),
                     "plain_ms": plain_timer(lambda: csr_spmm_minmax_plain(
@@ -2068,7 +2078,7 @@ def main(argv=None) -> int:
                     "library_ms": None, "bound_ms": bound_ms,
                     "bound_by": bound_by})
                 arg_by_min[is_min] = arg
-                del got, ref, ref_arg
+                del got, ref, ref_arg, again, arg_again
             if dtype != torch.float32:
                 continue  # the backward kernels take f32
             arg = arg_by_min[False]
@@ -2117,18 +2127,29 @@ def main(argv=None) -> int:
         # the library yardstick is torch.sparse.softmax over the (M, N, H)
         # hybrid COO tensor.
         sm_cases = []
-        for label, A_, H in [("uniform + self-loops H=8", A_g, 8),
-                             ("uniform + self-loops H=1", A_g, 1),
-                             ("community hybrid H=8", A_h, 8),
-                             ("community hybrid H=1", A_h, 1)]:
+        for label, A_, H, off in [
+                ("uniform + self-loops H=8", A_g, 8, 0),
+                ("uniform + self-loops H=1", A_g, 1, 0),
+                ("community hybrid H=8", A_h, 8, 0),
+                ("community hybrid H=1", A_h, 1, 0),
+                ("uniform + self-loops H=1, logits 4 bytes off 16 (the "
+                 "edges instance)", A_g, 1, 1)]:
             rp = A_.storage.rowptr()
             m_, n_ = A_.sparse_sizes()
             logits = operand(torch, A_.nnz(), H, 15, device) * 2.0
+            if off:
+                flat = torch.empty(logits.numel() + off, device=device)
+                logits = flat[off:].view(logits.shape).copy_(logits)
             got = edge_softmax(rp, logits)
+            inst = last_instance(edge_softmax)
             ref = edge_softmax_plain(rp, logits)
+            if not bits_equal(torch, got, edge_softmax(rp, logits)):
+                failures.append(f"edge_softmax {label}: two launches "
+                                "differ")
             sync()
             nbytes = 4 * (m_ + 1) + 8 * A_.nnz() * H
-            timing = {"ms": timer(lambda: edge_softmax(rp, logits)),
+            timing = {"instance": inst,
+                      "ms": timer(lambda: edge_softmax(rp, logits)),
                       "plain_ms": plain_timer(
                           lambda: edge_softmax_plain(rp, logits)),
                       "library_ms": None,

@@ -43,11 +43,19 @@
 // the arg rows (597 MB at K=128) and about half as many g bytes come
 // from device memory.
 //
-// Design of csr_minmax: one warp per row.  Lanes own columns k = lane +
-// 32*j (KPL per lane, K masked, wide K in column tiles on gridDim.y).
-// Each lane loads one edge's (col, val), so the index reads are
-// coalesced, and __shfl_sync broadcasts them in edge order; the running
-// best and its edge id stay in registers.
+// Design of csr_minmax: the min/max walk of minmax_walk.cuh (K11b's, on
+// csr_walk.cuh's instances) over the whole matrix, with K6's end of row.
+// The instance is csr_walk::choose(K, aligned): float4 chunks (4
+// elements of x's type: 16 bytes for float, 8 for a half type) where
+// K % 4 == 0, x and out start on a 4-element boundary and arg on 16
+// bytes, else scalar ones; the lanes K needs, several rows a warp below
+// K=128, 8 edges' rows in flight (4 at K=256).  A half-type chunk is one
+// 8-byte load, and each product is rounded to the type before its
+// compare (Elem<T>).  The end of row writes the walk's (best, best_e),
+// absolute CSR edge ids because rowptr is the whole matrix's, or (0, E)
+// on an empty row, as 16-byte (arg, float out) and 8-byte (half out)
+// stores where the instance has float4 chunks.  Each output element is
+// written by one thread: no atomics, deterministic.
 //
 // minmax_edge_dot is the per-edge walk of edge_walk.cuh (edge_dot.cu's):
 // the lanes K needs keep float4 chunks of g[row] and int4 chunks of
@@ -80,110 +88,49 @@
 
 #include "csr_walk.cuh"
 #include "edge_walk.cuh"
+#include "minmax_walk.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
+template <typename T, int VEC, int LPR, int CPL, bool IS_MIN, bool HAS_VAL>
+__global__ void __launch_bounds__(csr_walk::kWarpsPerBlock * 32)
+csr_minmax_walk_kernel(const int* __restrict__ rowptr,
+                       const int* __restrict__ col,
+                       const T* __restrict__ val, const T* __restrict__ x,
+                       T* __restrict__ out, int* __restrict__ arg, int M,
+                       int K, int E) {
+  csr_walk::Lanes<VEC, LPR, CPL> ln;
+  const int row = ln.item;
+  if (row >= M) return;  // uniform across the sub-warp
+  ln.place(K);
+  const int start = __ldg(rowptr + row);
+  const int end = __ldg(rowptr + row + 1);
 
-// Element access in the operand's type: load as float, round a float
-// product to the type, store from float.
-template <typename T>
-struct Elem;
+  float best[CPL][VEC];
+  int best_e[CPL][VEC];
+  csr_walk::minmax_walk<VEC, LPR, CPL, IS_MIN, HAS_VAL>(
+      ln, start, end, col, val, x, K, best, best_e);
 
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ float round(float v) { return v; }
-  static __device__ __forceinline__ float store(float v) { return v; }
-};
-
-template <>
-struct Elem<__half> {
-  static __device__ __forceinline__ float load(const __half* p) {
-    return __half2float(*p);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __half2float(__float2half_rn(v));
-  }
-  static __device__ __forceinline__ __half store(float v) {
-    return __float2half_rn(v);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float v) {
-    return __float2bfloat16_rn(v);
-  }
-};
-
-template <typename T, int KPL, bool HAS_VAL, bool IS_MIN>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_minmax_kernel(const int* __restrict__ rowptr, const int* __restrict__ col,
-                  const T* __restrict__ val, const T* __restrict__ x,
-                  T* __restrict__ out, int* __restrict__ arg, int M, int K,
-                  int E) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= M) return;  // uniform across the warp
-  const int k0 = blockIdx.y * (32 * KPL) + lane;
-
-  // An empty row keeps (0, E).
-  float best[KPL];
-  int best_e[KPL];
+  // An empty row gives (0, E); the others the walk's absolute edge ids.
+  const bool empty = start == end;
+  T* __restrict__ o = out + (int64_t)row * K + ln.c0;
+  int* __restrict__ a = arg + (int64_t)row * K + ln.c0;
 #pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    best[j] = 0.f;
-    best_e[j] = E;
-  }
-
-  const int start = rowptr[row];
-  const int end = rowptr[row + 1];
-  for (int base = start; base < end; base += 32) {
-    const int n = min(32, end - base);
-    int my_c = 0;
-    float my_v = 1.f;
-    if (lane < n) {
-      my_c = col[base + lane];
-      if (HAS_VAL) my_v = Elem<T>::load(val + base + lane);
+  for (int j = 0; j < CPL; ++j) {
+    if (!ln.live[j]) continue;
+    float ov[VEC];
+    int av[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) {
+      ov[q] = empty ? 0.f : best[j][q];
+      av[q] = empty ? E : best_e[j][q];
     }
-    for (int t = 0; t < n; ++t) {
-      const int c = __shfl_sync(kFullMask, my_c, t);
-      const float v = __shfl_sync(kFullMask, my_v, t);
-      const int e = base + t;
-      const T* __restrict__ xr = x + (int64_t)c * K;
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const int k = k0 + 32 * j;
-        if (k < K) {
-          float h = Elem<T>::load(xr + k);
-          if (HAS_VAL) h = Elem<T>::round(v * h);
-          const bool better = IS_MIN ? (h < best[j]) : (h > best[j]);
-          const bool nan_wins = h != h && best[j] == best[j];
-          if (e == start || better || nan_wins) {
-            best[j] = h;
-            best_e[j] = e;
-          }
-        }
-      }
-    }
-  }
-
-  T* __restrict__ orow = out + (int64_t)row * K;
-  int* __restrict__ arow = arg + (int64_t)row * K;
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int k = k0 + 32 * j;
-    if (k < K) {
-      orow[k] = Elem<T>::store(best[j]);
-      arow[k] = best_e[j];
+    csr_walk::Elem<T>::template store_chunk<VEC>(o + ln.STRIDE * j, ov);
+    int* __restrict__ aj = a + ln.STRIDE * j;
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<int4*>(aj) = make_int4(av[0], av[1], av[2], av[3]);
+    } else {
+      aj[0] = av[0];
     }
   }
 }
@@ -293,62 +240,43 @@ minmax_spmm_t_kernel(const int* __restrict__ colptr,
   }
 }
 
-int kpl_for(int K) { return K <= 32 ? 1 : K <= 64 ? 2 : K <= 128 ? 4 : 8; }
-
-template <typename T, int KPL, bool HAS_VAL>
-void launch_minmax(bool is_min, const int* rowptr, const int* col,
-                   const void* val, const void* x, void* out, int* arg, int M,
-                   int K, int E, cudaStream_t stream) {
-  const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                  (K + 32 * KPL - 1) / (32 * KPL));
-  const T* v = static_cast<const T*>(val);
-  const T* xp = static_cast<const T*>(x);
-  T* op = static_cast<T*>(out);
-  if (is_min) {
-    csr_minmax_kernel<T, KPL, HAS_VAL, true>
-        <<<grid, kWarpsPerBlock * 32, 0, stream>>>(rowptr, col, v, xp, op,
-                                                    arg, M, K, E);
-  } else {
-    csr_minmax_kernel<T, KPL, HAS_VAL, false>
-        <<<grid, kWarpsPerBlock * 32, 0, stream>>>(rowptr, col, v, xp, op,
-                                                    arg, M, K, E);
-  }
-}
-
-template <typename T, int KPL>
-void launch_minmax_kpl(bool is_min, const int* rowptr, const int* col,
-                       const void* val, const void* x, void* out, int* arg,
-                       int M, int K, int E, cudaStream_t stream) {
-  if (val != nullptr) {
-    launch_minmax<T, KPL, true>(is_min, rowptr, col, val, x, out, arg, M, K,
-                                E, stream);
-  } else {
-    launch_minmax<T, KPL, false>(is_min, rowptr, col, val, x, out, arg, M, K,
-                                 E, stream);
-  }
+// K6's instance: float4 chunks need x and out on a boundary of 4
+// elements of their type (16 bytes for float, 8 for a half type) and
+// arg on 16 bytes.  dtype: 0 float32, 1 float16, 2 bfloat16.
+csr_walk::Instance minmax_instance(int dtype, int K, const void* x,
+                                   const void* out, const void* arg) {
+  const uintptr_t chunk = dtype == 0 ? 16 : 8;
+  const uintptr_t bits =
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out);
+  return csr_walk::choose(K,
+                          bits % chunk == 0 && csr_walk::aligned16({arg}));
 }
 
 template <typename T>
-void launch_minmax_type(bool is_min, const int* rowptr, const int* col,
-                        const void* val, const void* x, void* out, int* arg,
-                        int M, int K, int E, cudaStream_t stream) {
-  switch (kpl_for(K)) {
-    case 1:
-      launch_minmax_kpl<T, 1>(is_min, rowptr, col, val, x, out, arg, M, K, E,
-                              stream);
-      break;
-    case 2:
-      launch_minmax_kpl<T, 2>(is_min, rowptr, col, val, x, out, arg, M, K, E,
-                              stream);
-      break;
-    case 4:
-      launch_minmax_kpl<T, 4>(is_min, rowptr, col, val, x, out, arg, M, K, E,
-                              stream);
-      break;
-    default:
-      launch_minmax_kpl<T, 8>(is_min, rowptr, col, val, x, out, arg, M, K, E,
-                              stream);
-  }
+int launch_minmax(const csr_walk::Instance& in, bool is_min,
+                  const int* rowptr, const int* col, const void* val,
+                  const void* x, void* out, int* arg, int M, int K, int E,
+                  cudaStream_t s) {
+  const T* v = static_cast<const T*>(val);
+  const T* xp = static_cast<const T*>(x);
+  T* op = static_cast<T*>(out);
+  return csr_walk::dispatch(in, [&](auto shape) {
+    using S = decltype(shape);
+    const dim3 grid = csr_walk::grid_of(in, M);
+    constexpr int threads = csr_walk::kWarpsPerBlock * 32;
+#define K6_LAUNCH(IS_MIN_, HAS_VAL_)                                      \
+  csr_minmax_walk_kernel<T, S::VEC, S::LPR, S::CPL, IS_MIN_, HAS_VAL_>    \
+      <<<grid, threads, 0, s>>>(rowptr, col, v, xp, op, arg, M, K, E)
+    if (is_min) {
+      if (v != nullptr) K6_LAUNCH(true, true);
+      else K6_LAUNCH(true, false);
+    } else {
+      if (v != nullptr) K6_LAUNCH(false, true);
+      else K6_LAUNCH(false, false);
+    }
+#undef K6_LAUNCH
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -364,7 +292,9 @@ int csr_spmm_minmax(int device, int dtype, int is_min, const void* rowptr,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0 || K <= 0) return 0;
-  if ((K + 255) / 256 > 65535) return (int)cudaErrorInvalidValue;
+  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
+  const csr_walk::Instance in = minmax_instance(dtype, K, x, out, arg);
+  if (in.tiles > 65535) return (int)cudaErrorInvalidValue;
   const int* rp = static_cast<const int*>(rowptr);
   const int* ci = static_cast<const int*>(col);
   int* ap = static_cast<int*>(arg);
@@ -372,19 +302,27 @@ int csr_spmm_minmax(int device, int dtype, int is_min, const void* rowptr,
   const bool mn = is_min != 0;
   switch (dtype) {
     case 0:
-      launch_minmax_type<float>(mn, rp, ci, val, x, out, ap, M, K, E, s);
-      break;
+      return launch_minmax<float>(in, mn, rp, ci, val, x, out, ap, M, K, E,
+                                  s);
     case 1:
-      launch_minmax_type<__half>(mn, rp, ci, val, x, out, ap, M, K, E, s);
-      break;
-    case 2:
-      launch_minmax_type<__nv_bfloat16>(mn, rp, ci, val, x, out, ap, M, K, E,
-                                        s);
-      break;
+      return launch_minmax<__half>(in, mn, rp, ci, val, x, out, ap, M, K, E,
+                                   s);
     default:
-      return (int)cudaErrorInvalidValue;
+      return launch_minmax<__nv_bfloat16>(in, mn, rp, ci, val, x, out, ap,
+                                          M, K, E, s);
   }
-  return (int)cudaGetLastError();
+}
+
+// The instance csr_spmm_minmax runs for these operands:
+// {vec, lanes, chunks, tiles} into out4.  Returns 0.
+int csr_spmm_minmax_instance(int dtype, int K, const void* x,
+                             const void* out, const void* arg, int* out4) {
+  const csr_walk::Instance in = minmax_instance(dtype, K, x, out, arg);
+  out4[0] = in.vec;
+  out4[1] = in.lanes;
+  out4[2] = in.chunks;
+  out4[3] = in.tiles;
+  return 0;
 }
 
 // rowptr (M+1) int32, col (E) int32, x (N, K) float32, g (M, K) float32,

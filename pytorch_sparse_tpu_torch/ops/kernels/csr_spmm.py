@@ -4,7 +4,7 @@ Replaces the JAX package's gather route (``pytorch_sparse_tpu/ops/
 kernels/ell.py``: ``ell_spmm`` and ``_bucket_sum``).  The CUDA kernel
 (``csrc/csr_spmm.cu``, an instance of the CSR walk in ``csrc/
 csr_walk.cuh`` that ``shard_spmm`` shares, and whose instances the
-min/max walks of K11b and K7b run too) reads CSR directly and sums
+min/max walks of K6, K11b and K7b run too) reads CSR directly and sums
 each output element in CSR edge order; the ELL padding and degree
 buckets of the TPU version are gone.
 
@@ -71,9 +71,12 @@ def walk_instance(K: int, aligned: bool) -> WalkInstance:
 def launch_instance(K: int, *tensors: torch.Tensor) -> WalkInstance:
     """The instance a launch runs whose row-major ``(rows, K)`` operands
     and outputs are ``tensors`` (K1: ``x`` and ``out``; K11b: ``buf``,
-    ``out`` and ``arg``; K7b: ``g``, ``arg`` and ``out``): float4 chunks
-    only where every one starts on a 16-byte boundary."""
-    return walk_instance(K, all(t.data_ptr() % 16 == 0 for t in tensors))
+    ``out`` and ``arg``; K7b: ``g``, ``arg`` and ``out``; K6: ``x``,
+    ``out`` and ``arg``): chunks of 4 elements (float4 for 4-byte
+    elements, 8 bytes for float16 and bfloat16) only where every one
+    starts on a boundary of 4 of its elements."""
+    return walk_instance(K, all(t.data_ptr() % (4 * t.element_size()) == 0
+                                for t in tensors))
 
 
 def _kernel_lib():

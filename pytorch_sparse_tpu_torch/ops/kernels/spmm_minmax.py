@@ -14,9 +14,11 @@ They replace the JAX package's ``pytorch_sparse_tpu/ops/kernels/ell.py``:
 ``ell_spmm_minmax`` (forward) and ``ell_minmax_bwd`` (both backward
 halves), which run over the ELL view and its transpose.  The CUDA
 kernels (``csrc/spmm_minmax.cu``) read CSR and the cached CSC view
-directly: the forward one warp per row, ``minmax_edge_dot`` the per-edge
-walk of ``csrc/edge_walk.cuh`` (``edge_dot``'s), ``minmax_spmm_t`` the
-CSR walk of ``csrc/csr_walk.cuh`` over the CSC view's columns.
+directly: the forward the min/max walk of ``csrc/minmax_walk.cuh``
+(``shard_spmm_minmax``'s, for float32, float16 and bfloat16),
+``minmax_edge_dot`` the per-edge walk of ``csrc/edge_walk.cuh``
+(``edge_dot``'s), ``minmax_spmm_t`` the CSR walk of ``csrc/
+csr_walk.cuh`` over the CSC view's columns.
 
 The argout contract is the JAX ELL path's (``ts.spmm_max`` run eagerly):
 strict comparison, so ties keep the first CSR edge; the running best
@@ -34,8 +36,9 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``) for CPU tensors.  Other devices raise.
 ``csr_spmm_minmax.launches``, ``minmax_edge_dot.launches`` and
 ``minmax_spmm_t.launches`` count kernel launches;
-``minmax_edge_dot.last_instance`` and ``minmax_spmm_t.last_instance``
-keep the instance of the walk each last ran.
+``csr_spmm_minmax.last_instance``, ``minmax_edge_dot.last_instance`` and
+``minmax_spmm_t.last_instance`` keep the instance of the walk each last
+ran.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ import torch
 from ... import _build
 from ...segment import segment_max, segment_min, segment_sum
 from ...utils.convert import INDEX_DTYPE, ptr2ind
-from .csr_spmm import launch_instance
+from .csr_spmm import WalkInstance, launch_instance
 from .edge_dot import launch_edge_instance
 
 _lib = None
@@ -66,6 +69,9 @@ def _kernel_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.csr_spmm_minmax.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, p]
         lib.csr_spmm_minmax.restype = i
+        lib.csr_spmm_minmax_instance.argtypes = [
+            i, i, p, p, p, ctypes.POINTER(i)]
+        lib.csr_spmm_minmax_instance.restype = i
         lib.minmax_edge_dot_f32.argtypes = [i, p, p, p, p, p, p, i, i, p]
         lib.minmax_edge_dot_f32.restype = i
         lib.minmax_spmm_t_f32.argtypes = [i, p, p, p, p, p, p, p, i, i, p]
@@ -175,7 +181,12 @@ def csr_spmm_minmax(rowptr: torch.Tensor, col: torch.Tensor,
     int32 argout.
 
     CUDA tensors run the hand-written kernel: ``x`` float32, float16 or
-    bfloat16, row-major contiguous.  CPU tensors run
+    bfloat16, row-major contiguous.  The instance is
+    ``csr_spmm.launch_instance(K, x, out, arg)`` (chunks of 4 elements
+    where ``K % 4 == 0`` and ``x`` and ``out`` start on a boundary of 4
+    of their elements, 16 bytes for float32 and 8 for a half type, and
+    ``arg`` on 16 bytes; else scalar ones), kept in
+    ``csr_spmm_minmax.last_instance``.  CPU tensors run
     :func:`csr_spmm_minmax_plain`."""
     _check_forward(rowptr, col, value, x)
     dev = x.device
@@ -199,10 +210,25 @@ def csr_spmm_minmax(rowptr: torch.Tensor, col: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "csr_spmm_minmax launch")
     csr_spmm_minmax.launches += 1
+    csr_spmm_minmax.last_instance = launch_instance(K, x, out, arg)
     return out, arg
 
 
 csr_spmm_minmax.launches = 0
+csr_spmm_minmax.last_instance = None
+
+
+def kernel_minmax_instance(K: int, x: torch.Tensor, out: torch.Tensor,
+                           arg: torch.Tensor) -> WalkInstance:
+    """The C code's choice of K6's instance for these tensors
+    (``csr_spmm_minmax_instance``), built and loaded on first use: the
+    GPU tests hold it against ``launch_instance(K, x, out, arg)``."""
+    arr = (ctypes.c_int * 4)()
+    _kernel_lib().csr_spmm_minmax_instance(
+        _DTYPE_CODES[x.dtype], int(K), x.data_ptr(), out.data_ptr(),
+        arg.data_ptr(), arr)
+    vec, lanes, chunks, tiles = arr
+    return WalkInstance(vec, lanes, 32 // lanes, chunks, tiles)
 
 
 # ----------------------------------------------------------------------

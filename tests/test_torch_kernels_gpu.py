@@ -1365,3 +1365,191 @@ def test_to_dense_of_duplicates_is_deterministic_on_gpu():
 
     a, b = run("cuda"), run("cuda")
     assert torch.equal(a, b) and torch.equal(a, run("cpu"))
+
+
+# ----------------------------------------------------------------------
+# K6 csr_spmm_minmax on the min/max walk (minmax_walk.cuh)
+# ----------------------------------------------------------------------
+
+HALF_TYPES = [torch.float32, torch.float16, torch.bfloat16]
+
+
+def _bits(t):
+    """``t``'s bits as integers of its element size (NaN included)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _off_elements(t, k):
+    """A copy of ``t`` ``k`` elements off its allocation's start."""
+    flat = torch.zeros(t.numel() + k, dtype=t.dtype, device=t.device)
+    off = flat[k:].view(t.shape)
+    off.copy_(t)
+    return off
+
+
+def _tie_operand(N, K, seed, dtype):
+    """Small integers (ties), with -inf and +inf rows and NaN entries,
+    exact in every half type."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(-3, 4, (N, K)).astype(np.float32)
+    x[::7] = -np.inf
+    x[3::7] = np.inf
+    x[5::11, ::3] = np.nan
+    return torch.from_numpy(x).cuda().to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF_TYPES)
+@pytest.mark.parametrize("K", [1, 4, 8, 20, 40, 47, 128, 256, 300])
+def test_csr_spmm_minmax_walk_on_gpu(K, dtype):
+    """K6 on rows of degree 0 to 2,000 (empty rows give (0, E)), with
+    small-integer values and operand (ties), +-inf rows and NaN entries:
+    out and arg exactly the plain version's, bit-equal across two
+    launches, the instance the Python mirror and the C code choose; x 4
+    bytes off its chunk boundary runs the scalar instance with the same
+    bits."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels.csr_spmm import (
+        launch_instance)
+    from pytorch_sparse_tpu_torch.ops.kernels.spmm_minmax import (
+        kernel_minmax_instance)
+
+    N = 700
+    rowptr, col, _ = _degree_csr(WALK_DEGREES * 6, N, 90)
+    E = col.shape[0]
+    val = torch.from_numpy(np.random.RandomState(91).randint(
+        -2, 3, E).astype(np.float32)).cuda()
+    x = _tie_operand(N, K, 92, dtype)
+    x_off = _off_elements(x, 4 // x.element_size())  # 4 bytes off
+    empty = (rowptr[1:] == rowptr[:-1]).nonzero().flatten()
+    for vv in (val, None):
+        for is_min in (True, False):
+            ref, ref_arg = csr_spmm_minmax_plain(rowptr, col, vv, x, is_min)
+            before = csr_spmm_minmax.launches
+            out, arg = csr_spmm_minmax(rowptr, col, vv, x, is_min)
+            assert csr_spmm_minmax.launches == before + 1
+            inst = csr_spmm_minmax.last_instance
+            assert inst == launch_instance(K, x, out, arg) == \
+                walk_instance(K, True)
+            assert kernel_minmax_instance(K, x, out, arg) == inst
+            assert out.dtype == dtype and torch.equal(arg, ref_arg)
+            _same(out, ref)
+            assert bool((arg[empty] == E).all())
+            assert not bool(out[empty].any())
+            out2, arg2 = csr_spmm_minmax(rowptr, col, vv, x, is_min)
+            assert torch.equal(_bits(out2), _bits(out))
+            assert torch.equal(arg2, arg)
+            o_off, a_off = csr_spmm_minmax(rowptr, col, vv, x_off, is_min)
+            assert csr_spmm_minmax.last_instance == walk_instance(K, False)
+            assert kernel_minmax_instance(K, x_off, o_off, a_off) == \
+                walk_instance(K, False)
+            assert torch.equal(_bits(o_off), _bits(out))
+            assert torch.equal(a_off, arg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF_TYPES)
+def test_minmax_instance_matches_the_kernels_choice_on_gpu(dtype):
+    """K6's instance, as the C code chooses it from the pointers, equals
+    ``launch_instance(K, x, out, arg)`` at every width of one or two
+    tiles, with x, out or arg off their chunk boundaries."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels.csr_spmm import (
+        launch_instance)
+    from pytorch_sparse_tpu_torch.ops.kernels.spmm_minmax import (
+        kernel_minmax_instance)
+
+    base = torch.zeros(4096, dtype=dtype, device="cuda")
+    ints = torch.zeros(4096, dtype=torch.int32, device="cuda")
+    for K in range(1, 301):
+        for dx, do, da in ((0, 0, 0), (1, 0, 0), (2, 0, 0), (0, 2, 0),
+                           (0, 0, 1), (0, 0, 2)):
+            x, o = base[dx:dx + K], base[8 + do:8 + do + K]
+            a = ints[da:da + K]
+            want = launch_instance(K, x, o, a)
+            assert kernel_minmax_instance(K, x, o, a) == want, (K, dx, do,
+                                                                da)
+
+
+# ----------------------------------------------------------------------
+# K8 edge_softmax: a sub-warp a row, one read of the slab
+# ----------------------------------------------------------------------
+
+SOFTMAX_HEADS = [1, 2, 3, 4, 8, 16, 32]
+
+
+def _softmax_graphs():
+    """Two CUDA rowptrs: rows of degree 0 to 2,000 (WALK_DEGREES: a
+    mean of 143 edges, so the 2,000-edge row sweeps) and short rows of
+    0 to 16 edges with one of 300 (a mean near 8, as GAT's graph)."""
+    long_rows = _degree_csr(WALK_DEGREES * 8, 10, 93)[0]
+    deg = np.random.RandomState(94).randint(0, 17, 600)
+    deg[311] = 300
+    return {"walk degrees": long_rows,
+            "short rows": _degree_csr(deg, 10, 95)[0]}
+
+
+def _softmax_logits(E, H, seed):
+    """N(0, 4) logits with a tenth -inf, every head of every 13th edge
+    -inf, 0.1% NaN and 0.05% +inf (its row-head is NaN throughout, as
+    JAX's clamp keeps a NaN sum)."""
+    rng = np.random.RandomState(seed)
+    lg = rng.randn(E, H).astype(np.float32) * 4
+    lg[rng.rand(E, H) < 0.1] = -np.inf
+    lg[::13] = -np.inf
+    lg[rng.rand(E, H) < 0.001] = np.nan
+    lg[rng.rand(E, H) < 0.0005] = np.inf
+    return torch.from_numpy(lg).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", SOFTMAX_HEADS)
+@pytest.mark.parametrize("graph", ["walk degrees", "short rows"])
+def test_edge_softmax_sweep_on_gpu(graph, H):
+    """K8 on rows of 0 to 2,000 edges (rows past the register cap sweep),
+    with -inf, all -inf row-heads (NaN), NaN and +inf logits: within 1e-5 of
+    max |ref| of the plain version (NaN where it has NaN), bit-equal
+    across two launches, the instance the Python mirror and the C code
+    choose; logits 4 bytes off a 16-byte boundary run the edges
+    instance, within the gate too."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels.edge_softmax import (
+        kernel_sweep_instance, sweep_instance)
+
+    rowptr = _softmax_graphs()[graph]
+    M, E = rowptr.shape[0] - 1, int(rowptr[-1])
+    logits = _softmax_logits(E, H, 96)
+    ref = edge_softmax_plain(rowptr, logits)
+    assert bool(torch.isnan(ref).any())
+    before = edge_softmax.launches
+    got = edge_softmax(rowptr, logits)
+    assert edge_softmax.launches == before + 1
+    want = sweep_instance(M, E, H, True)
+    assert edge_softmax.last_instance == want
+    assert kernel_sweep_instance(M, E, H, True) == want
+    assert want.vec == (4 if 32 % H == 0 else 1)
+    _same(got, ref, 1e-5)
+    assert torch.equal(_bits(edge_softmax(rowptr, logits)), _bits(got))
+    off = _off_elements(logits, 1)
+    got_off = edge_softmax(rowptr, off)
+    assert edge_softmax.last_instance == sweep_instance(M, E, H, False)
+    assert edge_softmax.last_instance.vec == 1
+    _same(got_off, ref, 1e-5)
+    assert torch.equal(_bits(edge_softmax(rowptr, off)), _bits(got_off))
+
+
+@pytest.mark.gpu
+def test_sweep_instance_matches_the_kernels_choice_on_gpu():
+    """The Python choice of K8's instance and the C code's agree over
+    heads, mean degrees from 0 to 2,000 and both alignments."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels.edge_softmax import (
+        kernel_sweep_instance, sweep_instance)
+
+    for H in range(1, 41):
+        for M, E in ((0, 0), (1, 0), (100, 0), (100, 37), (169_343,
+                                                          1_335_586),
+                     (232_965, 15_623_351), (10, 20_000), (7, 100)):
+            for aligned in (True, False):
+                assert kernel_sweep_instance(M, E, H, aligned) == \
+                    sweep_instance(M, E, H, aligned), (H, M, E, aligned)

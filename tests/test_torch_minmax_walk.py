@@ -5,6 +5,13 @@ the tensors each kernel reads and writes, and ``edges_in_flight``), held
 to what the CUDA sources instantiate, and a numpy model of each walk's
 order of work held against the JAX package.
 
+K6 (``csr_spmm_minmax``, ``csrc/spmm_minmax.cu``) runs the same walk
+over the whole matrix with its own end of row, for float32, float16 and
+bfloat16: its instance choice (the element size in the alignment) and
+the model with each product rounded to the operand's type and K6's end
+of row, ``(0, E)`` on an empty row, are held to JAX's
+``ell_spmm_minmax`` and the plain version bit for bit.
+
 The model of K11b walks a row as the kernel does: index batches of
 ``max(lanes, U)`` edges clamped to the row's last edge, ``U`` edges at a
 time with the tail edges compared too, the running best from the
@@ -21,14 +28,17 @@ import re
 from pathlib import Path
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
+import pytorch_sparse_tpu as jts
+from pytorch_sparse_tpu.ops.kernels.ell import ell_spmm_minmax
 from pytorch_sparse_tpu.parallel import dist as jdist
 from pytorch_sparse_tpu_torch.ops.kernels import (
-    minmax_spmm_t, minmax_spmm_t_plain, shard_spmm_minmax,
-    shard_spmm_minmax_plain)
+    csr_spmm_minmax, csr_spmm_minmax_plain, minmax_spmm_t,
+    minmax_spmm_t_plain, shard_spmm_minmax, shard_spmm_minmax_plain)
 from pytorch_sparse_tpu_torch.ops.kernels.csr_spmm import (
     TILE_COLUMNS, launch_instance, walk_instance)
 from pytorch_sparse_tpu_torch.ops.kernels.shard_spmm import NO_EDGE
@@ -180,12 +190,14 @@ def test_cpu_tensors_run_the_plain_versions(K):
 # A model of the K11b walk against JAX's group functions
 # ----------------------------------------------------------------------
 
-def _walk_minmax(rowptr, col, val, buf, is_min, U, CH):
+def _walk_minmax(rowptr, col, val, buf, is_min, U, CH, dtype=None):
     """``(best, best_e)`` of ``minmax_walk`` for each row: edges in index
     batches of ``CH`` clamped to the row's last edge, ``U`` at a time
     (tail edges compared too), from the sentinel under the ``beats``
     rule, the first edge where none was taken; ``best_e`` -1 on an empty
-    row."""
+    row.  With a half ``dtype`` (``buf`` and ``val`` hold its values as
+    float32) each product is rounded to it, as ``Elem<T>::round``
+    does."""
     R, K = rowptr.size - 1, buf.shape[1]
     sentinel = np.float32(np.inf if is_min else -np.inf)
     best = np.full((R, K), sentinel, np.float32)
@@ -199,7 +211,10 @@ def _walk_minmax(rowptr, col, val, buf, is_min, U, CH):
                     e = min(base + g + u, end - 1)
                     h = buf[col[e]]
                     if val is not None:
-                        h = (val[e] * h).astype(np.float32)
+                        with np.errstate(over="ignore", invalid="ignore"):
+                            h = (val[e] * h).astype(np.float32)
+                            if dtype is not None:
+                                h = h.astype(dtype).astype(np.float32)
                     b = best[r]
                     with np.errstate(invalid="ignore"):
                         worse = (h >= b) if is_min else (h <= b)
@@ -397,3 +412,192 @@ def test_walk_model_of_minmax_spmm_t_matches_the_plain_version(values, K):
     assert np.isfinite(got).all()
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(got[np.diff(colptr) == 0], 0.0)
+
+
+# ----------------------------------------------------------------------
+# K6: csr_spmm_minmax on the same walk, in float32, float16 and bfloat16
+# ----------------------------------------------------------------------
+
+# (torch dtype, numpy dtype of its values, JAX dtype)
+K6_TYPES = {
+    "float32": (torch.float32, np.float32, jnp.float32),
+    "float16": (torch.float16, np.float16, jnp.float16),
+    "bfloat16": (torch.bfloat16, ml_dtypes.bfloat16, jnp.bfloat16),
+}
+
+
+def _offset(rows, K, dtype, nbytes):
+    """A (rows, K) tensor ``nbytes`` past a 16-byte boundary."""
+    k = nbytes // torch.tensor([], dtype=dtype).element_size()
+    t = torch.zeros(rows * K + k, dtype=dtype)[k:].view(rows, K)
+    assert t.data_ptr() % 16 == nbytes
+    return t
+
+
+@pytest.mark.parametrize("name", list(K6_TYPES))
+@pytest.mark.parametrize("K", [1, 4, 8, 20, 40, 47, 128, 256, 300])
+def test_k6_instance_takes_the_element_size(name, K):
+    """K6's chunks are 4 elements of x's type: float4 loads for float32,
+    8-byte loads for a half type.  x and out on a 4-element boundary
+    (16 bytes, or 8 for a half type) and arg on 16 bytes run the float4
+    instance (where K % 4 == 0); any one of them off its boundary runs
+    the scalar instance, which covers the same columns."""
+    dtype = K6_TYPES[name][0]
+    esize = torch.tensor([], dtype=dtype).element_size()
+    x, out = torch.zeros(3, K, dtype=dtype), torch.zeros(2, K, dtype=dtype)
+    arg = torch.zeros(2, K, dtype=torch.int32)
+    assert launch_instance(K, x, out, arg) == walk_instance(K, True)
+    chunk = 4 * esize
+    for nbytes in (4, 8, 12):
+        want = walk_instance(K, nbytes % chunk == 0)
+        assert launch_instance(K, _offset(3, K, dtype, nbytes), out,
+                               arg) == want
+        assert launch_instance(K, x, _offset(2, K, dtype, nbytes),
+                               arg) == want
+        inst = launch_instance(K, x, out, _offset(2, K, torch.int32,
+                                                  nbytes))
+        assert inst == walk_instance(K, False)
+        assert sorted(_columns(K, inst)) == list(range(K))
+
+
+def test_k6_runs_the_walk_with_its_own_end_of_row():
+    """spmm_minmax.cu launches K6 as an instance of minmax_walk through
+    csr_walk::dispatch, for the three dtypes of the wrapper's codes, with
+    the alignment the Python mirror assumes; the old warp-a-row kernel
+    is gone, and the walk has the half types' 8-byte chunk loads."""
+    mm = (CSRC / "spmm_minmax.cu").read_text()
+    walk = (CSRC / "minmax_walk.cuh").read_text()
+    from pytorch_sparse_tpu_torch.ops.kernels.spmm_minmax import (
+        _DTYPE_CODES)
+
+    assert _DTYPE_CODES == {torch.float32: 0, torch.float16: 1,
+                            torch.bfloat16: 2}
+    assert "dtype: 0 float32, 1 float16, 2 bfloat16" in mm
+    for t in ("float", "__half", "__nv_bfloat16"):
+        assert f"launch_minmax<{t}>(" in mm
+    assert "csr_walk::minmax_walk<VEC, LPR, CPL, IS_MIN, HAS_VAL>(" in mm
+    assert "const uintptr_t chunk = dtype == 0 ? 16 : 8;" in mm
+    assert "csr_walk::aligned16({arg})" in mm
+    assert "csr_walk::dispatch(in" in mm
+    assert "csr_minmax_kernel<" not in mm and "kpl_for" not in mm
+    assert "av[q] = empty ? E : best_e[j][q];" in mm
+    assert "ov[q] = empty ? 0.f : best[j][q];" in mm
+    for t in ("__half", "__nv_bfloat16"):
+        assert f"struct Bits16<{t}>" in walk
+    assert "__ldg(reinterpret_cast<const uint2*>(p))" in walk
+    assert "typename T = float>" in walk
+
+
+def _k6_model(rowptr, col, val, x32, is_min, K, dtype):
+    """K6 as the model walks it at the instance K takes: ``(out, arg)``
+    with ``(0, E)`` on an empty row, ``out`` in float32."""
+    inst = walk_instance(K, True)
+    U = edges_in_flight(inst, 2)
+    v = None if val is None else val.astype(dtype).astype(np.float32)
+    best, best_e = _walk_minmax(rowptr, col, v, x32, is_min, U,
+                                max(inst.lanes, U),
+                                None if dtype == np.float32 else dtype)
+    E = col.size
+    empty = best_e < 0
+    return np.where(empty, 0.0, best).astype(np.float32), \
+        np.where(empty, E, best_e).astype(np.int32)
+
+
+def _k6_graph(seed, N, degrees):
+    """Rows of the given degrees, each over distinct sorted columns (so
+    that JAX's CSR order is the order given), with small-integer values
+    that include 0 (0 * inf is NaN)."""
+    rng = np.random.RandomState(seed)
+    col = np.concatenate([np.sort(rng.choice(N, d, replace=False))
+                          for d in degrees]).astype(np.int64)
+    row = np.repeat(np.arange(len(degrees)), degrees)
+    rowptr = np.concatenate([[0], np.cumsum(degrees)]).astype(np.int64)
+    val = rng.randint(-2, 3, col.size).astype(np.float32)
+    return row, col, rowptr, val
+
+
+def _k6_check(row, col, rowptr, val, x32, is_min, K, name):
+    """The model, JAX's ``ell_spmm_minmax`` and the plain version agree
+    bit for bit (out in the operand's type, arg exactly)."""
+    tdt, ndt, jdt = K6_TYPES[name]
+    M, N = rowptr.size - 1, x32.shape[0]
+    A = jts.SparseTensor(row=row, col=col, value=val, sparse_sizes=(M, N))
+    jv = None if val is None else jnp.asarray(val)
+    jout, jarg = ell_spmm_minmax(A.storage.ell(), jv,
+                                 jnp.asarray(x32).astype(jdt), is_min)
+    jout = np.asarray(jout.astype(jnp.float32))
+    out, arg = _k6_model(rowptr, col, val, x32, is_min, K, ndt)
+    np.testing.assert_array_equal(arg, np.asarray(jarg))
+    np.testing.assert_array_equal(out, jout)
+    i32 = lambda a: torch.from_numpy(a.astype(np.int32))  # noqa: E731
+    pout, parg = csr_spmm_minmax_plain(
+        i32(rowptr), i32(col), None if val is None else
+        torch.from_numpy(val), torch.from_numpy(x32).to(tdt), is_min)
+    assert pout.dtype == tdt
+    np.testing.assert_array_equal(parg.numpy(), arg)
+    np.testing.assert_array_equal(pout.float().numpy(), out)
+
+
+@pytest.mark.parametrize("name", list(K6_TYPES))
+@pytest.mark.parametrize("is_min", [True, False])
+@pytest.mark.parametrize("values", [True, False])
+@pytest.mark.parametrize("K", [1, 8, 40, 128, 256])
+def test_k6_walk_model_matches_jax_ell_minmax(name, is_min, values, K):
+    """The walk's order of work at K's instance (index batches clamped to
+    the row's last edge, U edges at a time with the tail compared, the
+    sentinel start, the first edge on a row that took none) with each
+    product rounded to the operand's type and K6's end of row gives
+    JAX's ELL min/max bit for bit, out and arg, and so does the plain
+    version: ties keep the first CSR edge, the first NaN wins, an
+    all-sentinel row takes its first edge, an empty row gives (0, E)."""
+    degrees = DEGREES * 2 + [300]
+    row, col, rowptr, val = _k6_graph(97, 400, degrees)
+    x32 = _tie_buffer(98, 400, 12)
+    x32 = x32.astype(K6_TYPES[name][1]).astype(np.float32)
+    _k6_check(row, col, rowptr, val if values else None, x32, is_min, K,
+              name)
+
+
+@pytest.mark.parametrize("name", list(K6_TYPES))
+@pytest.mark.parametrize("is_min", [True, False])
+def test_k6_products_rounded_to_the_sentinel_take_the_first_edge(name,
+                                                                 is_min):
+    """Products that round to the sentinel in the operand's type (float16
+    overflows at 65,504; bfloat16 and float32 near 3.4e38) are the
+    sentinel: a row of them takes its first edge with the sentinel as
+    out; a row of one edge takes it whatever its product; an empty row
+    gives (0, E)."""
+    big = {"float32": 3e38, "float16": 60000.0, "bfloat16": 3e38}[name]
+    sign = 1.0 if is_min else -1.0
+    x32 = np.array([[sign * big, 1.0], [sign * big, np.nan],
+                    [sign * big, -2.0]], np.float32)
+    with np.errstate(over="ignore"):
+        x32 = x32.astype(K6_TYPES[name][1]).astype(np.float32)
+    degrees = [3, 1, 0, 2]
+    row = np.repeat(np.arange(4), degrees)
+    col = np.array([0, 1, 2, 1, 0, 1])
+    rowptr = np.concatenate([[0], np.cumsum(degrees)])
+    val = np.array([4.0, 4.0, 4.0, -1.0, 4.0, 4.0], np.float32)
+    out, arg = _k6_model(rowptr, col, val, x32, is_min, 2,
+                         K6_TYPES[name][1])
+    sentinel = np.inf if is_min else -np.inf
+    assert out[0, 0] == sentinel and arg[0, 0] == 0
+    assert np.isnan(out[0, 1]) and arg[0, 1] == 1  # the first NaN
+    assert arg[1].tolist() == [3, 3]
+    assert out[2].tolist() == [0.0, 0.0] and arg[2].tolist() == [6, 6]
+    _k6_check(row, col, rowptr, val, x32, is_min, 2, name)
+
+
+def test_k6_cpu_tensors_run_the_plain_version():
+    """On the CPU the wrapper runs its plain version: no launch, no
+    instance."""
+    rowptr = torch.tensor([0, 2, 2, 5], dtype=torch.int32)
+    col = torch.tensor([0, 3, 1, 1, 2], dtype=torch.int32)
+    x = torch.from_numpy(np.random.RandomState(99).randn(4, 8).astype(
+        np.float32))
+    before = (csr_spmm_minmax.launches, csr_spmm_minmax.last_instance)
+    got = csr_spmm_minmax(rowptr, col, None, x, False)
+    ref = csr_spmm_minmax_plain(rowptr, col, None, x, False)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert (csr_spmm_minmax.launches,
+            csr_spmm_minmax.last_instance) == before

@@ -1,12 +1,13 @@
 """Time the CSR walks on a CUDA card: ``csr_spmm`` (K1), ``shard_spmm``
-(K11a), ``shard_spmm_minmax`` (K11b) and ``minmax_spmm_t`` (K7b), with
-two controls that bracket each, and the per-edge walks ``edge_dot`` (K4)
-and ``minmax_edge_dot`` (K7a) beside K1 on the same graphs.
+(K11a), ``shard_spmm_minmax`` (K11b), ``minmax_spmm_t`` (K7b) and
+``csr_spmm_minmax`` (K6), with two controls that bracket each, the
+per-edge walks ``edge_dot`` (K4) and ``minmax_edge_dot`` (K7a) beside K1
+on the same graphs, and the row sweep of ``edge_softmax`` (K8).
 
 Usage (from the repo root; one card)::
 
     python tools/time_csr_walk.py [--root DIR] [--reps N] [--out FILE]
-                                  [--edge-only]
+                                  [--edge-only | --minmax-softmax-only]
 
 ``--root`` is the checkout whose ``pytorch_sparse_tpu_torch`` is
 timed (default: this one), so that two commits can be compared in one
@@ -45,19 +46,33 @@ to ``--out``) with a case per line of ``cases``:
   on Reddit-10% at K=128 (K1's uniform and community hybrid cases are
   above);
 * K7a on the max argout of K6 on the uniform graph at K = 40, 128 and
-  256 and on the community hybrid and Reddit-10% graphs at K=128.
+  256 and on the community hybrid and Reddit-10% graphs at K=128;
+* K6, max and min: the uniform graph at K = 40, 128 and 256, with
+  implicit ones at K=128, with a bfloat16 operand at K=128, and the
+  community hybrid and Reddit-10% graphs at K=128, with the resident and
+  scattered controls of the max at K=128 on the uniform graph;
+* K8 on GAT's graph (the uniform graph with self-loops, after
+  ``gcn_norm``) and on the community hybrid graph, each at H = 8 and 1,
+  and a control of the first rows of GAT's graph whose slab and output
+  (16 MB) stay in L2, timed twice back to back: the sweep's instruction
+  and latency floor.  Each K8 case counts ``rows_past_cap``, the rows
+  beyond the instance's register cap, which sweep their slab three
+  times.
 
 ``--edge-only`` stops after K4 and K7a (K1 and its controls come
-first, K11a, K11b and K7b are left out): a quicker run for comparing
-variants of the per-edge walk.
+first, K11a, K11b, K7b, K6 and K8 are left out): a quicker run for
+comparing variants of the per-edge walk.  ``--minmax-softmax-only``
+times K6 and K8 alone, for comparing their variants.
 
 Each case's ``ms`` is CUDA events around ``--reps`` launches after one
 warm-up (the host's launch path where it is slower than the kernel);
-``device_ms`` is the walk kernel's own time per call from a
-``torch.profiler`` trace of ``TRACE_CALLS`` calls; ``bound_ms`` is the
+``device_ms`` is the walk kernel's own time per launch from a
+``torch.profiler`` trace of ``TRACE_CALLS`` calls, the mean over the
+``device_events`` the trace holds (it sometimes drops some);
+``bound_ms`` is the
 operand-once bound (each input read once, the output written once, at
 3.35 TB/s) and ``row_per_edge_ms`` the bound that reads one operand row
-(K7b: one ``arg`` and one ``g`` row; K4 and K7a: one ``x`` row) per
+(K7b: one ``arg`` and one ``g`` row; K4, K7a and K6: one ``x`` row) per
 edge.  ``digest`` is a SHA-1 of
 the output's bytes (K11b: ``out`` then ``arg``) from one call on fresh
 inputs, so that two trees' outputs can be compared bit for bit; ``sass``
@@ -66,7 +81,7 @@ trees' builds of a kernel can be compared instruction for instruction.  Where
 the tree has ``ops.kernels.csr_spmm.walk_instance``, each K1 and K11a
 case names the instance that ran (vector width, lanes a row, rows a
 warp, chunks a lane, column tiles); K11b, K7b, K4 and K7a name the
-wrapper's own ``last_instance`` where it has one.
+wrapper's own ``last_instance`` where it has one (K6, K8 too).
 """
 
 import argparse
@@ -83,7 +98,10 @@ TRACE_CALLS = 10
 # The walk kernels' names in this tree and in older ones.
 WALK_KERNEL = re.compile(r"walk_kernel|csr_spmm_kernel|shard_spmm_kernel|"
                          r"shard_minmax_kernel|minmax_spmm_t_kernel|"
-                         r"edge_dot_kernel")
+                         r"edge_dot_kernel|csr_minmax|softmax_chunks_kernel|"
+                         r"softmax_edges_kernel|edge_softmax_kernel|"
+                         r"edge_softmax_generic_kernel")
+L2_CONTROL_BYTES = 16 << 20   # K8's L2 control: slab and output
 
 
 def _device_us(evt) -> float:
@@ -94,10 +112,16 @@ def _device_us(evt) -> float:
 
 
 def digest(*tensors) -> str:
-    """SHA-1 of the tensors' bytes, in order."""
+    """SHA-1 of the tensors' bytes, in order (16-bit floats as their
+    bits)."""
+    import torch
+
     h = hashlib.sha1()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        t = t.detach().contiguous().cpu()
+        if t.is_floating_point() and t.element_size() == 2:
+            t = t.view(torch.int16)
+        h.update(t.numpy().tobytes())
     return h.hexdigest()
 
 
@@ -166,9 +190,12 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--out")
-    ap.add_argument("--edge-only", action="store_true",
-                    help="time K1's uniform and community cases and the "
-                         "per-edge walks (K4, K7a) only")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--edge-only", action="store_true",
+                      help="time K1's uniform and community cases and the "
+                           "per-edge walks (K4, K7a) only")
+    only.add_argument("--minmax-softmax-only", action="store_true",
+                      help="time K6 and K8 only")
     args = ap.parse_args(argv)
 
     import torch
@@ -183,9 +210,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, root)
     import pytorch_sparse_tpu_torch as ts
     from pytorch_sparse_tpu_torch import _build
+    from pytorch_sparse_tpu_torch.models import gcn_norm
     from pytorch_sparse_tpu_torch.ops.kernels import (
-        csr_spmm, csr_spmm_minmax, edge_dot, minmax_edge_dot, minmax_spmm_t,
-        shard_spmm, shard_spmm_minmax)
+        csr_spmm, csr_spmm_minmax, edge_dot, edge_softmax, minmax_edge_dot,
+        minmax_spmm_t, shard_spmm, shard_spmm_minmax)
     from pytorch_sparse_tpu_torch.parallel import (
         HierShardedSparseMatrix, ShardedSparseMatrix, data_axis, dcn_axis)
     from pytorch_sparse_tpu_torch.segment import segment_sum_csr
@@ -196,6 +224,8 @@ def main(argv=None) -> int:
         raise RuntimeError(f"imported {ts.__file__}, not from {root}")
     k1_module = sys.modules[csr_spmm.__module__]
     walk_instance = getattr(k1_module, "walk_instance", None)
+    sweep_instance = getattr(sys.modules[edge_softmax.__module__],
+                             "sweep_instance", None)
 
     device = torch.device("cuda")
     card = cs.nvidia_smi_line()
@@ -203,14 +233,18 @@ def main(argv=None) -> int:
     res = {"root": root, "card": card, "torch": torch.__version__,
            "reps": args.reps, "cases": []}
     t0 = time.time()
-    libs = ("csr_spmm", "shard_spmm", "spmm_minmax", "edge_dot")
+    libs = ("csr_spmm", "shard_spmm", "spmm_minmax", "edge_dot",
+            "edge_softmax")
     _build.build(libs)
     res["build_s"] = time.time() - t0
     res["ptxas"] = {n: ptxas_summary(_build.build_log(n)) for n in libs}
     res["sass"] = {n: sass_digests(_build.library_path(n)) for n in libs}
 
     def timed(fn):
-        """(CUDA-event ms a call, the walk kernel's device ms a call)."""
+        """(CUDA-event ms a call, the walk kernel's device ms a launch,
+        the launches the trace holds).  The trace sometimes drops
+        kernel events, so the device ms is the mean over the events it
+        holds, not the sum over ``TRACE_CALLS``."""
         from torch.profiler import ProfilerActivity, profile
 
         ms = cs.time_ms(torch, fn, reps=args.reps)
@@ -220,9 +254,11 @@ def main(argv=None) -> int:
             for _ in range(TRACE_CALLS):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_device_us(e) for e in prof.key_averages()
-                 if e.device_type.name == "CUDA" and WALK_KERNEL.search(e.key))
-        return ms, us / 1e3 / TRACE_CALLS
+        evts = [e for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and WALK_KERNEL.search(e.key)]
+        n = sum(e.count for e in evts)
+        us = sum(_device_us(e) for e in evts)
+        return ms, (us / 1e3 / n if n else 0.0), n
 
     def instance(k, *tensors):
         if walk_instance is None:
@@ -232,9 +268,10 @@ def main(argv=None) -> int:
 
     def record(kernel, graph, k, times, bound, row_per_edge, R, E, inst,
                dig, **kw):
-        ms, device_ms = times
+        ms, device_ms, events = times
         entry = {"kernel": kernel, "graph": graph, "K": k, "ms": ms,
-                 "device_ms": device_ms, "bound_ms": bound[0],
+                 "device_ms": device_ms, "device_events": events,
+                 "bound_ms": bound[0],
                  "bound_by": bound[1], "row_per_edge_ms": row_per_edge,
                  "rows": R, "edges": E, "instance": inst, "digest": dig,
                  **kw}
@@ -283,9 +320,108 @@ def main(argv=None) -> int:
         del col_s, x_s
         torch.cuda.empty_cache()
 
+    # ---- K6 and K8 ------------------------------------------------------
+    def k6_case(graph, A, k, is_min, values=True, dtype=torch.float32,
+                col_of=None, x_rows=None, seed=2):
+        """K6 on ``A``'s structure at width ``k``; ``col_of(col)`` maps
+        the gathered rows (the controls) into an operand of ``x_rows``
+        rows."""
+        rowptr, col, val = A.csr()
+        val = val if values else None
+        M = A.sparse_size(0)
+        c = col if col_of is None else col_of(col)
+        x = cs.operand(torch, x_rows or A.sparse_size(1), k, seed,
+                       device).to(dtype)
+
+        def fn():
+            return csr_spmm_minmax(rowptr, c, val, x, is_min)
+        dig = digest(*fn())
+        E, elem = c.shape[0], x.element_size()
+        bound = cs.minmax_bounds(M, E, k, int(torch.unique(c).numel()),
+                                 val is not None, elem)
+        row_per_edge = (4 * (M + 1) + 4 * E + (elem * E if values else 0)
+                        + elem * k * E + (elem + 4) * M * k) \
+            / cs.HBM_BYTES_PER_S * 1e3
+        name = graph + (", min" if is_min else ", max") + \
+            ("" if values else ", ones") + \
+            ("" if dtype == torch.float32 else f", {dtype}".replace(
+                "torch.", ""))
+        record("csr_spmm_minmax", name, k, timed(fn), bound, row_per_edge,
+               M, E, kernel_instance(csr_spmm_minmax), dig)
+
+    def k8_case(graph, rowptr, H, repeat=1):
+        """K8 over ``rowptr``'s rows at H heads, ``repeat`` times in a
+        row (the L2 control)."""
+        M = rowptr.shape[0] - 1
+        E = int(rowptr[-1])
+        logits = cs.operand(torch, E, H, 15, device) * 2.0
+
+        def fn():
+            return edge_softmax(rowptr, logits)
+        dig = digest(fn())
+        inst = kernel_instance(edge_softmax)
+        past = None
+        if sweep_instance is not None:
+            si = sweep_instance(M, E, H, True)
+            r64 = rowptr.long()
+            units = ((r64[1:] * H + 3) // 4 - (r64[:-1] * H) // 4
+                     if si.vec == 4 else r64[1:] - r64[:-1])
+            past = int((units > si.lanes * si.chunks).sum())
+        bound = ((4 * (M + 1) + 8 * E * H) / cs.HBM_BYTES_PER_S * 1e3,
+                 "bytes")
+        for i in range(repeat):
+            label = graph if repeat == 1 else f"{graph}, run {i + 1}"
+            record("edge_softmax", label, H, timed(fn), bound, None, M, E,
+                   inst, dig, rows_past_cap=past)
+
+    def k6_k8(A_u, A_h, A_r):
+        for k in (40, 128, 256):
+            for is_min in (False, True):
+                k6_case("uniform", A_u, k, is_min)
+        for is_min in (False, True):
+            k6_case("uniform", A_u, cs.K, is_min, values=False)
+            k6_case("uniform", A_u, cs.K, is_min, dtype=torch.bfloat16)
+        k6_case("uniform, control resident", A_u, cs.K, False,
+                col_of=lambda c: torch.remainder(c, RESIDENT_ROWS),
+                x_rows=RESIDENT_ROWS, seed=41)
+        gen = torch.Generator(device=device).manual_seed(42)
+        k6_case("uniform, control scattered", A_u, cs.K, False,
+                col_of=lambda c: torch.randperm(
+                    c.shape[0], generator=gen, device=device).to(torch.int32),
+                x_rows=A_u.nnz())
+        torch.cuda.empty_cache()
+        for graph, A_ in (("community hybrid", A_h),
+                          ("community Reddit-10%", A_r)):
+            for is_min in (False, True):
+                k6_case(graph, A_, cs.K, is_min)
+            torch.cuda.empty_cache()
+        A_g = gcn_norm(cs.uniform_graph(ts, cs.UNIFORM[0], cs.UNIFORM[1],
+                                        device, values=False))
+        for graph, A_ in (("uniform + self-loops", A_g),
+                          ("community hybrid", A_h)):
+            for H in (8, 1):
+                k8_case(graph, A_.storage.rowptr(), H)
+        rowptr = A_g.storage.rowptr()
+        H = 8
+        R = min(int(torch.searchsorted(rowptr, L2_CONTROL_BYTES // (8 * H))),
+                rowptr.shape[0] - 1)
+        k8_case(f"uniform + self-loops, first {R} rows (in L2)",
+                rowptr[:R + 1].contiguous(), H, repeat=2)
+        del A_g
+        torch.cuda.empty_cache()
+
     # ---- K1: the uniform graph ------------------------------------------
     Mu, Eu = cs.UNIFORM
     A_u = cs.uniform_graph(ts, Mu, Eu, device)
+    if args.minmax_softmax_only:
+        Mh, Eh, nh = cs.HYBRID
+        Mr, Er, nr = cs.REDDIT10
+        k6_k8(A_u,
+              community_graph(Mh, Eh, n_comm=nh, seed=1, equal_sizes=True,
+                              device=device),
+              community_graph(Mr, Er, n_comm=nr, seed=1, equal_sizes=True,
+                              device=device))
+        return finish(res, args.out)
     rowptr, col, val = A_u.csr()
     n_u = int(torch.unique(col).numel())
     for k in (1, 8, 40, 128, 256):
@@ -553,7 +689,6 @@ def main(argv=None) -> int:
             del perm, arg_s, g_s
         del t_args
         torch.cuda.empty_cache()
-    del A_u
     t_args, n_, col = k7b_inputs(A_h, cs.K)
     k7b_case("community hybrid", t_args, n_, cs.K, col)
     del t_args
@@ -561,10 +696,10 @@ def main(argv=None) -> int:
     t_args, n_, col = k7b_inputs(A_r, cs.K)
     k7b_case("community Reddit-10%", t_args, n_, cs.K, col)
     del t_args
+    torch.cuda.empty_cache()
 
-    del A_r, A_h
-
-
+    k6_k8(A_u, A_h, A_r)
+    del A_u, A_r, A_h
     return finish(res, args.out)
 
 
