@@ -51,9 +51,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    with a bf16 store (rows of 200 bytes, padded once by the split).
    ``random_walk`` at PyG's Node2Vec configuration
    (``examples/node2vec.py``, p = q = 1: 10 walks of 20 steps from every
-   node of the uniform graph, 1,693,430 walks), on the uniform graph with
-   every third row emptied and on a small graph with 200 rows of degree
-   0; the walks must equal the plain version's exactly.  ``shard_spmm``
+   node of the uniform graph, 1,693,430 walks, timed beside its byte
+   bound and the count of its gathered sectors), at GraphSAINT's length
+   (3 steps from 20,000 roots) on the same graph, on the uniform graph
+   with every third row emptied and on a small graph with 200 rows of
+   degree 0; the walks must equal the plain version's exactly, and two
+   launches each other's.  ``shard_spmm``
    (K11a) and ``shard_spmm_minmax`` (K11b) on shard 0's groups of the
    community hybrid graph split over 4 ranks (tables built in this
    process), at K=128, 256 (the width of the GCN layers of phases
@@ -233,7 +236,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    at T=2048 and 8, K=128, a column slab of the table a block, equal to
    ``index_select``, timed with it in alternating pairs; ``edge_scan_loop``
    (K13b) at R=1, 8 and 40 within 1e-5 of the looped ``torch.cumsum``,
-   and its time a pass; ``tiled_spmm`` (K13c) on both graphs at K=128,
+   with device ms, and its time a pass (the R=8/R=40 slope) beside one
+   pass's operations at the FP32 rate; ``tiled_spmm`` (K13c) on both
+   graphs at K=128,
    tiles of 512, 256 and 128 rows, with values and implicit ones, and
    as a control with no tile staged, and on a small graph with every
    pair staged, each within 1e-5 of its plain version and equal to
@@ -788,9 +793,10 @@ def kernel_case(torch, label, got, ref, failures, name, **timing):
 def last_instance(fn):
     """The instance of the CSR walk (``csr_spmm``, ``shard_spmm``,
     ``shard_spmm_minmax``, ``minmax_spmm_t``, ``csr_spmm_minmax``), of
-    the per-edge walk (``edge_dot``, ``minmax_edge_dot``) or of the row
-    sweep (``edge_softmax``) that the wrapper ``fn`` last launched, as a
-    dict; None before a launch."""
+    the per-edge walk (``edge_dot``, ``minmax_edge_dot``), of the row
+    sweep (``edge_softmax``) or of the on-chip scan (``edge_scan_loop``)
+    that the wrapper ``fn`` last launched, as a dict; None before a
+    launch."""
     inst = fn.last_instance
     return None if inst is None else inst._asdict()
 
@@ -1052,6 +1058,32 @@ def random_walk_bounds(rowptr, walks, rand):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
+def random_walk_gathered_sectors(rowptr, walks):
+    """K12's gathered 32-byte sectors on these walks: one of ``rowptr``
+    at every step and one of ``col`` at every step off a node of degree
+    > 0."""
+    cur = walks[:, :-1].reshape(-1).long()
+    deg = rowptr[cur + 1] - rowptr[cur]
+    return cur.numel() + int((deg > 0).sum())
+
+
+def edge_scan_bounds(T, K_, R):
+    """K13b's bounds for ``R`` passes over a ``(T, K)`` h at the data
+    sheet's rates: ``h`` read and ``out`` written once, and a pass's
+    operations (h + i, the scan's adds, the accumulation: 3 a element)
+    at the FP32 rate.  ``bound_ms`` is the larger of the bytes' and all
+    passes' times; ``bound_sum_ms`` their sum (the bytes once a launch
+    plus R passes); ``pass_bound_us`` one pass's operations, beside the
+    measured slope a pass."""
+    t_b = 2 * 4 * T * K_ / HBM_BYTES_PER_S
+    t_pass = 3 * T * K_ / FP32_FLOPS_PER_S
+    t_f = R * t_pass
+    return {"bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations",
+            "bound_sum_ms": (t_b + t_f) * 1e3,
+            "pass_bound_us": t_pass * 1e6}
+
+
 def walk_steps_off_graph(keys, deg, M, walks):
     """Steps of ``walks`` (host ``(n, L+1)``) that are neither an edge of
     the graph (``keys``: sorted ``row * M + col``) nor a stay at a node
@@ -1156,9 +1188,18 @@ def _rank_main(rank, fn, world_size, backend, workdir, timeout, args):
     import torch
     import torch.distributed as tdist
 
-    tdist.init_process_group(
-        backend, init_method=f"file://{workdir}/rdzv", rank=rank,
-        world_size=world_size, timeout=datetime.timedelta(seconds=timeout))
+    # Join, then wait on the rendezvous file's store until every rank has
+    # joined: init_process_group ends without a barrier, and a rank that
+    # left early would close its side of a slower rank's gloo handshake
+    # ("Connection closed by peer" in connectFullMesh).
+    limit = datetime.timedelta(seconds=timeout)
+    store = tdist.FileStore(os.path.join(workdir, "rdzv"), world_size)
+    store.set_timeout(limit)
+    tdist.init_process_group(backend, store=store, rank=rank,
+                             world_size=world_size, timeout=limit)
+    if store.add("joined", 1) == world_size:
+        store.set("all_joined", "1")
+    store.wait(["all_joined"])
     try:
         torch.save(fn(rank, world_size, **args),
                    os.path.join(workdir, f"result_{rank}.pt"))
@@ -2389,11 +2430,14 @@ def main(argv=None) -> int:
 
     # random_walk (K12) at PyG's Node2Vec configuration (p = q = 1,
     # walk_length 20, 10 walks a node) on the uniform graph: 1,693,430
-    # walks, timed.  Then on two graphs with rows of degree 0: the uniform
-    # graph with every third row emptied, and a small graph.  The walks
-    # must equal the plain version's exactly.
+    # walks, timed.  Then at GraphSAINT's length (3 steps from 20,000
+    # roots) on the same graph, timed, and on two graphs with rows of
+    # degree 0: the uniform graph with every third row emptied, and a
+    # small graph.  The walks must equal the plain version's exactly, and
+    # two launches each other's.
     try:
         L_w, per_node = NODE2VEC
+        n_roots, L_saint, _ = SAINT
         gen_w = torch.Generator(device=device).manual_seed(21)
         rng_w = np.random.RandomState(22)
         small = ts.SparseTensor(
@@ -2404,44 +2448,63 @@ def main(argv=None) -> int:
             row=A_u.storage.numpy_view("row")[keep],
             col=A_u.storage.numpy_view("col")[keep], sparse_sizes=(Mu, Mu),
             is_sorted=True, trust_data=True, device=device)
+
+        def every_node(n_, times):
+            return torch.arange(n_, dtype=torch.int32,
+                                device=device).repeat(times)
+
+        saint_roots = torch.from_numpy(rng_w.randint(
+            0, Mu, n_roots).astype(np.int32)).to(device)
         rw_cases = []
-        for label, A_, n_per in [
-                ("node2vec uniform", A_u, per_node),
-                ("uniform, every third row empty", A_sink, 1),
-                ("small graph, 200 rows empty", small, 3)]:
+        for label, A_, start, L_ in [
+                ("node2vec uniform", A_u, every_node(Mu, per_node), L_w),
+                (f"uniform, L={L_saint} from {n_roots} roots", A_u,
+                 saint_roots, L_saint),
+                ("uniform, every third row empty", A_sink, every_node(Mu, 1),
+                 L_w),
+                ("small graph, 200 rows empty", small, every_node(1000, 3),
+                 L_w)]:
             rp, cl = A_.csr()[:2]
-            M_ = A_.sparse_size(0)
-            start = torch.arange(M_, dtype=torch.int32,
-                                 device=device).repeat(n_per)
-            rand = torch.rand((start.shape[0], L_w), generator=gen_w,
+            rand = torch.rand((start.shape[0], L_), generator=gen_w,
                               device=device)
             got = random_walk_kernel(rp, cl, start, rand)
+            again = random_walk_kernel(rp, cl, start, rand)
             ref = random_walk_plain(rp, cl, start, rand)
             sync()
             n_diff = int((got != ref).sum())
-            if n_diff:
+            repeat_ok = bool(torch.equal(got, again))
+            if n_diff or not repeat_ok:
                 failures.append(f"random_walk {label}: {n_diff} walk entries "
-                                "differ from the plain version's")
+                                "differ from the plain version's; two "
+                                f"launches equal: {repeat_ok}")
             abs_e, rel_e = errors(got, ref)
             case = {"case": label, "walks": int(start.shape[0]),
-                    "walk_length": L_w, "entries_differing": n_diff,
+                    "walk_length": L_, "entries_differing": n_diff,
+                    "launches_bit_equal": repeat_ok,
                     "max_abs_err": abs_e, "max_rel_err": rel_e,
-                    "ok": n_diff == 0}
-            if label == "node2vec uniform":
+                    "ok": n_diff == 0 and repeat_ok}
+            if A_ is A_u:
                 case.update(
                     ms=timer(lambda: random_walk_kernel(rp, cl, start, rand)),
+                    device_ms=probe_vmem_gather.device_ms(
+                        lambda: random_walk_kernel(rp, cl, start, rand), got),
                     plain_ms=timer(lambda: random_walk_plain(rp, cl, start,
                                                              rand)),
                     library_ms=None)
                 case["bound_ms"], case["bound_by"] = random_walk_bounds(
                     rp, got, rand)
+                case["gathered_sectors"] = random_walk_gathered_sectors(
+                    rp, got)
             rw_cases.append(case)
-            del got, ref, rand, start
-        del A_sink, small
-        kernels.append(kernel_entry(
+            del got, again, ref, rand, start
+        del A_sink, small, saint_roots
+        entry = kernel_entry(
             "random_walk", "random_walk.cu", "sample/rw.py:21", rw_cases,
             "none (no PyTorch call computes a random walk)",
-            f"{Mu * per_node} walks of {L_w} steps on M={Mu} E={Eu}"))
+            f"{Mu * per_node} walks of {L_w} steps on M={Mu} E={Eu}")
+        entry.update({k_: rw_cases[0][k_] for k_ in (
+            "device_ms", "gathered_sectors")})
+        kernels.append(entry)
     except Exception:
         failures.append("phase 3 (random_walk): " + traceback.format_exc())
 
@@ -3080,6 +3143,19 @@ def main(argv=None) -> int:
     gat10 = drive("10 GAT training", gat_training)
     models11 = drive("11 GraphSAGE and GIN training", sage_gin_training)
     saint12 = drive("12 GraphSAINT-RW training", saint_training)
+    if saint12 is not None:
+        # K12's device time at the phase's size (its calls are the host's
+        # launch path), on batch 0's roots and the seed-84 uniforms that
+        # the phase's check walks: outside the phase, so that its launch
+        # counts stay the main path's.
+        rp_, cl_ = A_p.csr()[:2]
+        roots_ = saint12["batches"][0]["roots"].to(torch.int32)
+        rand_ = torch.rand((SAINT[0], SAINT[1]), device=device,
+                           generator=torch.Generator(
+                               device=device).manual_seed(84))
+        saint12["walk_device_ms"] = probe_vmem_gather.device_ms(
+            lambda: random_walk_kernel(rp_, cl_, roots_, rand_), rand_)
+        del rp_, cl_, roots_, rand_
     nb13 = drive("13 neighbour-sampled GraphSAGE", neighbor_training)
 
     # Phase 14: four ranks on the card, gloo, collectives staged through
@@ -3940,6 +4016,7 @@ def main(argv=None) -> int:
         k12_differing = int(
             (got != random_walk_plain(rp, cl, roots, rand)).sum())
         k12_ms = timer(lambda: random_walk_kernel(rp, cl, roots, rand))
+        k12_device_ms = r.get("walk_device_ms")
         k12_bound = random_walk_bounds(rp, got, rand)
         del got
         # The same step again on batch 0's subgraph, whose host views
@@ -3960,7 +4037,8 @@ def main(argv=None) -> int:
                e_id_ok=eid_ok, losses=r["losses"],
                saint_subgraph_host_ms=[t_ * 1e3 for t_ in r["saint_s"]],
                step_ms=r["step_ms"], step_ms_warm_views=warm_ms,
-               random_walk_ms=k12_ms, random_walk_bound_ms=k12_bound[0],
+               random_walk_ms=k12_ms, random_walk_device_ms=k12_device_ms,
+               random_walk_bound_ms=k12_bound[0],
                random_walk_bound_by=k12_bound[1], gate=KERNEL_GATE, **errs,
                card=card)
         if not (ok and off_graph == 0 and walks_differing == 0
@@ -4192,16 +4270,14 @@ def main(argv=None) -> int:
         Th, Kh = h.shape
         cases = []
         for c in r["scan"]:
-            t_b = 2 * 4 * Th * Kh / HBM_BYTES_PER_S
-            # A pass: h + i, the scan's adds and the accumulation.
-            t_f = 3 * c["R"] * Th * Kh / FP32_FLOPS_PER_S
             case = {"case": f"R={c['R']}", "max_abs_err": c["max_abs_err"],
                     "max_rel_err": c["max_rel_err"], "ok": c["ok"],
                     "ms": c["ms"], "device_ms": c.get("device_ms"),
                     "plain_ms": c.get("plain_ms"),
-                    "library_ms": None,
-                    "bound_ms": max(t_b, t_f) * 1e3,
-                    "bound_by": "bytes" if t_b >= t_f else "operations"}
+                    "library_ms": None}
+            b_ = edge_scan_bounds(Th, Kh, c["R"])
+            case.update({k_: b_[k_] for k_ in (
+                "bound_ms", "bound_by", "bound_sum_ms")})
             if c["R"] == 1:  # one pass is one torch.cumsum
                 case["library_ms"] = call_ms(
                     lambda: torch.cumsum(h, dim=0), h, 3)
@@ -4213,7 +4289,10 @@ def main(argv=None) -> int:
                                "_loop_time, :136 c_body")
         entry_b["device_ms"] = cases[0]["device_ms"]
         entry_b.update(us_per_pass=r["scan_us_per_pass"],
-                       ns_per_edge=r["scan_ns_per_edge"])
+                       ns_per_edge=r["scan_ns_per_edge"],
+                       device_us_per_pass=r.get("scan_device_us_per_pass"),
+                       bound_sum_ms=cases[0]["bound_sum_ms"],
+                       instance=last_instance(edge_scan_loop))
 
         cases = []
         for gname, A_ in (("uniform", A_u), ("community hybrid", A_h)):
@@ -4265,6 +4344,7 @@ def main(argv=None) -> int:
             kernels.append(e_)
         record("gather_probe", verdict=r["verdict"],
                scan_us_per_pass=r["scan_us_per_pass"],
+               scan_device_us_per_pass=r.get("scan_device_us_per_pass"),
                scan_ns_per_edge=r["scan_ns_per_edge"],
                tiled=entry_c["cases"],
                launches=phase_launches["17 gather probe"], card=card)

@@ -166,14 +166,15 @@ def device_ms(fn, ref, calls: int = TRACE_CALLS) -> Optional[float]:
     ``torch.profiler`` trace of ``calls`` calls after one warm-up, each
     kernel's mean time times the launches it makes a call (at least one:
     the trace may drop a few events).  None off the card, or where the
-    trace holds no device time after two tries."""
+    trace holds no device time after three tries (on an H100, one trace
+    in a phase's dozens came back empty twice in a row)."""
     if ref.device.type != "cuda":
         return None
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize(ref.device)
-    for _ in range(2):
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -397,12 +398,17 @@ def _scan(dev, res, repeats) -> None:
     scan[0]["plain_ms"] = call_ms(lambda: edge_scan_loop_plain(h, 1), h, repeats)
     per, times = _loop_time(h, f"cumsum ({T},{K}) axis=0", repeats=repeats)
     scan[0]["ms"] = call_ms(lambda: edge_scan_loop(h, 1), h, repeats)
-    scan[0]["device_ms"] = device_ms(lambda: edge_scan_loop(h, 1), h)
     for c, t in zip(scan[1:], times):
         c["ms"] = 1e3 * t
+    for c in scan:
+        c["device_ms"] = device_ms(lambda R=c["R"]: edge_scan_loop(h, R), h)
     res["scan"] = scan
     res["scan_us_per_pass"] = per * 1e6
     res["scan_ns_per_edge"] = per / T * 1e9
+    lo, hi = scan[1]["device_ms"], scan[2]["device_ms"]
+    res["scan_device_us_per_pass"] = (
+        None if lo is None or hi is None
+        else (hi - lo) / (REPS[1] - REPS[0]) * 1e3)
 
 
 def _tiled(dev, res, graphs, repeats, smem_rate) -> None:

@@ -32,10 +32,18 @@
 // T = 2048).
 // An index outside [0, T) reads nothing and writes NaN.
 //
-// K13b: one warp per column.  A lane holds four consecutive rows and
-// scans them itself; a warp-shuffle scan of the lanes' totals and a carry
-// from the previous 128 rows give each row's prefix.  The R passes run
-// inside the launch and add into the output (pass 0 writes it).
+// K13b: h is read once and held on chip for all R passes, as the JAX
+// kernel holds h_ref and its fori_loop carry in VMEM; out is written
+// once.  A block takes a slab of VEC columns (16-byte loads and stores
+// where VEC = 4) of every row, kScanRows consecutive rows a thread, each
+// thread holding its rows of h and of the running sum in registers.
+// A pass is a real scan of h + i down the rows: each thread scans its
+// rows, a warp-shuffle scan joins the threads' totals, and the warps'
+// totals meet in shared memory (double-buffered by the pass's parity, so
+// one barrier a pass), where every warp sums those above it.  The passes
+// add into the sum in order i = 0..R-1.  Past the rows of one block of
+// 512 threads of 8 rows (T > 4096) runs the streaming kernel: a warp a
+// column, four rows a lane, h re-read and out updated every pass.
 //
 // K13c: the CSR walk of csr_walk.cuh (its Lanes and Batch arithmetic and
 // its 16-byte chunks) over a column slab of W = vec * lanes columns
@@ -178,6 +186,113 @@ gather_slab_kernel(const int* __restrict__ idx,
 
 // ---- K13b ------------------------------------------------------------------
 
+constexpr int kScanRows = 8;  // measured on an H100 against 1, 2 and 4
+constexpr int kScanMaxThreads = 512;
+constexpr int kScanMaxWarps = kScanMaxThreads / 32;
+
+// Block x: columns [VEC * x, + VEC) of every row, kScanRows rows a thread.
+template <int VEC>
+__global__ void __launch_bounds__(kScanMaxThreads)
+edge_scan_onchip_kernel(const float* __restrict__ h, float* __restrict__ out,
+                        int T, int K, int R) {
+  __shared__ __align__(16) float tot[2][kScanMaxWarps][VEC];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * VEC;
+  const int r0 = threadIdx.x * kScanRows;
+  const int nv = max(0, min(kScanRows, T - r0));  // this thread's rows
+
+  float hv[kScanRows][VEC], acc[kScanRows][VEC];
+#pragma unroll
+  for (int q = 0; q < kScanRows; ++q) {
+    if (q < nv) {
+      const float* p = h + (int64_t)(r0 + q) * K + c0;
+      if constexpr (VEC == 4) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+        hv[q][0] = x.x;
+        hv[q][1] = x.y;
+        hv[q][2] = x.z;
+        hv[q][3] = x.w;
+      } else {
+        hv[q][0] = __ldg(p);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) hv[q][c] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) acc[q][c] = 0.f;
+  }
+
+  for (int i = 0; i < R; ++i) {
+    const float add = (float)i;
+    float v[kScanRows][VEC], incl[VEC];
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) incl[c] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kScanRows; ++q) {
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) {
+        if (q < nv) incl[c] += hv[q][c] + add;
+        v[q][c] = incl[c];
+      }
+    }
+    // The threads' totals, scanned across the warp.
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) {
+        const float u = __shfl_up_sync(kFullMask, incl[c], d);
+        if (lane >= d) incl[c] += u;
+      }
+    }
+    float base[VEC];
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) {
+      base[c] = __shfl_up_sync(kFullMask, incl[c], 1);
+      if (lane == 0) base[c] = 0.f;
+    }
+    float(*slot)[VEC] = tot[i & 1];
+    if (lane == 31) {
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) slot[warp][c] = incl[c];
+    }
+    __syncthreads();
+    // The carry: the totals of the warps above this one, lane by lane,
+    // then summed across the warp.
+    float part[VEC];
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) part[c] = lane < warp ? slot[lane][c] : 0.f;
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) {
+        part[c] += __shfl_xor_sync(kFullMask, part[c], m);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) base[c] += part[c];
+#pragma unroll
+    for (int q = 0; q < kScanRows; ++q) {
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) acc[q][c] += base[c] + v[q][c];
+    }
+  }
+
+#pragma unroll
+  for (int q = 0; q < kScanRows; ++q) {
+    if (q < nv) {
+      float* p = out + (int64_t)(r0 + q) * K + c0;
+      if constexpr (VEC == 4) {
+        *reinterpret_cast<float4*>(p) =
+            make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+      } else {
+        p[0] = acc[q][0];
+      }
+    }
+  }
+}
+
+// The streaming scan, for T past the on-chip kernel's rows.
 constexpr int kScanWarps = 8;
 constexpr int kRowsPerLane = 4;
 constexpr int kScanChunk = 32 * kRowsPerLane;
@@ -463,16 +578,36 @@ int smem_gather_f32(const int* args, const void* idx, const void* table,
   return vec == 4 ? go(gather_slab_kernel<4>) : go(gather_slab_kernel<1>);
 }
 
-// h (T, K) float32 row-major, out (T, K) float32 row-major, R >= 1.
+// h (T, K) float32 row-major, out (T, K) float32 row-major, R >= 1.  The
+// instance: `streaming` (1: the streaming kernel; 0: the on-chip scan, T
+// at most kScanRows * kScanMaxThreads) and, for the on-chip scan, columns
+// a slab `vec` (4: K % 4 == 0 and h and out on 16-byte boundaries; 1:
+// any).
 int edge_scan_loop_f32(int device, const void* h, void* out, int T, int K,
-                       int R, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+                       int R, int streaming, int vec, void* stream) {
+  int rc = use_device(device);
+  if (rc != 0) return rc;
   if (T <= 0 || K <= 0) return 0;
   if (R <= 0) return (int)cudaErrorInvalidValue;
-  edge_scan_kernel<<<(K + kScanWarps - 1) / kScanWarps, kScanWarps * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(h), static_cast<float*>(out), T, K, R);
+  const float* hp = static_cast<const float*>(h);
+  float* op = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (streaming) {
+    edge_scan_kernel<<<(K + kScanWarps - 1) / kScanWarps, kScanWarps * 32, 0,
+                       s>>>(hp, op, T, K, R);
+    return (int)cudaGetLastError();
+  }
+  const bool slab_ok =
+      vec == 1 || (vec == 4 && K % 4 == 0 && csr_walk::aligned16({h, out}));
+  if (!slab_ok || T > kScanRows * kScanMaxThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int threads = ((T + kScanRows - 1) / kScanRows + 31) & ~31;
+  if (vec == 4) {
+    edge_scan_onchip_kernel<4><<<K / 4, threads, 0, s>>>(hp, op, T, K, R);
+  } else {
+    edge_scan_onchip_kernel<1><<<K, threads, 0, s>>>(hp, op, T, K, R);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,10 @@ Replaces the JAX package's walk (``pytorch_sparse_tpu/sample/rw.py:21
 _walk``): step ``l`` of walk ``i`` moves from ``cur`` to
 ``col[rowptr[cur] + trunc(rand[i, l] * deg)]``, the product taken in
 float32, and a node of degree 0 stays put.  The CUDA kernel
-(``csrc/random_walk.cu``) runs one thread per walk.
+(``csrc/random_walk.cu``) gives a block consecutive walks: it stages
+their uniforms in shared memory with 16-byte loads, walks from there a
+thread a walk, and writes the walks back with 16-byte stores (walks
+longer than 191 steps run unstaged).
 
 :func:`random_walk` launches the kernel for CUDA tensors and runs
 :func:`random_walk_plain`, the plain PyTorch version (a loop of

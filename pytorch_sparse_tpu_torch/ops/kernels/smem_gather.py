@@ -11,7 +11,9 @@ judged:
   (:func:`gather_shape`).
 * :func:`edge_scan_loop` (K13b): ``sum_{i<R} cumsum(h + i, dim=0)``,
   the edge-axis scan a segment reduce is built from, ``R`` passes in one
-  launch (the probe's ``_loop_time`` kernel with ``c_body``).
+  launch (the probe's ``_loop_time`` kernel with ``c_body``), with ``h``
+  and the running sum held on chip for all ``R`` passes
+  (:func:`scan_instance`).
 * :func:`tiled_spmm` (K13c): the CSR SpMM of ``csr_spmm`` (K1), with
   X's row tiles staged in shared memory for the (row block, tile) pairs
   that :func:`tiled_spmm_plan` picks, and each edge of such a pair
@@ -56,7 +58,7 @@ def _kernel_lib():
         lib = _build.load("smem_gather")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.smem_gather_f32.argtypes = [p, p, p, p, p]
-        lib.edge_scan_loop_f32.argtypes = [i, p, p, i, i, i, p]
+        lib.edge_scan_loop_f32.argtypes = [i, p, p, i, i, i, i, i, p]
         lib.tiled_spmm_f32.argtypes = [i, p, p, p, p, p, p, i, p, i, i, i,
                                        i, i, i, p]
         for fn in (lib.smem_gather_f32, lib.edge_scan_loop_f32,
@@ -224,27 +226,62 @@ def edge_scan_loop_plain(h: torch.Tensor, R: int) -> torch.Tensor:
     return acc
 
 
+SCAN_ROWS = 8              # K13b: rows a thread (kScanRows)
+SCAN_MAX_ROWS = SCAN_ROWS * 512   # K13b: rows of the on-chip scan's block
+
+
+class ScanInstance(NamedTuple):
+    """K13b's launch: the streaming kernel (``streaming``: ``h`` re-read
+    and ``out`` updated every pass), or the on-chip scan over slabs of
+    ``vec`` columns (4: 16-byte loads and stores)."""
+    streaming: bool
+    vec: int
+
+
+@functools.lru_cache(maxsize=256)
+def scan_instance(T: int, K: int, aligned: bool) -> ScanInstance:
+    """The on-chip scan for ``(T, K)`` up to ``SCAN_MAX_ROWS`` rows, else
+    the streaming kernel.  ``vec`` is 4 where K % 4 == 0 and ``h`` and
+    ``out`` lie on 16-byte boundaries (``aligned``), else 1."""
+    if T > SCAN_MAX_ROWS:
+        return ScanInstance(True, 1)
+    return ScanInstance(False, 4 if K % 4 == 0 and aligned else 1)
+
+
+def launch_scan_instance(h: torch.Tensor, R: int, inst: ScanInstance
+                         ) -> torch.Tensor:
+    """K13b on the card in the instance ``inst`` (the wrapper's own
+    choice, or another for a measurement)."""
+    T, K = h.shape
+    out = torch.empty_like(h)
+    lib = _kernel_lib()
+    rc = lib.edge_scan_loop_f32(
+        h.device.index, h.data_ptr(), out.data_ptr(), T, K, int(R),
+        int(inst.streaming), inst.vec, _stream(h.device.index))
+    _build.check(lib, rc, f"edge_scan_loop launch ({inst})")
+    return out
+
+
 def edge_scan_loop(h: torch.Tensor, R: int) -> torch.Tensor:
     """``sum_{i<R} cumsum(h + i, dim=0)`` of the ``(T, K)`` float32
     ``h``, the ``R`` passes accumulated in that order inside one launch
-    on the card."""
+    on the card, in :func:`scan_instance`'s instance (kept in
+    ``edge_scan_loop.last_instance``)."""
     _check_scan(h, R)
     dev = _device("edge_scan_loop", h)
     if dev.type == "cpu":
         return edge_scan_loop_plain(h, R)
     _check_cuda("edge_scan_loop", [h], [])
     T, K = h.shape
-    out = torch.empty_like(h)
-    lib = _kernel_lib()
-    rc = lib.edge_scan_loop_f32(
-        dev.index, h.data_ptr(), out.data_ptr(), T, K, int(R),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "edge_scan_loop launch")
+    inst = scan_instance(T, K, h.data_ptr() % 16 == 0)
+    out = launch_scan_instance(h, R, inst)
+    edge_scan_loop.last_instance = inst
     edge_scan_loop.launches += 1
     return out
 
 
 edge_scan_loop.launches = 0
+edge_scan_loop.last_instance = None
 
 
 # ---- K13c --------------------------------------------------------------------

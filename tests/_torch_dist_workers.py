@@ -29,13 +29,30 @@ from pytorch_sparse_tpu_torch.parallel import (
     make_mesh, make_mesh2d, make_mesh_hier)
 from pytorch_sparse_tpu_torch.parallel import _comm
 
+def join_group(backend, workdir, rank, world_size, timeout):
+    """Join the ``backend`` group through the rendezvous file in
+    ``workdir``, then wait on the file's store until every rank has
+    joined.  ``init_process_group`` ends without a barrier (torch dropped
+    it in 2.3), so without this wait a rank whose gloo connect finished
+    first could run its function, tear its group down and exit while a
+    slower rank was still reading that rank's side of the handshake: the
+    slower rank then failed in ``connectFullMesh`` with "Connection
+    closed by peer"."""
+    limit = datetime.timedelta(seconds=timeout)
+    store = tdist.FileStore(os.path.join(workdir, "rdzv"), world_size)
+    store.set_timeout(limit)
+    tdist.init_process_group(backend, store=store, rank=rank,
+                             world_size=world_size, timeout=limit)
+    if store.add("joined", 1) == world_size:
+        store.set("all_joined", "1")
+    store.wait(["all_joined"])
+
+
 def _rank_main(rank, fn, world_size, backend, workdir, timeout, threads,
                args):
     if threads:
         torch.set_num_threads(threads)
-    tdist.init_process_group(
-        backend, init_method=f"file://{workdir}/rdzv", rank=rank,
-        world_size=world_size, timeout=datetime.timedelta(seconds=timeout))
+    join_group(backend, workdir, rank, world_size, timeout)
     try:
         torch.save(fn(rank, world_size, **args),
                    os.path.join(workdir, f"result_{rank}.pt"))

@@ -1553,3 +1553,159 @@ def test_sweep_instance_matches_the_kernels_choice_on_gpu():
             for aligned in (True, False):
                 assert kernel_sweep_instance(M, E, H, aligned) == \
                     sweep_instance(M, E, H, aligned), (H, M, E, aligned)
+
+
+# ----------------------------------------------------------------------
+# K12's staged walk and K13b's on-chip scan
+# ----------------------------------------------------------------------
+
+WALK_LENGTHS = [1, 3, 20, 33, 400]   # 400: past the staged rows, unstaged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("L", WALK_LENGTHS)
+def test_random_walk_staged_matches_plain_on_gpu(L, offset):
+    """K12 on a graph with degree-0 sinks, for a number of walks that no
+    block's share divides, with ``rand`` a contiguous slice ``offset``
+    words past a 16-byte boundary: every walk equal to the plain
+    version's, and bit-equal across two launches."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        random_walk, random_walk_plain)
+
+    rowptr, col = _walk_case(3000, 30_000, True, 40 + L)
+    n = 5003
+    start = torch.from_numpy(np.random.RandomState(41).randint(
+        0, 3000, n).astype(np.int32)).cuda()
+    flat = torch.rand(n * L + offset, generator=torch.Generator(
+        device="cuda").manual_seed(L + 7 * offset), device="cuda")
+    rand = flat[offset:].view(n, L)
+    assert rand.is_contiguous() and rand.data_ptr() % 16 == 4 * offset
+    before = random_walk.launches
+    got = random_walk(rowptr, col, start, rand)
+    again = random_walk(rowptr, col, start, rand)
+    want = random_walk_plain(rowptr, col, start, rand)
+    torch.cuda.synchronize()
+    assert random_walk.launches == before + 2
+    assert got.shape == (n, L + 1) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    sink = got[:, :-1] >= 2400  # a fifth of the nodes have no out-edges
+    assert bool(sink.any())
+    assert torch.equal(got[:, 1:][sink], got[:, :-1][sink])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [3, 20, 400])
+def test_random_walk_with_rowptr_off_8_bytes_on_gpu(L):
+    """K12 with ``rowptr`` 4 bytes past an 8-byte boundary, where the
+    kernel loads each of a step's two rowptr entries alone: the walks
+    equal the plain version's and those from an aligned ``rowptr``."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        random_walk, random_walk_plain)
+
+    rowptr, col = _walk_case(3000, 30_000, True, 50 + L)
+    buf = torch.empty(rowptr.shape[0] + 1, dtype=rowptr.dtype,
+                      device="cuda")
+    buf[1:] = rowptr
+    shifted = buf[1:]
+    assert shifted.data_ptr() % 8 == 4
+    n = 4099
+    start = torch.from_numpy(np.random.RandomState(51).randint(
+        0, 3000, n).astype(np.int32)).cuda()
+    rand = torch.rand((n, L), generator=torch.Generator(
+        device="cuda").manual_seed(L), device="cuda")
+    got = random_walk(shifted, col, start, rand)
+    torch.cuda.synchronize()
+    assert torch.equal(got, random_walk_plain(rowptr, col, start, rand))
+    assert torch.equal(got, random_walk(rowptr, col, start, rand))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 8, 40])
+@pytest.mark.parametrize("K", [1, 3, 128, 130])
+@pytest.mark.parametrize("T", [1, 8, 255, 2048, 2049])
+def test_edge_scan_loop_on_chip_matches_plain_on_gpu(T, K, R):
+    """K13b in the wrapper's instance against the loop of
+    ``torch.cumsum``, within 1e-5 of max |ref|, and bit-equal across two
+    launches."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        edge_scan_loop, edge_scan_loop_plain)
+    from pytorch_sparse_tpu_torch.ops.kernels.smem_gather import (
+        scan_instance)
+
+    h = torch.from_numpy(_x(70 + R, T, K)).cuda()
+    before = edge_scan_loop.launches
+    got = edge_scan_loop(h, R)
+    again = edge_scan_loop(h, R)
+    torch.cuda.synchronize()
+    assert edge_scan_loop.launches == before + 2
+    assert edge_scan_loop.last_instance == scan_instance(T, K, True)
+    assert rel_err(got, edge_scan_loop_plain(h, R)) <= 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vec", [1, 4])
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("T", [1, 2048, 4096, 4097])
+def test_edge_scan_loop_every_instance_on_gpu(T, streaming, vec):
+    """Every instance the launcher takes against the plain version at K
+    = 128; the on-chip scan past 4,096 rows, or with slabs of 2 columns,
+    raises."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels import edge_scan_loop_plain
+    from pytorch_sparse_tpu_torch.ops.kernels.smem_gather import (
+        ScanInstance, launch_scan_instance)
+
+    K, R = 128, 8
+    h = torch.from_numpy(_x(80, T, K)).cuda()
+    if not streaming:
+        with pytest.raises(RuntimeError, match="edge_scan_loop launch"):
+            launch_scan_instance(h, R, ScanInstance(False, 2))
+    if not streaming and T > 4096:
+        with pytest.raises(RuntimeError, match="edge_scan_loop launch"):
+            launch_scan_instance(h, R, ScanInstance(streaming, vec))
+        return
+    got = launch_scan_instance(h, R, ScanInstance(streaming, vec))
+    torch.cuda.synchronize()
+    assert rel_err(got, edge_scan_loop_plain(h, R)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_edge_scan_loop_unaligned_long_and_refused_inputs_on_gpu():
+    """``h`` 4 bytes past a 16-byte boundary takes the scalar slabs; T
+    past the on-chip rows takes the streaming kernel; what the wrapper
+    refuses raises before a launch."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.ops.kernels import (
+        edge_scan_loop, edge_scan_loop_plain)
+
+    T, K = 300, 128
+    flat = torch.from_numpy(_x(81, T * K + 1).ravel()).cuda()
+    h = flat[1:].view(T, K)
+    got = edge_scan_loop(h, 8)
+    assert edge_scan_loop.last_instance.vec == 1
+    assert rel_err(got, edge_scan_loop_plain(h, 8)) <= 1e-5
+    h = torch.from_numpy(_x(82, 40_000, 3)).cuda()
+    got = edge_scan_loop(h, 2)
+    assert edge_scan_loop.last_instance.streaming
+    assert rel_err(got, edge_scan_loop_plain(h, 2)) <= 1e-5
+    h = torch.from_numpy(_x(84, 9000, 8)).cuda()
+    got = edge_scan_loop(h, 8)
+    assert edge_scan_loop.last_instance.streaming
+    assert rel_err(got, edge_scan_loop_plain(h, 8)) <= 1e-5
+    before = edge_scan_loop.launches
+    h = torch.from_numpy(_x(83, 64, 8)).cuda()
+    with pytest.raises(ValueError, match="contiguous"):
+        edge_scan_loop(h.t(), 2)
+    with pytest.raises(TypeError, match="float32"):
+        edge_scan_loop(h.double(), 2)
+    with pytest.raises(ValueError, match="at least 1"):
+        edge_scan_loop(h, 0)
+    with pytest.raises(ValueError, match=r"\(T, K\)"):
+        edge_scan_loop(h.reshape(-1), 2)
+    assert edge_scan_loop.launches == before

@@ -7,7 +7,8 @@ on the same graphs, and the row sweep of ``edge_softmax`` (K8).
 Usage (from the repo root; one card)::
 
     python tools/time_csr_walk.py [--root DIR] [--reps N] [--out FILE]
-                                  [--edge-only | --minmax-softmax-only]
+                                  [--edge-only | --minmax-softmax-only |
+                                   --walk-scan-only]
 
 ``--root`` is the checkout whose ``pytorch_sparse_tpu_torch`` is
 timed (default: this one), so that two commits can be compared in one
@@ -63,6 +64,15 @@ to ``--out``) with a case per line of ``cases``:
 first, K11a, K11b, K7b, K6 and K8 are left out): a quicker run for
 comparing variants of the per-edge walk.  ``--minmax-softmax-only``
 times K6 and K8 alone, for comparing their variants.
+``--walk-scan-only`` times ``random_walk`` (K12) and ``edge_scan_loop``
+(K13b) alone: K12 at PyG's Node2Vec configuration (the uniform graph,
+L=20, 10 walks a node), on the uniform graph with every third row
+emptied, and at GraphSAINT's length (L=3 from 20,000 roots), each beside
+its byte bound and the count of its gathered sectors; K13b on the
+probe's (2048, 128) ``h`` at R = 1, 8 and 40, with the slope a pass in
+call and device ms, and, where the tree has ``launch_scan_instance``,
+the streaming kernel on the same ``h`` at R = 8 and 40 as a variant.  It
+records the SASS of every library of the tree.
 
 Each case's ``ms`` is CUDA events around ``--reps`` launches after one
 warm-up (the host's launch path where it is slower than the kernel);
@@ -102,6 +112,7 @@ WALK_KERNEL = re.compile(r"walk_kernel|csr_spmm_kernel|shard_spmm_kernel|"
                          r"softmax_edges_kernel|edge_softmax_kernel|"
                          r"edge_softmax_generic_kernel")
 L2_CONTROL_BYTES = 16 << 20   # K8's L2 control: slab and output
+WALK_SCAN_KERNEL = re.compile(r"random_walk|edge_scan")
 
 
 def _device_us(evt) -> float:
@@ -196,6 +207,8 @@ def main(argv=None) -> int:
                            "per-edge walks (K4, K7a) only")
     only.add_argument("--minmax-softmax-only", action="store_true",
                       help="time K6 and K8 only")
+    only.add_argument("--walk-scan-only", action="store_true",
+                      help="time K12 and K13b only")
     args = ap.parse_args(argv)
 
     import torch
@@ -235,16 +248,19 @@ def main(argv=None) -> int:
     t0 = time.time()
     libs = ("csr_spmm", "shard_spmm", "spmm_minmax", "edge_dot",
             "edge_softmax")
+    if args.walk_scan_only:
+        libs = tuple(_build.SOURCES)
     _build.build(libs)
     res["build_s"] = time.time() - t0
     res["ptxas"] = {n: ptxas_summary(_build.build_log(n)) for n in libs}
     res["sass"] = {n: sass_digests(_build.library_path(n)) for n in libs}
 
-    def timed(fn):
-        """(CUDA-event ms a call, the walk kernel's device ms a launch,
-        the launches the trace holds).  The trace sometimes drops
-        kernel events, so the device ms is the mean over the events it
-        holds, not the sum over ``TRACE_CALLS``."""
+    def timed(fn, kernel_name=WALK_KERNEL):
+        """(CUDA-event ms a call, the kernel's device ms a launch, the
+        launches the trace holds); the kernel's events are those whose
+        name ``kernel_name`` matches.  The trace sometimes drops kernel
+        events, so the device ms is the mean over the events it holds,
+        not the sum over ``TRACE_CALLS``."""
         from torch.profiler import ProfilerActivity, profile
 
         ms = cs.time_ms(torch, fn, reps=args.reps)
@@ -255,7 +271,7 @@ def main(argv=None) -> int:
                 fn()
             torch.cuda.synchronize()
         evts = [e for e in prof.key_averages()
-                if e.device_type.name == "CUDA" and WALK_KERNEL.search(e.key)]
+                if e.device_type.name == "CUDA" and kernel_name.search(e.key)]
         n = sum(e.count for e in evts)
         us = sum(_device_us(e) for e in evts)
         return ms, (us / 1e3 / n if n else 0.0), n
@@ -410,9 +426,97 @@ def main(argv=None) -> int:
         del A_g
         torch.cuda.empty_cache()
 
+    # ---- K12 and K13b ----------------------------------------------------
+    def walk_scan(A_u):
+        import numpy as np
+
+        from pytorch_sparse_tpu_torch.benchmarks import probe_vmem_gather
+        from pytorch_sparse_tpu_torch.ops.kernels import (
+            edge_scan_loop, edge_scan_loop_plain, random_walk,
+            random_walk_plain)
+
+        def k12_case(graph, A, start, L, seed):
+            rowptr, col = A.csr()[:2]
+            rand = torch.rand((start.shape[0], L), device=device,
+                              generator=torch.Generator(
+                                  device=device).manual_seed(seed))
+
+            def fn():
+                return random_walk(rowptr, col, start, rand)
+            got = fn()
+            exact = bool(torch.equal(got, random_walk_plain(
+                rowptr, col, start, rand)))
+            sectors = cs.random_walk_gathered_sectors(rowptr, got)
+            record("random_walk", graph, L, timed(fn, WALK_SCAN_KERNEL),
+                   cs.random_walk_bounds(rowptr, got, rand), None,
+                   start.shape[0], None, None, digest(got),
+                   equal_plain=exact, gathered_sectors=sectors)
+
+        Mu = A_u.sparse_size(0)
+        L_w, per_node = cs.NODE2VEC
+        n_roots, L_saint, _ = cs.SAINT
+        every = torch.arange(Mu, dtype=torch.int32, device=device)
+        k12_case("uniform, node2vec", A_u, every.repeat(per_node), L_w, 21)
+        keep = np.flatnonzero(A_u.storage.numpy_view("row") % 3 != 0)
+        A_sink = ts.SparseTensor(
+            row=A_u.storage.numpy_view("row")[keep],
+            col=A_u.storage.numpy_view("col")[keep], sparse_sizes=(Mu, Mu),
+            is_sorted=True, trust_data=True, device=device)
+        k12_case("uniform, every third row empty", A_sink, every, L_w, 22)
+        del A_sink
+        roots = torch.from_numpy(np.random.RandomState(23).randint(
+            0, Mu, n_roots).astype(np.int32)).to(device)
+        k12_case(f"uniform, {n_roots} roots", A_u, roots, L_saint, 24)
+        torch.cuda.empty_cache()
+
+        h = probe_vmem_gather.scan_input(device)
+        T, K = h.shape
+        module = sys.modules[edge_scan_loop.__module__]
+        launch = getattr(module, "launch_scan_instance", None)
+
+        def k13b_case(label, R, fn, inst=None):
+            got = fn()
+            inst = inst or kernel_instance(edge_scan_loop)
+            err = cs.errors(got, edge_scan_loop_plain(h, R))
+            times = timed(fn, WALK_SCAN_KERNEL)
+            b = cs.edge_scan_bounds(T, K, R)
+            record("edge_scan_loop", label, K, times,
+                   (b["bound_ms"], b["bound_by"]), None, T, None, inst,
+                   digest(got), passes=R, max_abs_err=err[0],
+                   max_rel_err=err[1], bound_sum_ms=b["bound_sum_ms"],
+                   pass_bound_us=b["pass_bound_us"])
+            return times
+
+        def slope(times, label, inst=None):
+            (ms8, dev8, _), (ms40, dev40, _) = times
+            entry = {"kernel": "edge_scan_loop", "graph": label,
+                     "instance": inst, "us_per_pass": (ms40 - ms8) / 32 * 1e3,
+                     "device_us_per_pass": (dev40 - dev8) / 32 * 1e3,
+                     "pass_bound_us": cs.edge_scan_bounds(T, K, 1)[
+                         "pass_bound_us"]}
+            res["cases"].append(entry)
+            print(json.dumps(entry), flush=True)
+
+        times = {}
+        for R in (1, 8, 40):
+            times[R] = k13b_case(f"probe h, R={R}", R,
+                                 lambda R=R: edge_scan_loop(h, R))
+        slope((times[8], times[40]), "probe h, R=8 to R=40",
+              kernel_instance(edge_scan_loop))
+        if launch is None:
+            return
+        inst = module.ScanInstance(True, 1)
+        pair = [k13b_case(f"probe h, R={R}, variant", R,
+                          lambda R=R: launch(h, R, inst), inst._asdict())
+                for R in (8, 40)]
+        slope(pair, "probe h, R=8 to R=40, variant", inst._asdict())
+
     # ---- K1: the uniform graph ------------------------------------------
     Mu, Eu = cs.UNIFORM
     A_u = cs.uniform_graph(ts, Mu, Eu, device)
+    if args.walk_scan_only:
+        walk_scan(A_u)
+        return finish(res, args.out)
     if args.minmax_softmax_only:
         Mh, Eh, nh = cs.HYBRID
         Mr, Er, nr = cs.REDDIT10
