@@ -249,8 +249,28 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    (``device_ms``), beside the library's, and K13c beside the floor
    that shared memory's rate puts under its staged edges; the
    ``gather_probe`` line holds the verdict.
+18. The structural op set through the public API.  On the products
+   graph of phases 12-13 (the matrix already built): PyG's
+   ``SparseTensor`` ``gcn_norm`` (``fill_value(1.)``, ``fill_diag(1.)``,
+   ``sum(dim=1)``, ``pow(-0.5)``, ``mul`` by the degree as a column and
+   as a row), whose degree must equal the CPU's ordered sum bit for bit
+   and whose values and column sums (``sum(dim=0)``) must agree with
+   float64 host oracles to 1e-5 of max |ref|; the subgraph ``adj[idx,
+   idx]`` of the first 196,615 nodes (the size of OGB's ogbn-products
+   train split) of a seeded permutation, and the same nodes through a
+   boolean mask (``masked_select``), each equal to scipy's ``A[idx][:,
+   idx]`` exactly; 8 row blocks by ``narrow`` and ``cat`` back, ``==`` the
+   matrix.  On the uniform graph: ``to_symmetric`` and ``is_symmetric``,
+   ``reverse_cuthill_mckee`` (its permutation equal to scipy's on the
+   union pattern), 128 diagonal blocks by ``narrow``, ``cat_diag``, and
+   each taken back out by ``__narrow_diag__`` and by ``narrow`` equal to
+   its block; ``to_torch_sparse_csr_tensor()`` times the K=128 operand
+   and the legacy tuple ``spmm`` against ``csr_spmm`` (1e-5); the row sums
+   of ``(E, 8)`` values, equal to the CPU's bits and within 1e-5 of a
+   float64 oracle.  Every output must lie on the card; each op's host
+   seconds are reported (the ``structural_ops`` line).
 
-The main path is phases 4 to 17, each driven once with every launch
+The main path is phases 4 to 18, each driven once with every launch
 count set to 0 just before it and read just after it.  Each phase must
 launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
 those and ``block_spmm_t`` and ``edge_dot``; 4c: ``csr_spmm_minmax``,
@@ -268,7 +288,9 @@ all in the second step, and no ``edge_dot``; 10: ``edge_softmax`` and
 processes, each rank-0 oracle's launches left out; 15: ``shard_spmm``,
 and ``block_spmm`` when the hybrid format is taken; 16: as 14, counted
 in the same processes from 0 at the phase's start; 17:
-``smem_gather``, ``edge_scan_loop`` and ``tiled_spmm``), and the
+``smem_gather``, ``edge_scan_loop`` and ``tiled_spmm``; 18:
+``csr_spmm``, through the row and column sums and the legacy ``spmm``),
+and the
 ``kernels`` line reports each kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -334,6 +356,14 @@ HIER_GRID = (2, 2)
 K2D, K2D_SLICE = 256, 20
 PRODUCTS_GCN = (100, 256, 47, 3)           # in, hidden, out, layers
 DIST_STEPS = 3
+# Phase 18: the structural op set.  OGB's ogbn-products train split has
+# 196,615 nodes; the products matrix is cut into 8 row blocks and the
+# uniform graph into 128 diagonal blocks; the (E, 8) values of the
+# uniform graph's row sums.
+STRUCT_SUBGRAPH = 196_615
+STRUCT_ROW_BLOCKS = 8
+STRUCT_DIAG_BLOCKS = 128
+STRUCT_WIDTH = 8
 REPS = 20
 PLAIN_REPS = 5                 # the slower plain versions of slice 3
 
@@ -2826,6 +2856,7 @@ def main(argv=None) -> int:
             "shard_spmm", "shard_spmm_minmax", "block_spmm", "block_spmm_t",
             "edge_dot", "minmax_edge_dot", "minmax_spmm_t"),
         "17 gather probe": ("smem_gather", "edge_scan_loop", "tiled_spmm"),
+        "18 the structural op set": ("csr_spmm",),
     }
     phase_launches = {}
 
@@ -3132,6 +3163,85 @@ def main(argv=None) -> int:
         res["prefetch_ms"] = (time.time() - t1) * 1e3 / n_nb
         return res
 
+    # Phase 18: the structural op set through the public API.
+    def structural_ops():
+        """PyG's ``SparseTensor`` preprocessing on the products graph:
+        ``gcn_norm`` (``torch_geometric/nn/conv/gcn_conv.py``: ones,
+        ``fill_diag``, ``sum(dim=1)``, ``pow(-0.5)``, ``mul`` by the
+        column and the row), the column sums, the train split's subgraph
+        ``adj[idx, idx]`` from an index and from a mask, and 8 row blocks
+        ``narrow``ed and ``cat`` back; then on the uniform graph
+        ``to_symmetric``, ``reverse_cuthill_mckee``, 128 diagonal blocks
+        ``cat_diag``ed and taken back out, ``to_torch_sparse_csr_tensor``,
+        the legacy tuple ``spmm`` and the row sums of ``(E, 8)`` values.
+        Each op's host seconds (the card synchronised after it)."""
+        import scipy.sparse.csgraph  # noqa: F401  (imported untimed)
+
+        r = {"host_s": {}}
+
+        def op(name, fn):
+            t1 = time.time()
+            out = fn()
+            sync()
+            r["host_s"][name] = time.time() - t1
+            return out
+
+        adj = op("fill_value", lambda: A_p.fill_value(1.0))
+        adj = op("fill_diag", lambda: adj.fill_diag(1.0))
+        deg = op("sum(dim=1)", lambda: adj.sum(dim=1))
+        dis = op("pow(-0.5)", lambda: deg.pow(-0.5))
+        dis.masked_fill_(dis == float("inf"), 0.0)
+        norm = op("mul(d.view(-1, 1))", lambda: adj.mul(dis.view(-1, 1)))
+        norm = op("mul(d.view(1, -1))", lambda: norm.mul(dis.view(1, -1)))
+        colsum = op("sum(dim=0)", lambda: norm.sum(dim=0))
+        idx = np.random.RandomState(85).permutation(Mp)[:STRUCT_SUBGRAPH]
+        idx_d = torch.from_numpy(idx).to(device)
+        mask = np.zeros(Mp, bool)
+        mask[idx] = True
+        mask_d = torch.from_numpy(mask).to(device)
+        sub = op("adj[idx, idx]", lambda: norm[idx_d, idx_d])
+        sub_mask = op("adj[mask, mask]", lambda: norm[mask_d, mask_d])
+        cuts = np.linspace(0, Mp, STRUCT_ROW_BLOCKS + 1).astype(np.int64)
+        parts = op(f"narrow x{STRUCT_ROW_BLOCKS} (row blocks)", lambda: [
+            norm.narrow(0, int(a), int(b - a))
+            for a, b in zip(cuts[:-1], cuts[1:])])
+        back = op("cat (row blocks)", lambda: ts.cat(parts, dim=0))
+        r["cat_equal"] = op("== (products)", lambda: back == norm)
+        del parts
+
+        sym = op("to_symmetric", lambda: A_u.to_symmetric())
+        r["is_symmetric"] = op("is_symmetric", lambda: sym.is_symmetric())
+        rcm, perm = op("reverse_cuthill_mckee",
+                       lambda: sym.reverse_cuthill_mckee(is_symmetric=True))
+        bnd = np.linspace(0, Mu, STRUCT_DIAG_BLOCKS + 1).astype(np.int64)
+        spans = [(int(a), int(b - a)) for a, b in zip(bnd[:-1], bnd[1:])]
+        blocks = op(f"narrow x{2 * STRUCT_DIAG_BLOCKS} (diagonal blocks)",
+                    lambda: [A_u.narrow(0, a, n_).narrow(1, a, n_)
+                             for a, n_ in spans])
+        D = op("cat_diag", lambda: ts.cat(blocks, dim=(0, 1)))
+        outs_d = op(f"__narrow_diag__ x{STRUCT_DIAG_BLOCKS}", lambda: [
+            D.__narrow_diag__((a, a), (n_, n_)) for a, n_ in spans])
+        outs_n = op(f"narrow x{2 * STRUCT_DIAG_BLOCKS} (out of cat_diag)",
+                    lambda: [D.narrow(0, a, n_).narrow(1, a, n_)
+                             for a, n_ in spans])
+        r["blocks_equal"] = op(
+            f"== x{2 * STRUCT_DIAG_BLOCKS} (diagonal blocks)",
+            lambda: all(x == b and y == b
+                        for x, y, b in zip(outs_d, outs_n, blocks)))
+        csr_t = op("to_torch_sparse_csr_tensor",
+                   lambda: A_u.to_torch_sparse_csr_tensor())
+        legacy = op("spmm (legacy tuple), K=128", lambda: ts.spmm(
+            torch.stack(A_u.coo()[:2]), A_u.storage.value(), Mu, Mu, x_u))
+        v8 = operand(torch, A_u.nnz(), STRUCT_WIDTH, 86, device)
+        A_u8 = A_u.set_value(v8, layout="coo")
+        s8 = op(f"sum(dim=1), (E, {STRUCT_WIDTH}) values",
+                lambda: A_u8.sum(dim=1))
+        r.update(adj=adj, deg=deg, dis=dis, norm=norm, colsum=colsum,
+                 idx=idx, sub=sub, sub_mask=sub_mask, back=back, sym=sym,
+                 rcm=rcm, perm=perm, blocks=blocks, D=D, outs_d=outs_d,
+                 outs_n=outs_n, csr_t=csr_t, legacy=legacy, v8=v8, s8=s8)
+        return r
+
     outs = drive("4 forward legs", forward_legs) or []
     bwd_grads = drive("4b backward legs", backward_legs) or []
     mm_res = drive("4c min/max legs", minmax_legs) or []
@@ -3317,6 +3427,7 @@ def main(argv=None) -> int:
     # the community hybrid graph.
     probe17 = drive("17 gather probe", lambda: probe_vmem_gather.run(
         device, graphs={"uniform": A_u, "community hybrid": A_h}))
+    struct18 = drive("18 the structural op set", structural_ops)
     launches = {n: sum(c[n] for c in phase_launches.values())
                 for n in counted}
     record("main_path", seconds=round(time.time() - t0, 2),
@@ -4349,6 +4460,138 @@ def main(argv=None) -> int:
                tiled=entry_c["cases"],
                launches=phase_launches["17 gather probe"], card=card)
 
+    # ---- 18. the structural op set: checks ---------------------------------
+    def off_card(objs):
+        """The tensors of ``objs`` (tensors, ``SparseTensor``s and lists
+        of them) that do not lie on the card."""
+        n = 0
+        for o in objs:
+            if isinstance(o, ts.SparseTensor):
+                st = o.storage
+                n += off_card([t_ for t_ in (
+                    st._row, st._rowptr, st._col, st._value, st._rowcount,
+                    st._colptr, st._colcount, st._csr2csc, st._csc2csr)
+                    if t_ is not None])
+            elif isinstance(o, (list, tuple)):
+                n += off_card(o)
+            elif isinstance(o, torch.Tensor):
+                n += o.device.type != "cuda"
+        return n
+
+    def check_struct18(r):
+        import scipy.sparse as sp
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+        from pytorch_sparse_tpu_torch.segment import segment_sum_csr
+
+        t1 = time.time()
+        adj, norm = r["adj"], r["norm"]
+        # The degree: the CPU's ordered sum, bit for bit.
+        deg_cpu = segment_sum_csr(adj.storage.value().cpu(),
+                                  adj.storage.rowptr().cpu())
+        deg_bits = bool(torch.equal(r["deg"].cpu(), deg_cpu))
+        del deg_cpu
+        # gcn_norm and the column sums against float64 host oracles.
+        rowptr_h = norm.storage.numpy_view("rowptr")
+        row_h = norm.storage.numpy_view("row")
+        col_h = norm.storage.numpy_view("col")
+        deg64 = np.diff(rowptr_h).astype(np.float64)
+        dis64 = np.where(deg64 > 0, deg64, 1.0) ** -0.5 * (deg64 > 0)
+        ref = dis64[row_h] * dis64[col_h]
+        got = norm.storage.value().cpu().numpy()
+        norm_err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        ref_col = np.bincount(col_h, weights=ref, minlength=Mp)
+        col_err = float(np.abs(r["colsum"].cpu().numpy() - ref_col).max()
+                        / np.abs(ref_col).max())
+        del ref, ref_col
+        # The subgraphs against scipy's A[idx][:, idx], exactly.
+        S = sp.csr_matrix((got, col_h, rowptr_h), shape=(Mp, Mp))
+        del got
+
+        def same_as_scipy(T, ix):
+            want = S[ix][:, ix].tocsr()
+            want.sort_indices()
+            return bool(
+                T.sparse_sizes() == want.shape
+                and np.array_equal(T.storage.numpy_view("rowptr"),
+                                   want.indptr)
+                and np.array_equal(T.storage.numpy_view("col"),
+                                   want.indices)
+                and np.array_equal(T.storage.value().cpu().numpy(),
+                                   want.data))
+
+        sub_ok = same_as_scipy(r["sub"], r["idx"])
+        sub_mask_ok = same_as_scipy(r["sub_mask"], np.sort(r["idx"]))
+        del S
+        # The uniform graph: RCM against scipy's on the union pattern.
+        Pat = sp.csr_matrix((np.ones(A_u.nnz()),
+                             (A_u.storage.numpy_view("row"),
+                              A_u.storage.numpy_view("col"))),
+                            shape=(Mu, Mu))
+        Pat = (Pat + Pat.T).tocsr()
+        perm_ref = reverse_cuthill_mckee(Pat, symmetric_mode=True)
+        perm_ok = bool(np.array_equal(r["perm"].cpu().numpy(), perm_ref))
+        sym_ok = bool(r["sym"].nnz() == Pat.nnz and r["is_symmetric"])
+        bw = (r["sym"].bandwidth(), r["rcm"].bandwidth())
+        # The products on the card: torch.sparse's CSR and the legacy
+        # tuple spmm against K1 (1e-5), the (E, 8) row sums against the
+        # CPU's ordered sum (bits) and a float64 host oracle.
+        k1 = csr_spmm(*A_u.csr(), x_u)
+        csr_t_err = errors(r["csr_t"] @ x_u, k1)[1]
+        legacy_err = errors(r["legacy"], k1)[1]
+        del k1
+        rp_u = A_u.storage.rowptr()
+        s8_bits = bool(torch.equal(
+            r["s8"].cpu(), segment_sum_csr(r["v8"].cpu(), rp_u.cpu())))
+        v8 = r["v8"].double().cpu().numpy()
+        ref8 = np.zeros((Mu, STRUCT_WIDTH))
+        np.add.at(ref8, A_u.storage.numpy_view("row"), v8)
+        s8_err = float(np.abs(r["s8"].double().cpu().numpy() - ref8).max()
+                       / np.abs(ref8).max())
+        del v8, ref8
+        off = off_card([r[k_] for k_ in (
+            "adj", "deg", "dis", "norm", "colsum", "sub", "sub_mask",
+            "back", "sym", "rcm", "perm", "blocks", "D", "outs_d", "outs_n",
+            "legacy", "s8")] + [r["csr_t"].crow_indices(),
+                                r["csr_t"].col_indices(),
+                                r["csr_t"].values()])
+        launches18 = phase_launches["18 the structural op set"]
+        record("structural_ops", graph_products=dict(
+                   nodes=Mp, nnz=A_p.nnz(), nnz_with_diag=adj.nnz(),
+                   subgraph_nodes=STRUCT_SUBGRAPH, subgraph_nnz=r["sub"].nnz(),
+                   row_blocks=STRUCT_ROW_BLOCKS),
+               graph_uniform=dict(
+                   nodes=Mu, nnz=A_u.nnz(), symmetric_nnz=r["sym"].nnz(),
+                   diag_blocks=STRUCT_DIAG_BLOCKS,
+                   diag_nnz=r["D"].nnz(), bandwidth_before_after=bw),
+               host_s=r["host_s"], launches=launches18,
+               degree_equals_cpu_bits=deg_bits, gcn_norm_rel_err=norm_err,
+               colsum_rel_err=col_err, subgraph_equals_scipy=sub_ok,
+               masked_subgraph_equals_scipy=sub_mask_ok,
+               cat_equal=r["cat_equal"], blocks_equal=r["blocks_equal"],
+               symmetric=sym_ok, rcm_equals_scipy=perm_ok,
+               csr_tensor_product_rel_err=csr_t_err,
+               legacy_spmm_rel_err=legacy_err,
+               sum_width8_equals_cpu_bits=s8_bits,
+               sum_width8_rel_err=s8_err, tensors_off_card=off,
+               gate=KERNEL_GATE, check_s=time.time() - t1, card=card)
+        bad = [name for name, ok in (
+            ("degree equals the CPU's bits", deg_bits),
+            ("gcn_norm values", norm_err <= KERNEL_GATE),
+            ("column sums", col_err <= KERNEL_GATE),
+            ("adj[idx, idx] equals scipy", sub_ok),
+            ("adj[mask, mask] equals scipy", sub_mask_ok),
+            ("narrow + cat == adj", r["cat_equal"]),
+            ("cat_diag blocks back out", r["blocks_equal"]),
+            ("to_symmetric", sym_ok), ("RCM equals scipy", perm_ok),
+            ("bandwidth after RCM", bw[1] <= bw[0]),
+            ("torch.sparse CSR product", csr_t_err <= KERNEL_GATE),
+            ("legacy spmm", legacy_err <= KERNEL_GATE),
+            ("(E, 8) row sums equal the CPU's bits", s8_bits),
+            ("(E, 8) row sums", s8_err <= KERNEL_GATE),
+            ("every output on the card", off == 0)) if not ok]
+        if bad:
+            failures.append(f"phase 18 (structural op set): {bad}")
+
     for label, res, check in (("9", gcn9, check_gcn9),
                               ("10", gat10, check_gat10),
                               ("11", models11, check_models11),
@@ -4356,7 +4599,8 @@ def main(argv=None) -> int:
                               ("13", nb13, check_nb13),
                               ("14", p14, check_dist14),
                               ("15", dist15, check_dist15),
-                              ("17", probe17, check_probe17)):
+                              ("17", probe17, check_probe17),
+                              ("18", struct18, check_struct18)):
         if res is not None:
             try:
                 check(res)

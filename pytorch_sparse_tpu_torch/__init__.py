@@ -9,9 +9,12 @@ format, differentiable in the operand and in its block store (a
 hand-written block-gradient kernel); GCN, GAT (hand-written edge-softmax
 kernels, forward and backward), GraphSAGE and GIN inference and
 training; SpSpMM (a hand-written plan-numeric kernel and block-pair
-kernel) with its chunked, streaming and block-split paths; and the
-structural ops of a SpSpMM pipeline (transpose, add, diagonal edits, the
-legacy tuple API); and the samplers: random walks (a hand-written walk
+kernel) with its chunked, streaming and block-split paths; the
+structural op set (transpose, add, mul, diagonal edits, select, narrow,
+index and mask selection, cat, permute, reductions whose sums run the
+CSR kernel on the card, reverse Cuthill-McKee, scipy and ``torch.sparse``
+conversions, torch-style dtype and device methods, the legacy tuple
+API); and the samplers: random walks (a hand-written walk
 kernel), with-replacement ``sample``, and on the host ``sample_adj``,
 ``saint_subgraph``, ``relabel``, ``relabel_one_hop`` and the
 homogeneous ``neighbor_sample``, whose draws equal the JAX package's
@@ -36,15 +39,19 @@ from .ops import (  # noqa
     spmm_sum, spmm_add, spmm_mean, spmm_min, spmm_max, spspmm_sum, matmul,
     expansion_terms, spspmm_chunked, spspmm_stream, spspmm_diag,
     spspmm_stream_device, HybridFormat, DenseFormat, build_hybrid,
-    build_hybrid_from_tensor, build_dense, hybrid_spmm, dense_spmm, t, transpose, coalesce, spspmm,
-    spadd, add, add_, add_nnz, add_nnz_, remove_diag, set_diag, fill_diag,
-    get_diag,
+    build_hybrid_from_tensor, build_dense, hybrid_spmm, dense_spmm, t,
+    transpose, coalesce, eye, spmm, spspmm, spadd, to_torch_sparse,
+    from_torch_sparse, to_scipy, from_scipy, add, add_, add_nnz, add_nnz_,
+    mul, mul_, mul_nnz, mul_nnz_, reduction, sum, mean, min, max,
+    non_diag_mask, remove_diag, set_diag, fill_diag, get_diag, index_select,
+    index_select_nnz, masked_select, masked_select_nnz, narrow,
+    __narrow_diag__, select, cat, permute, reverse_cuthill_mckee,
 )
 from .sample import (  # noqa
     random_walk, sample, sample_adj, saint_subgraph, relabel,
     relabel_one_hop, neighbor_sample,
 )
-from .utils import ind2ptr, ptr2ind  # noqa
+from .utils import ind2ptr, ptr2ind, index_sort  # noqa
 
 __all__ = [
     "SparseStorage",
@@ -71,16 +78,42 @@ __all__ = [
     "t",
     "transpose",
     "coalesce",
+    "eye",
+    "spmm",
     "spspmm",
     "spadd",
+    "to_torch_sparse",
+    "from_torch_sparse",
+    "to_scipy",
+    "from_scipy",
     "add",
     "add_",
     "add_nnz",
     "add_nnz_",
+    "mul",
+    "mul_",
+    "mul_nnz",
+    "mul_nnz_",
+    "reduction",
+    "sum",
+    "mean",
+    "min",
+    "max",
+    "__narrow_diag__",
+    "non_diag_mask",
     "remove_diag",
     "set_diag",
     "fill_diag",
     "get_diag",
+    "index_select",
+    "index_select_nnz",
+    "masked_select",
+    "masked_select_nnz",
+    "narrow",
+    "select",
+    "cat",
+    "permute",
+    "reverse_cuthill_mckee",
     "random_walk",
     "sample",
     "sample_adj",
@@ -90,5 +123,6 @@ __all__ = [
     "neighbor_sample",
     "ind2ptr",
     "ptr2ind",
+    "index_sort",
     "__version__",
 ]

@@ -16,6 +16,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..segment import gather_rows
 from ..tensor import SparseTensor
 
 
@@ -30,14 +31,15 @@ def _as_operand(src: SparseTensor, other) -> torch.Tensor:
 
 def _broadcast_nnz(src: SparseTensor, other: torch.Tensor) -> torch.Tensor:
     """A ``(M, 1, ...)`` or ``(1, N, ...)`` operand expanded to one entry
-    per nonzero."""
+    per nonzero; the operand's gradient adds each row's (column's) terms
+    in edge order (``segment.gather_rows``)."""
     M, N = src.sparse_sizes()
     if other.dim() >= 2 and other.shape[0] == M and other.shape[1] == 1:
-        return other.reshape((M,) + tuple(other.shape[2:]))[
-            src.storage.row().long()]
+        return gather_rows(other.reshape((M,) + tuple(other.shape[2:])),
+                           src.storage.numpy_view("row"))
     if other.dim() >= 2 and other.shape[0] == 1 and other.shape[1] == N:
-        return other.reshape((N,) + tuple(other.shape[2:]))[
-            src.storage.col().long()]
+        return gather_rows(other.reshape((N,) + tuple(other.shape[2:])),
+                           src.storage.numpy_view("col"))
     raise ValueError(
         f"broadcast operand of shape {tuple(other.shape)} does not match "
         f"the sparse operand: need ({M}, 1, ...) for row-wise or (1, {N}, "

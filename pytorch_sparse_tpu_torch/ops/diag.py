@@ -20,6 +20,26 @@ def _diag_count(M: int, N: int, k: int) -> int:
     return min(M + k, N) if k < 0 else min(M, N - k)
 
 
+def non_diag_mask(row: torch.Tensor, col: torch.Tensor, M: int, N: int,
+                  k: int) -> torch.Tensor:
+    """Bool mask of length ``E + num_diag``, on ``row``'s device: True
+    at the positions the nonzeros ``(row, col)`` (sorted) take once a
+    full k-offset diagonal is inserted."""
+    row, col = torch.as_tensor(row), torch.as_tensor(col, device=row.device)
+    E = row.shape[0]
+    num_diag = _diag_count(M, N, k)
+    start = -k if k < 0 else 0
+    # Diagonal entry d lives at (start + d, start + d + k); it precedes
+    # nnz (r, c) iff its row is above, or same row with smaller column.
+    row, col = row.long(), col.long()
+    above = (row - start).clamp(0, num_diag)
+    same_row = (row >= start) & (row < start + num_diag) & (row + k < col)
+    pos = torch.arange(E, device=row.device) + above + same_row
+    mask = torch.zeros(E + num_diag, dtype=torch.bool, device=row.device)
+    mask[pos] = True
+    return mask
+
+
 def remove_diag(src: SparseTensor, k: int = 0) -> SparseTensor:
     """Drop the k-offset diagonal, patching cached row/col counts."""
     st = src.storage
@@ -61,8 +81,8 @@ def set_diag(src: SparseTensor, values: Optional[torch.Tensor] = None,
     hrow = st.numpy_view("row")
     hcol = st.numpy_view("col")
 
-    # Diagonal entry d lives at (start + d, start + d + k); it precedes
-    # nnz (r, c) iff its row is above, or same row with smaller column.
+    # Diagonal entry d lives at (start + d, start + d + k): see
+    # non_diag_mask, here on the host copies.
     E = hrow.shape[0]
     num_diag = max(_diag_count(M, N, k), 0)
     start = -k if k < 0 else 0

@@ -138,3 +138,57 @@ def segment_min(data: torch.Tensor, segment_ids: torch.Tensor,
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     return _segment_extreme(data, segment_ids, num_segments, "amax")
+
+
+def segment_reduce(data: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int, reduce: str = "sum") -> torch.Tensor:
+    """Dispatch on ``reduce`` (``sum``/``add``, ``mean``, ``min``,
+    ``max``).  The sums run :func:`segment_sum`, atomic on the card; a
+    sum in a fixed order over a sorted layout is :func:`segment_sum_csr`
+    or :class:`Runs`."""
+    if reduce in ("sum", "add"):
+        return segment_sum(data, segment_ids, num_segments)
+    if reduce == "mean":
+        return segment_mean(data, segment_ids, num_segments)
+    if reduce == "min":
+        return segment_min(data, segment_ids, num_segments)
+    if reduce == "max":
+        return segment_max(data, segment_ids, num_segments)
+    raise ValueError(f"Unknown reduce mode: {reduce!r}")
+
+
+class _Gather(torch.autograd.Function):
+    """``x[idx]`` along dim 0; the backward adds each row's gradient
+    terms in the order of ``idx``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, idx: torch.Tensor, host_idx):
+        ctx.save_for_backward(idx)
+        ctx.host_idx, ctx.n = host_idx, x.shape[0]
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        counts = np.bincount(ctx.host_idx, minlength=ctx.n)
+        if counts.max(initial=0) <= 1:  # one term a row: a copy
+            out = grad.new_zeros((ctx.n,) + tuple(grad.shape[1:]))
+            return out.index_copy_(0, idx, grad), None, None
+        order = torch.from_numpy(
+            np.argsort(ctx.host_idx, kind="stable")).to(grad.device)
+        ptr = np.concatenate([[0], np.cumsum(counts)])
+        return (Runs(ptr, grad.device).sum(grad.index_select(0, order)),
+                None, None)
+
+
+def gather_rows(x: torch.Tensor, idx) -> torch.Tensor:
+    """``x[idx]`` for a host index ``idx`` (numpy, 1-D).  Where ``x``
+    requires grad, its gradient adds the terms of each repeated row in
+    the order of ``idx`` (:class:`Runs`), so that the card gives the
+    CPU's bits; ``index_select``'s own backward adds them atomically on
+    the card."""
+    idx = np.ascontiguousarray(idx, np.int64)
+    idx_d = torch.from_numpy(idx).to(x.device)
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return x.index_select(0, idx_d)
+    return _Gather.apply(x, idx_d, idx)

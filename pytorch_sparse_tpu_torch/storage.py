@@ -313,6 +313,84 @@ class SparseStorage:
     def nnz(self) -> int:
         return int(self._col.shape[0])
 
+    def sparse_resize(self, sparse_sizes: Tuple[int, int]
+                      ) -> "SparseStorage":
+        """Grow or shrink the logical shape: pointers and counts are
+        padded on growth; on shrinking, the row pointer and counts are
+        cut and the column ones dropped.  The permutations are kept."""
+        old_M, old_N = self._sparse_sizes
+        M, N = int(sparse_sizes[0]), int(sparse_sizes[1])
+        E = self.nnz()
+        cache = dict(self._np_cache)
+        rowptr, rowcount = self._rowptr, self._rowcount
+        colptr, colcount = self._colptr, self._colcount
+
+        def grow(t, n, fill):
+            return torch.cat([t, t.new_full((n,), fill)])
+
+        if M != old_M:
+            if "rowptr" in cache:
+                hptr = cache["rowptr"]
+                cache["rowptr"] = (np.concatenate(
+                    [hptr, np.full(M - old_M, E, np.int64)])
+                    if M > old_M else hptr[:M + 1])
+            if rowptr is not None:
+                rowptr = (grow(rowptr, M - old_M, E) if M > old_M
+                          else rowptr[:M + 1])
+            if rowcount is not None:
+                rowcount = (grow(rowcount, M - old_M, 0) if M > old_M
+                            else rowcount[:M])
+        if N != old_N:
+            if N > old_N:
+                if "colptr" in cache:
+                    cache["colptr"] = np.concatenate(
+                        [cache["colptr"], np.full(N - old_N, E, np.int64)])
+                if colptr is not None:
+                    colptr = grow(colptr, N - old_N, E)
+                if colcount is not None:
+                    colcount = grow(colcount, N - old_N, 0)
+            else:
+                cache.pop("colptr", None)
+                colptr = colcount = None
+        return self._new(
+            row=self._row, rowptr=rowptr, col=self._col, value=self._value,
+            sparse_sizes=(M, N), rowcount=rowcount, colptr=colptr,
+            colcount=colcount, csr2csc=self._csr2csc,
+            csc2csr=self._csc2csr, np_cache=cache)
+
+    def sparse_reshape(self, num_rows: int, num_cols: int
+                       ) -> "SparseStorage":
+        """Reinterpret the nonzeros' row-major positions in a new
+        ``(num_rows, num_cols)`` grid (one of them may be -1); the
+        position math runs in int64 on the host."""
+        if not ((num_rows > 0 or num_rows == -1)
+                and (num_cols > 0 or num_cols == -1)
+                and (num_rows > 0 or num_cols > 0)):
+            raise ValueError("sizes must be positive, one of them may be -1")
+        total = self._sparse_sizes[0] * self._sparse_sizes[1]
+        if num_rows == -1:
+            num_rows = total // num_cols
+        if num_cols == -1:
+            num_cols = total // num_rows
+        if num_rows * num_cols != total:
+            raise ValueError(f"cannot reshape {self._sparse_sizes} into "
+                             f"({num_rows}, {num_cols})")
+        idx = (self.numpy_view("row") * self._sparse_sizes[1]
+               + self._np_cache["col"])
+        row, col = idx // num_cols, idx % num_cols
+        dev = self.device
+        return self._new(
+            row=_dev_index(row, dev), rowptr=None, col=_dev_index(col, dev),
+            value=self._value, sparse_sizes=(int(num_rows), int(num_cols)),
+            np_cache={"row": row, "col": col})
+
+    @classmethod
+    def empty(cls, device: DeviceLike = None) -> "SparseStorage":
+        """A ``(0, 0)`` storage with no nonzeros."""
+        none = np.zeros(0, np.int64)
+        return cls(row=none, col=none, sparse_sizes=(0, 0), is_sorted=True,
+                   trust_data=True, device=device)
+
     # ------------------------------------------------------------------
     # Derived caches
     # ------------------------------------------------------------------
@@ -603,6 +681,34 @@ class SparseStorage:
         return out
 
     clone = copy
+
+    def apply_value(self, fn) -> "SparseStorage":
+        """New storage whose value is ``fn(value)``."""
+        value = self._value
+        return self.set_value(None if value is None else fn(value),
+                              layout="coo")
+
+    def apply(self, fn) -> "SparseStorage":
+        """New storage with ``fn`` applied to every tensor it holds (a
+        device move, a copy into pinned memory, ...).  The host copies
+        are shared; the hybrid view is not carried over."""
+        def opt(x):
+            return None if x is None else fn(x)
+
+        return self._new(
+            row=opt(self._row), rowptr=opt(self._rowptr), col=fn(self._col),
+            value=opt(self._value), sparse_sizes=self._sparse_sizes,
+            rowcount=opt(self._rowcount), colptr=opt(self._colptr),
+            colcount=opt(self._colcount), csr2csc=opt(self._csr2csc),
+            csc2csr=opt(self._csc2csr), np_cache=self._np_cache,
+            csc_row=opt(self._csc_row))
+
+    def to_device(self, device: DeviceLike) -> "SparseStorage":
+        dev = resolve_device(device)
+        return self.apply(lambda x: x.to(dev))
+
+    def astype_value(self, dtype) -> "SparseStorage":
+        return self.apply_value(lambda v: v.to(dtype))
 
     def __repr__(self) -> str:
         M, N = self._sparse_sizes

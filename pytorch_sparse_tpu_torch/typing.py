@@ -32,3 +32,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise ValueError(f"unsupported device type {dev.type!r}")
     return dev
 
+
+def input_device(x, device: DeviceLike = None) -> torch.device:
+    """The device of an entry point that takes ``x``: ``device`` when it
+    is given, else ``x``'s own when ``x`` is a tensor (a CUDA input stays
+    on its card), else ``"cuda"`` (numpy, scipy and list inputs)."""
+    if device is not None or not isinstance(x, torch.Tensor):
+        return resolve_device(device)
+    return x.device

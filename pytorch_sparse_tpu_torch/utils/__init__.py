@@ -1,5 +1,7 @@
 from .convert import INDEX_DTYPE, ind2ptr, ptr2ind  # noqa
 from .host_sort import lexsort2, lexsort2_decode, stable_argsort  # noqa
+from .index_sort import index_sort, lexsort_rows  # noqa
 
 __all__ = ["INDEX_DTYPE", "ind2ptr", "ptr2ind", "lexsort2",
-           "lexsort2_decode", "stable_argsort"]
+           "lexsort2_decode", "stable_argsort", "index_sort",
+           "lexsort_rows"]
