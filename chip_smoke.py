@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    limit.  TF32 is set off for matmuls and cuDNN: every f32 route here
    is held to full-f32 results.
 2. Build: ``nvcc`` compiles every kernel of ``pytorch_sparse_tpu_torch/
-   csrc`` for ``sm_90a`` (one process per source, in parallel).
+   csrc`` for ``sm_90a``, and the host C++ compiler the partitioner's
+   host library (``csrc/host_partition.cpp``), one process per source,
+   all in parallel.
 3. Kernels against their plain PyTorch versions on the card:
    ``csr_spmm`` on the ogbn-arxiv-scale uniform graph (M=169,343,
    E=1,166,243) at K=128, 256, 40, 8 and 1, with values and implicit
@@ -203,9 +205,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ReLU decisions); the parameters must be identical on every rank.  A
    failure on any rank fails the run.
 15. The main path at full width on NCCL, world size 1: the products
-   graph of phases 12-13 permuted by its planted community (the
-   contiguous layout ``partition()`` aims at; not a METIS result, the
-   port has no partitioner yet), ``gcn_norm``, and three ``DistGCN``
+   graph of phases 12-13 laid out by the port's own partition (phase
+   19's, computed once, beside phase 14), ``gcn_norm``, and three
+   ``DistGCN``
    steps at OGB's ogbn-products full-batch GCN
    (``examples/nodeproppred/products/gnn.py``: 100 -> 256 -> 256 -> 47,
    ``Adam(lr=0.01)``, no dropout) on the halo schedule with local format
@@ -269,8 +271,30 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    of ``(E, 8)`` values, equal to the CPU's bits and within 1e-5 of a
    float64 oracle.  Every output must lie on the card; each op's host
    seconds are reported (the ``structural_ops`` line).
+19. Cluster-GCN on the products graph (the JAX package's
+   ``benchmarks/products_pipeline.py:106-150`` and
+   ``examples/train_cluster_gcn.py``).  First, in a host thread of its
+   own while phase 14's processes run (it launches no kernel), the
+   port's ``partition_fine(A_p, 8, fine_parts=Mp // 512,
+   grouping="within")`` on one thread (the direct 8-way multilevel
+   partition, each part's interior ordered by coarsening clusters), its
+   walls (the partition, the reorder, the multilevel partitioner,
+   ``coarsen_clusters`` and ``permute`` apart), the host's peak memory,
+   the edge cut, the part sizes and the balance (the ``products_partition``
+   line); its contract must hold: ``partptr`` from 0 to M and never
+   falling, ``perm`` a permutation, the permuted matrix the original
+   relabelled through ``perm``'s inverse, int64 outputs on the card.
+   Then, after phase 18, per part in order: the diagonal block by
+   ``narrow`` twice, ``gcn_norm``, the route the router takes at K=100,
+   ``spmm_sum`` there and on K1 alone (within 1e-5 of max |ref|, both
+   timed, uncounted), and one ``Adam(lr=0.01)`` step of phase 15's GCN
+   (100 -> 256 -> 256 -> 47, no dropout) on the part's features and
+   labels, unpadded; the 8 steps are an epoch.  Part 0's loss and every
+   gradient are held against the plain CSR version with this run's ReLU
+   decisions (as phase 6), and every loss must be finite (the
+   ``cluster_gcn`` line).
 
-The main path is phases 4 to 18, each driven once with every launch
+The main path is phases 4 to 19, each driven once with every launch
 count set to 0 just before it and read just after it.  Each phase must
 launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
 those and ``block_spmm_t`` and ``edge_dot``; 4c: ``csr_spmm_minmax``,
@@ -289,14 +313,17 @@ processes, each rank-0 oracle's launches left out; 15: ``shard_spmm``,
 and ``block_spmm`` when the hybrid format is taken; 16: as 14, counted
 in the same processes from 0 at the phase's start; 17:
 ``smem_gather``, ``edge_scan_loop`` and ``tiled_spmm``; 18:
-``csr_spmm``, through the row and column sums and the legacy ``spmm``),
-and the
+``csr_spmm``, through the row and column sums and the legacy ``spmm``;
+19: ``csr_spmm``, and ``block_spmm`` and ``block_spmm_t`` where a part
+takes the hybrid route), and the
 ``kernels`` line reports each kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import concurrent.futures
+import contextlib
 import json
 import os
 import shutil
@@ -364,6 +391,15 @@ STRUCT_SUBGRAPH = 196_615
 STRUCT_ROW_BLOCKS = 8
 STRUCT_DIAG_BLOCKS = 128
 STRUCT_WIDTH = 8
+# Phase 19: Cluster-GCN on the products graph (the JAX package's
+# benchmarks/products_pipeline.py:106-150 and examples/
+# train_cluster_gcn.py:55-134, at full width and without XLA's padding):
+# 8 parts, each part's interior ordered by coarsening clusters of about
+# 512 nodes (partition_fine, grouping "within": the pipeline's default),
+# SpMM at the pipeline's width and one step of phase 15's GCN a part.
+CLUSTER_PARTS = 8
+CLUSTER_FINE_ROWS = 512
+CLUSTER_K = 100
 REPS = 20
 PLAIN_REPS = 5                 # the slower plain versions of slice 3
 
@@ -1272,6 +1308,43 @@ def spawn_ranks(fn, world_size, backend, args, timeout):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def wall_of(owner, name, log):
+    """Add the wall seconds of every call of ``owner.name`` made inside
+    the block to ``log[name]`` (a measurement hook; the calls run as
+    they are)."""
+    inner = getattr(owner, name)
+
+    def timed(*a, **k):
+        t1 = time.time()
+        try:
+            return inner(*a, **k)
+        finally:
+            log[name] = log.get(name, 0.0) + time.time() - t1
+
+    setattr(owner, name, timed)
+    try:
+        yield log
+    finally:
+        setattr(owner, name, inner)
+
+
+def host_peak_bytes():
+    """This process's peak resident host memory so far."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def route_name(h):
+    """The route a view takes: ``csr`` (no view), ``hybrid[dtype]`` or
+    ``dense[dtype]`` of its store."""
+    if h is None:
+        return "csr"
+    store = getattr(h, "blocks", getattr(h, "dense", None))
+    return f"{type(h).__name__.replace('Format', '').lower()}[{store.dtype}]"
+
+
 def dist_gcn_forward(model, x, agg, relu):
     """``DistGCN``'s forward written out, with the aggregation
     ``agg(h)`` and the ReLU given."""
@@ -1281,15 +1354,6 @@ def dist_gcn_forward(model, x, agg, relu):
         if i < n - 1:
             x = relu(x)
     return x
-
-
-def products_communities(scale, seed=0):
-    """The planted community of each node of :func:`products_graph`: its
-    first draw, replayed."""
-    rng = np.random.RandomState(seed)
-    M = int(2_449_029 * scale)
-    n_comm = max(int(8000 * scale), 8)
-    return rng.randint(0, n_comm, M).astype(np.int32)
 
 
 def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
@@ -1710,7 +1774,8 @@ def main(argv=None) -> int:
     logs = {n: [ln for ln in _build.build_log(n).splitlines()
                 if "registers" in ln or "spill" in ln]
             for n in _build.SOURCES}
-    record("build", seconds=round(time.time() - t0, 2), ptxas=logs)
+    record("build", seconds=round(time.time() - t0, 2), ptxas=logs,
+           host_flags=list(_build.host_flags()))
 
     # ---- graphs (set-up) -------------------------------------------------
     t0 = time.time()
@@ -2857,6 +2922,7 @@ def main(argv=None) -> int:
             "edge_dot", "minmax_edge_dot", "minmax_spmm_t"),
         "17 gather probe": ("smem_gather", "edge_scan_loop", "tiled_spmm"),
         "18 the structural op set": ("csr_spmm",),
+        "19 Cluster-GCN on the products partition": ("csr_spmm",),
     }
     phase_launches = {}
 
@@ -3242,6 +3308,110 @@ def main(argv=None) -> int:
                  outs_n=outs_n, csr_t=csr_t, legacy=legacy, v8=v8, s8=s8)
         return r
 
+    def uncounted(fn):
+        """``fn()`` with every launch count left as it was: the launches
+        of a timing loop or of a reference are none of the main path's."""
+        saved = {n: f.launches for n, f in counted.items()}
+        try:
+            return fn()
+        finally:
+            for n, f in counted.items():
+                f.launches = saved[n]
+
+    def cluster_gcn():
+        """Phase 19: Cluster-GCN on the products partition, one epoch of
+        8 steps in part order.  Per part: the diagonal block
+        (``narrow`` twice), ``gcn_norm``, the router's route at K=100
+        (the first ``spmm_sum``), that route and K1 alone timed on the
+        part's features (uncounted), and one Adam step of phase 15's GCN
+        on the part's features and labels, timed with CUDA events.  Part
+        0's step is held against the plain CSR version with this run's
+        ReLU decisions (uncounted)."""
+        in_, hid_, out_, nl_ = PRODUCTS_GCN
+        padj, perm = part19["padj"], part19["perm"]
+        pp = part19["partptr"].cpu().numpy()
+
+        def make():
+            return GCN(in_, hid_, out_, num_layers=nl_,
+                       generator=torch.Generator().manual_seed(0),
+                       device=device)
+
+        model = make()
+        opt = torch.optim.Adam(model.parameters(), lr=0.01)
+        x_all, y_all = x_p[perm], labels_p[perm]
+        res = {"parts": []}
+        for p in range(CLUSTER_PARTS):
+            lo, n = int(pp[p]), int(pp[p + 1] - pp[p])
+            t1 = time.time()
+            blk = gcn_norm(padj.narrow(0, lo, n).narrow(1, lo, n))
+            sync()
+            part = {"part": p, "nodes": n, "nnz": blk.nnz(),
+                    "block_and_gcn_norm_host_s": time.time() - t1}
+            xb, yb = x_all[lo:lo + n], y_all[lo:lo + n]
+            t1 = time.time()
+            out = ts.spmm_sum(blk, xb)
+            sync()
+            part["first_spmm_host_s"] = time.time() - t1
+            h = blk.storage.hybrid(auto=False)
+            part["route"] = route_name(h)
+            if h is not None and hasattr(h, "blocks"):
+                part.update(blocks=h.nb, dense_edge_share=h.dense_nnz
+                            / blk.nnz())
+
+            def spmm_times():
+                rowptr, col, value = blk.csr()
+                k1 = csr_spmm(rowptr, col, value, xb)
+                part["k1_rel_err_vs_route"] = errors(out, k1)[1]
+                part["spmm_ms"] = timer(lambda: ts.spmm_sum(blk, xb))
+                part["k1_ms"] = timer(lambda: csr_spmm(rowptr, col, value,
+                                                       xb))
+
+            uncounted(spmm_times)
+            del out
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            opt.zero_grad()
+            loss = model.loss(blk, xb, yb)
+            loss.backward()
+            if p == 0:
+                grads0 = [q.grad.detach().clone() for q in model.parameters()]
+            opt.step()
+            end.record()
+            end.synchronize()
+            part["step_ms"] = start.elapsed_time(end)
+            part["loss"] = loss.item()
+            if p == 0:
+                def reference():
+                    # The same first step through torch autograd on the
+                    # plain CSR version, with this run's ReLU decisions;
+                    # the entries where the plain run's own decisions
+                    # differ are counted, as in phase 6.
+                    rm = make()
+                    kmasks = relu_masks(torch, ts.spmm_sum, rm, blk, xb)
+                    pmasks = relu_masks(
+                        torch, lambda a, h_: csr_spmm_plain(*a.csr(), h_),
+                        rm, blk, xb)
+                    res["relu_flips"] = sum(int((k_ != q_).sum()) for k_, q_
+                                            in zip(kmasks, pmasks))
+                    del pmasks
+                    ref = plain_loss(torch, csr_spmm_plain, rm, blk, xb, yb,
+                                     kmasks)
+                    ref.backward()
+                    res["loss_rel_err_vs_plain"] = (
+                        abs(part["loss"] - ref.item()) / abs(ref.item()))
+                    res["grad_rel_errs_vs_plain"] = [
+                        errors(g, q.grad)[1]
+                        for g, q in zip(grads0, rm.parameters())]
+                    res["part0_nodes"] = n
+
+                uncounted(reference)
+                del grads0
+            res["parts"].append(part)
+            del blk, h, loss
+        res["epoch_ms"] = sum(q["step_ms"] for q in res["parts"])
+        return res
+
     outs = drive("4 forward legs", forward_legs) or []
     bwd_grads = drive("4b backward legs", backward_legs) or []
     mm_res = drive("4c min/max legs", minmax_legs) or []
@@ -3297,27 +3467,84 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
+    # The products graph's partition, computed once on the host (it
+    # launches no kernel): phase 15 lays the graph out by it and phase 19
+    # trains on its parts.  It runs in a thread of its own while phase
+    # 14's four processes run (the partitioner's C++ and numpy's sorts
+    # release the GIL), and phase 15 waits for it.
+    def products_partition():
+        """``partition_fine(A_p, 8, fine_parts=Mp // 512, grouping=
+        "within")`` on one host thread (the deterministic entry): the wall
+        of the whole call, of its direct 8-way partition (the clusters of
+        the multilevel partitioner) and of the reorder (each part's
+        coarsening clusters and the one ``permute`` by both), the host's
+        peak resident memory, the cut and the balance, and the contract:
+        ``partptr`` from 0 to Mp and never falling, ``perm`` a
+        permutation, the permuted matrix ``A_p`` relabelled through
+        ``perm``'s inverse."""
+        from pytorch_sparse_tpu_torch.partition import _native, metis
+
+        r = {"host_peak_bytes_before": host_peak_bytes()}
+        walls = {}
+        t1 = time.time()
+        with wall_of(metis, "_clusters", walls), \
+                wall_of(_native, "multilevel_partition", walls), \
+                wall_of(_native, "coarsen_clusters", walls), \
+                wall_of(metis, "permute", walls):
+            padj, partptr, perm = ts.partition_fine(
+                A_p, CLUSTER_PARTS, fine_parts=Mp // CLUSTER_FINE_ROWS,
+                grouping="within", num_workers=0)
+        sync()
+        r["total_s"] = time.time() - t1
+        r["host_peak_bytes_after"] = host_peak_bytes()
+        r["partition_s"] = walls["_clusters"]
+        r["reorder_s"] = r["total_s"] - walls["_clusters"]
+        r["multilevel_partitioner_s"] = walls["multilevel_partition"]
+        r["coarsen_clusters_s"] = walls["coarsen_clusters"]
+        r["permute_s"] = walls["permute"]
+        t1 = time.time()
+        pp, pm = partptr.cpu().numpy(), perm.cpu().numpy()
+        prow = padj.storage.numpy_view("row")
+        pcol = padj.storage.numpy_view("col")
+        inv = np.empty(Mp, np.int64)
+        inv[pm] = np.arange(Mp)
+        # torch's sort runs on several threads; its order is numpy's.
+        relabelled = torch.sort(torch.from_numpy(
+            inv[A_p.storage.numpy_view("row")] * Mp
+            + inv[A_p.storage.numpy_view("col")]))[0].numpy()
+        part_of = np.repeat(np.arange(CLUSTER_PARTS), np.diff(pp))
+        sizes = np.diff(pp)
+        r.update(
+            partptr_ok=bool(pp.size == CLUSTER_PARTS + 1 and pp[0] == 0
+                            and pp[-1] == Mp and (sizes >= 0).all()),
+            perm_ok=bool(np.array_equal(np.sort(pm), np.arange(Mp))),
+            relabel_ok=bool(np.array_equal(prow * Mp + pcol, relabelled)),
+            on_card=all(t.device.type == "cuda" for t in (
+                partptr, perm, padj.storage.col(), padj.storage.rowptr())),
+            dtypes=[str(partptr.dtype), str(perm.dtype)],
+            edge_cut=float((part_of[prow] != part_of[pcol]).mean()),
+            part_sizes=sizes.tolist(),
+            balance=float(sizes.max() / (Mp / CLUSTER_PARTS)),
+            fine_parts=Mp // CLUSTER_FINE_ROWS,
+            checks_s=time.time() - t1)
+        del relabelled, part_of, inv
+        r.update(padj=padj, partptr=partptr, perm=perm)
+        return r
+
     # Phase 15: DistGCN at OGB's products full-batch GCN widths on the
-    # products graph, world size 1 on NCCL.
+    # products graph laid out by the port's partition, world size 1 on
+    # NCCL.
     def dist_products():
         import torch.distributed as tdist
 
         r = {}
         t1 = time.time()
-        order = np.argsort(products_communities(PRODUCTS_SCALE),
-                           kind="stable")
-        inv = np.empty_like(order)
-        inv[order] = np.arange(order.size)
-        A_perm = ts.SparseTensor(
-            row=inv[A_p.storage.numpy_view("row")],
-            col=inv[A_p.storage.numpy_view("col")], sparse_sizes=(Mp, Mp),
-            device=device)
-        r["A"] = gcn_norm(A_perm)
+        perm = part19["perm"]
+        r["A"] = gcn_norm(part19["padj"])
         r["A"].storage.rowptr()
-        del A_perm
-        order_d = torch.from_numpy(order).to(device)
-        r["x"], r["y"] = x_p[order_d], labels_p[order_d]
-        r["permute_norm_s"] = time.time() - t1
+        r["x"], r["y"] = x_p[perm], labels_p[perm]
+        sync()
+        r["gcn_norm_s"] = time.time() - t1
         tmp = tempfile.mkdtemp(prefix="chip_smoke_p15_")
         tdist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv",
                                  rank=0, world_size=1)
@@ -3411,7 +3638,14 @@ def main(argv=None) -> int:
     # Phases 14 and 16 run in the same four processes (each rank holds
     # the whole COO of the 15.6M-edge graph once); each rank sets its
     # counts to 0 at the start of each phase and reads them at its end.
-    p14 = drive("14 four ranks on one card (gloo)", dist_four_ranks)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        partition_run = pool.submit(products_partition)
+        p14 = drive("14 four ranks on one card (gloo)", dist_four_ranks)
+        try:
+            part19 = partition_run.result()
+        except Exception:
+            failures.append("products partition: " + traceback.format_exc())
+            part19 = None
     phase_launches["16 hierarchical and 2-D layouts on four ranks (gloo)"] \
         = {n: 0 for n in counted}
     if p14 is not None:
@@ -3428,6 +3662,8 @@ def main(argv=None) -> int:
     probe17 = drive("17 gather probe", lambda: probe_vmem_gather.run(
         device, graphs={"uniform": A_u, "community hybrid": A_h}))
     struct18 = drive("18 the structural op set", structural_ops)
+    cluster19 = drive("19 Cluster-GCN on the products partition",
+                      cluster_gcn)
     launches = {n: sum(c[n] for c in phase_launches.values())
                 for n in counted}
     record("main_path", seconds=round(time.time() - t0, 2),
@@ -3468,11 +3704,7 @@ def main(argv=None) -> int:
 
     def route_of(A):
         h = A.storage.hybrid(auto=False)
-        if h is None:
-            return "csr", h
-        store = getattr(h, "blocks", getattr(h, "dense", None))
-        return (f"{type(h).__name__.replace('Format', '').lower()}"
-                f"[{store.dtype}]"), h
+        return route_name(h), h
 
     with torch.inference_mode():
         for (label, A, x, budget, gate, want), out in zip(leg_specs, outs):
@@ -4295,14 +4527,13 @@ def main(argv=None) -> int:
             "15 DistGCN on products (world size 1, NCCL)"]
         record("dist_gcn_products", world_size=1, backend="nccl",
                nodes=Mp, nnz=A_pn.nnz(), scale=PRODUCTS_SCALE,
-               layout="permuted by the generator's planted community "
-               "(the contiguous layout partition() aims at; not a METIS "
-               "result: the port has no partitioner yet)",
+               layout="the port's partition_fine(8, fine_parts=Mp // 512, "
+               "grouping='within') of the graph (phase 19's)",
                widths=[in_] + [hid_] * (nl_ - 1) + [out_],
                local_format=r["local_format"],
                blocks=r.get("blocks"), block_bytes=r.get("block_bytes"),
                rest_nnz=r.get("rest_nnz"),
-               permute_and_gcn_norm_host_s=r["permute_norm_s"],
+               gcn_norm_host_s=r["gcn_norm_s"],
                launches_step1=r["launches_step1"],
                shard_spmm_launches=launches15["shard_spmm"],
                block_spmm_launches=launches15["block_spmm"],
@@ -4592,6 +4823,58 @@ def main(argv=None) -> int:
         if bad:
             failures.append(f"phase 18 (structural op set): {bad}")
 
+    # ---- 19. Cluster-GCN on the products partition: checks and times ------
+    def check_partition19(r):
+        record("products_partition", nodes=Mp, nnz=A_p.nnz(),
+               parts=CLUSTER_PARTS, grouping="within", num_workers=0,
+               ran_beside="phase 14's four gloo processes",
+               **{k_: r[k_] for k_ in (
+                   "fine_parts", "total_s", "partition_s", "reorder_s",
+                   "multilevel_partitioner_s", "coarsen_clusters_s",
+                   "permute_s", "edge_cut", "part_sizes", "balance",
+                   "host_peak_bytes_before", "host_peak_bytes_after",
+                   "partptr_ok", "perm_ok", "relabel_ok", "on_card",
+                   "dtypes", "checks_s")}, card=card)
+        bad = [k_ for k_ in ("partptr_ok", "perm_ok", "relabel_ok",
+                             "on_card") if not r[k_]]
+        if r["dtypes"] != ["torch.int64", "torch.int64"]:
+            bad.append(f"dtypes {r['dtypes']}")
+        if bad:
+            failures.append(f"products partition: {bad}")
+
+    def check_cluster19(r):
+        launches19 = phase_launches[
+            "19 Cluster-GCN on the products partition"]
+        in_, hid_, out_, nl_ = PRODUCTS_GCN
+        parts = r["parts"]
+        max_flips = int(RELU_FLIP_SHARE * r["part0_nodes"] * hid_
+                        * (nl_ - 1))
+        record("cluster_gcn", graph="products", nodes=Mp,
+               parts=CLUSTER_PARTS, K=CLUSTER_K,
+               widths=[in_] + [hid_] * (nl_ - 1) + [out_],
+               per_part=parts, epoch_ms=r["epoch_ms"],
+               loss_rel_err_vs_plain=r["loss_rel_err_vs_plain"],
+               grad_rel_errs_vs_plain=r["grad_rel_errs_vs_plain"],
+               relu_flips=r["relu_flips"], max_relu_flips=max_flips,
+               gate=KERNEL_GATE, launches=launches19, card=card)
+        blocks = any(q["route"].startswith("hybrid") for q in parts)
+        bad = [name for name, ok in (
+            ("every loss finite", all(np.isfinite(q["loss"])
+                                      for q in parts)),
+            ("route vs K1 alone", max(q["k1_rel_err_vs_route"]
+                                      for q in parts) <= KERNEL_GATE),
+            ("part 0 loss", r["loss_rel_err_vs_plain"] <= KERNEL_GATE),
+            ("part 0 gradients", max(r["grad_rel_errs_vs_plain"])
+             <= KERNEL_GATE),
+            ("ReLU flips", r["relu_flips"] <= max_flips),
+            ("block kernels on a hybrid route", not blocks or (
+                launches19["block_spmm"] > 0
+                and launches19["block_spmm_t"] > 0))) if not ok]
+        if bad:
+            failures.append(f"phase 19 (Cluster-GCN): {bad}; routes "
+                            f"{[q['route'] for q in parts]}, launches "
+                            f"{launches19}")
+
     for label, res, check in (("9", gcn9, check_gcn9),
                               ("10", gat10, check_gat10),
                               ("11", models11, check_models11),
@@ -4600,7 +4883,9 @@ def main(argv=None) -> int:
                               ("14", p14, check_dist14),
                               ("15", dist15, check_dist15),
                               ("17", probe17, check_probe17),
-                              ("18", struct18, check_struct18)):
+                              ("18", struct18, check_struct18),
+                              ("19 (partition)", part19, check_partition19),
+                              ("19", cluster19, check_cluster19)):
         if res is not None:
             try:
                 check(res)

@@ -51,7 +51,10 @@ from .sample import (  # noqa
     random_walk, sample, sample_adj, saint_subgraph, relabel,
     relabel_one_hop, neighbor_sample,
 )
-from .utils import ind2ptr, ptr2ind, index_sort  # noqa
+from .utils import ind2ptr, ptr2ind, index_sort, save_npz, load_npz  # noqa
+from .partition import (  # noqa
+    mt_partition, partition, partition_fine, weight2metis,
+)
 
 __all__ = [
     "SparseStorage",
@@ -124,5 +127,11 @@ __all__ = [
     "ind2ptr",
     "ptr2ind",
     "index_sort",
+    "save_npz",
+    "load_npz",
+    "partition",
+    "partition_fine",
+    "mt_partition",
+    "weight2metis",
     "__version__",
 ]

@@ -8,17 +8,24 @@ so an edited source or header is rebuilt and a stale library is never
 loaded.  :func:`build` starts one ``nvcc`` per
 source, all at once, and waits for them; :func:`load` returns the
 ``ctypes`` handle.  A missing ``nvcc`` or a failed build raises.
+
+The host library (``HOST_SOURCES``: ``csrc/host_partition.cpp``, the
+partitioner) is plain C++ for the CPU, compiled by ``$CXX`` (else ``c++``
+from ``PATH``) with :func:`host_flags` into ``build/`` under the same
+hash naming, at first use, beside the kernels.  It needs no GPU: the CPU
+tests build it too.  A missing compiler or a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -27,6 +34,13 @@ SOURCES = ("csr_spmm", "block_spmm", "edge_dot", "spmm_minmax",
            "shard_spmm", "smem_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_SOURCES = ("host_partition",)
+# The JAX package's native build flags (its ``csrc/build.sh``), so that
+# the partitioner does the same arithmetic; ISO C++ already keeps FMA
+# contraction off in GCC, and ``-ffp-contract=off`` says so to any
+# other compiler.
+HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-fPIC", "-shared",
+              "-std=c++17", "-ffp-contract=off")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -44,11 +58,52 @@ def nvcc_path() -> str:
     return found
 
 
+def cxx_path() -> str:
+    """The host C++ compiler: ``$CXX``, else ``c++`` from ``PATH``."""
+    cxx = os.environ.get("CXX") or "c++"
+    found = shutil.which(cxx)
+    if found is None:
+        raise RuntimeError(
+            f"the host C++ compiler {cxx!r} was not found ($CXX, else c++ "
+            "from PATH); the partitioner's host library cannot be built")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def host_flags() -> Tuple[str, ...]:
+    """``HOST_FLAGS``, less ``-fopenmp`` where the compiler cannot build
+    OpenMP code (a toolchain without the OpenMP runtime's development
+    files).  The host sources are written for both: without OpenMP the
+    threaded entry runs the serial pipeline."""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    probe = _BUILD_DIR / f"openmp-probe.{os.getpid()}"
+    src = probe.with_suffix(".cpp")
+    src.write_text("#include <omp.h>\n"
+                   "extern \"C\" int probe() {\n"
+                   "  return omp_get_max_threads();\n}\n")
+    try:
+        done = subprocess.run(
+            [cxx_path(), "-fopenmp", "-fPIC", "-shared", "-o",
+             str(probe.with_suffix(".so")), str(src)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    finally:
+        src.unlink(missing_ok=True)
+        probe.with_suffix(".so").unlink(missing_ok=True)
+    if done.returncode == 0:
+        return HOST_FLAGS
+    return tuple(f for f in HOST_FLAGS if f != "-fopenmp")
+
+
 def library_path(name: str) -> Path:
-    src = (_SRC_DIR / f"{name}.cu").read_bytes()
-    for header in sorted(_SRC_DIR.glob("*.cuh")):
-        src += header.read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    if name in HOST_SOURCES:
+        src = (_SRC_DIR / f"{name}.cpp").read_bytes()
+        flags = host_flags()
+    else:
+        src = (_SRC_DIR / f"{name}.cu").read_bytes()
+        for header in sorted(_SRC_DIR.glob("*.cuh")):
+            src += header.read_bytes()
+        flags = NVCC_FLAGS
+    digest = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()
     return _BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
@@ -60,43 +115,57 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+def _command(name: str, tmp: Path):
+    if name in HOST_SOURCES:
+        return [cxx_path(), *host_flags(), "-o", str(tmp),
+                str(_SRC_DIR / f"{name}.cpp")]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+            str(_SRC_DIR / f"{name}.cu")]
+
+
+def build(names: Iterable[str] = SOURCES + HOST_SOURCES) -> Dict[str, Path]:
     """Compile every library of ``names`` that is not built yet, with
-    one ``nvcc`` process per source running in parallel."""
+    one compiler process per source running in parallel (``nvcc`` for
+    the kernels, the host C++ compiler for ``HOST_SOURCES``).  Each
+    writes a file of its own and renames it into place, so that
+    processes building at once never load a partial library."""
     paths = {n: library_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
         return paths
-    nvcc = nvcc_path()
+    tmps = {n: out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            for n, out in todo.items()}
+    cmds = {n: _command(n, tmp) for n, tmp in tmps.items()}
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, out in todo.items():
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC_DIR / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    procs = {n: (tmps[n], subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for n, cmd in cmds.items()}
     failures = []
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         out = todo[name]
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failures.append(f"{name} (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
     if failures:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failures))
+        raise RuntimeError("library build failed: " + "\n".join(failures))
     return paths
 
 
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded library of ``csrc/<name>.cu`` (or of the host source
+    ``csrc/<name>.cpp``), built if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
+        if name not in HOST_SOURCES:
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
 

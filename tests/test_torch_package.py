@@ -177,6 +177,15 @@ def test_kernel_sources_carry_their_notes():
         assert "extern \"C\"" in src and "cudaGetLastError" in src
 
 
+def test_host_sources_carry_their_notes():
+    for name in _build.HOST_SOURCES:
+        src = (PORT / "csrc" / f"{name}.cpp").read_text()
+        # What it replaces: the JAX package's native host library.
+        assert "pytorch_sparse_tpu/csrc/native.cpp" in src
+        assert "extern \"C\"" in src
+        assert "libsparse_tpu_native" not in src
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
