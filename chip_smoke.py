@@ -9,9 +9,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    limit.  TF32 is set off for matmuls and cuDNN: every f32 route here
    is held to full-f32 results.
 2. Build: ``nvcc`` compiles every kernel of ``pytorch_sparse_tpu_torch/
-   csrc`` for ``sm_90a``, and the host C++ compiler the partitioner's
-   host library (``csrc/host_partition.cpp``), one process per source,
-   all in parallel.
+   csrc`` for ``sm_90a``, and the host C++ compiler the host libraries
+   (``csrc/host_partition.cpp``, the partitioner, and
+   ``csrc/host_sample.cpp``, the typed, temporal, HGT and ego samplers),
+   one process per source, all in parallel.
 3. Kernels against their plain PyTorch versions on the card:
    ``csr_spmm`` on the ogbn-arxiv-scale uniform graph (M=169,343,
    E=1,166,243) at K=128, 256, 40, 8 and 1, with values and implicit
@@ -293,8 +294,41 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    gradient are held against the plain CSR version with this run's ReLU
    decisions (as phase 6), and every loss must be finite (the
    ``cluster_gcn`` line).
+20. Typed and ego sampling (PyG's ``examples/hetero/to_hetero_mag.py``
+   and ``examples/shadow.py``).  A synthetic ogbn-mag at OGB's sizes
+   (736,389 papers, 1,134,649 authors, 8,740 institutions, 59,965
+   fields; endpoints uniform from ``--seed``), made undirected as
+   ``T.ToUndirected(merge=True)`` makes it (seven relations, about 42M
+   edges), 128-dim features on every type on the card, 349 paper
+   classes and a year (2010-2019) a paper.  (a) Three NeighborLoader
+   batches of 1,024 seed papers through ``hetero_neighbor_sample``
+   (10 neighbours a relation and hop, two hops, without replacement,
+   directed), each with one ``Adam(lr=0.01)`` step of ``to_hetero``
+   GraphSAGE (two ``SAGEConv((-1, -1))`` layers, 128 -> 64 -> 349,
+   ``aggr="sum"``, a relation's layer ``lin_l`` of the mean over its
+   sources by ``matmul(adj, x, reduce="mean")`` plus ``lin_r`` of the
+   destination, ReLU between the layers) on the cross-entropy of the
+   seed papers: every sampled edge must be an edge of its relation,
+   every destination of a hop must hold ``min(deg, 10)`` edges of each
+   relation, each type's ids distinct and the papers' start with the
+   seeds.  (b) ``hgt_sample`` on the same seeds, 1,024 nodes a type and
+   hop, 4 hops (``--use_hgt_loader``), a step each: each type at most
+   its inputs plus 4 x 1,024 nodes, each relation's edges exactly
+   scipy's ``A[dst_ids][:, src_ids]``.  (c)
+   ``hetero_temporal_neighbor_sample`` on batch 0 with the papers'
+   years, one step: no paper source later than its root, each root's
+   tree disjoint from the others.  (d) ``ego_k_hop_sample_adj`` on the
+   products graph (depth 2, 5 neighbours, 512 roots of a seeded
+   permutation) and one step of phase 13's GraphSAGE on the
+   block-diagonal adjacency with the loss on the ``root_n_id`` rows:
+   each net equal to scipy's induced subgraph on its ``n_id`` block,
+   ``ptr`` delimiting the nets, ``root_n_id`` at each root.  The first
+   step of each path is held against the plain CSR version with this
+   run's ReLU decisions (as phase 6), and every output must be int64 on
+   the card.  Each sampler's host ms a batch, the nodes and edges per
+   type and relation, and each step's ms (the ``typed_sampling`` line).
 
-The main path is phases 4 to 19, each driven once with every launch
+The main path is phases 4 to 20, each driven once with every launch
 count set to 0 just before it and read just after it.  Each phase must
 launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
 those and ``block_spmm_t`` and ``edge_dot``; 4c: ``csr_spmm_minmax``,
@@ -315,7 +349,7 @@ in the same processes from 0 at the phase's start; 17:
 ``smem_gather``, ``edge_scan_loop`` and ``tiled_spmm``; 18:
 ``csr_spmm``, through the row and column sums and the legacy ``spmm``;
 19: ``csr_spmm``, and ``block_spmm`` and ``block_spmm_t`` where a part
-takes the hybrid route), and the
+takes the hybrid route; 20: ``csr_spmm``), and the
 ``kernels`` line reports each kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -400,6 +434,27 @@ STRUCT_WIDTH = 8
 CLUSTER_PARTS = 8
 CLUSTER_FINE_ROWS = 512
 CLUSTER_K = 100
+# Phase 20: typed and ego sampling.  ogbn-mag at OGB's sizes, made
+# undirected as PyG's examples/hetero/to_hetero_mag.py does, with 128-dim
+# features on every type (its preprocess='metapath2vec' setting), 349
+# paper classes and a year a paper; its NeighborLoader (1,024 seed
+# papers, 10 neighbours a relation and hop) and HGTLoader (1,024 nodes a
+# type and hop, 4 hops) settings and its to_hetero GraphSAGE (two
+# SAGEConv layers, hidden 64, aggr="sum", Adam(lr=0.01)); and PyG's
+# examples/shadow.py ego sampler (depth 2, 5 neighbours) on the products
+# graph, 512 roots.
+MAG_NODES = {"paper": 736_389, "author": 1_134_649, "institution": 8_740,
+             "field_of_study": 59_965}
+MAG_RELATIONS = (("author", "affiliated_with", "institution", 1_043_998),
+                 ("author", "writes", "paper", 7_145_660),
+                 ("paper", "cites", "paper", 5_416_271),
+                 ("paper", "has_topic", "field_of_study", 7_505_078))
+MAG_SCALE = 1.0
+MAG_WIDTHS = (128, 64, 349)                # features, hidden, classes
+MAG_YEARS = (2010, 2019)
+MAG_BATCH = (1024, (10, 10), 3)            # seed papers, fanouts, batches
+HGT_SAMPLES = (1024, 4)                    # nodes a type and hop, hops
+SHADOW = (512, 2, 5)                       # roots, depth, neighbours
 REPS = 20
 PLAIN_REPS = 5                 # the slower plain versions of slice 3
 
@@ -1096,6 +1151,234 @@ def products_graph(scale, seed=0):
     return M, src, dst
 
 
+def mag_graph(torch, scale, seed, device):
+    """A synthetic ogbn-mag of OGB's sizes (``MAG_NODES``,
+    ``MAG_RELATIONS``), seeded, made undirected as PyG's
+    ``examples/hetero/to_hetero_mag.py`` does with
+    ``T.ToUndirected(merge=True)``: each relation gains its reverse
+    ``rev_<rel>``, and ``cites`` is merged with its own reverse and
+    coalesced.  Endpoints are uniform (not OGB's degree distribution).
+    Returns ``(nodes, rels)``: each type's node count, and per relation
+    key ``'src__rel__dst'`` its CSC over the destination ``(colptr,
+    row)`` as host int64 arrays, in PyG's edge-type order; a relation's
+    edges are grouped by destination in draw order (``cites``: by
+    destination, then source).  The sorts run on ``device``."""
+    rng = np.random.RandomState(seed)
+    nodes = {t: max(int(n * scale), 1) for t, n in MAG_NODES.items()}
+
+    def csc(dst, src, n_dst, merge=False):
+        d = torch.from_numpy(dst).to(device)
+        s_ = torch.from_numpy(src).to(device)
+        if merge:
+            key = torch.unique(d * max(nodes.values()) + s_)
+            d, s_ = key // max(nodes.values()), key % max(nodes.values())
+        else:
+            order = torch.argsort(d, stable=True)
+            d, s_ = d[order], s_[order]
+        colptr = torch.zeros(n_dst + 1, dtype=torch.int64, device=device)
+        colptr[1:] = torch.cumsum(torch.bincount(d, minlength=n_dst), 0)
+        return colptr.cpu().numpy(), s_.cpu().numpy()
+
+    fwd, rev = {}, {}
+    for src_t, rel, dst_t, n_edges in MAG_RELATIONS:
+        n_edges = max(int(n_edges * scale), 1)
+        src = rng.randint(0, nodes[src_t], n_edges).astype(np.int64)
+        dst = rng.randint(0, nodes[dst_t], n_edges).astype(np.int64)
+        if src_t == dst_t:
+            fwd[f"{src_t}__{rel}__{dst_t}"] = csc(
+                np.concatenate([dst, src]), np.concatenate([src, dst]),
+                nodes[dst_t], merge=True)
+        else:
+            fwd[f"{src_t}__{rel}__{dst_t}"] = csc(dst, src, nodes[dst_t])
+            rev[f"{dst_t}__rev_{rel}__{src_t}"] = csc(src, dst, nodes[src_t])
+    return nodes, {**fwd, **rev}
+
+
+def typed_sample_faults(colptr, row, nodes, rows, cols, eids, seeds, fanout,
+                        n_hops):
+    """The faults of one typed neighbour sample (``directed=True``,
+    without replacement, the same fanout every hop): edges that are not
+    edges of their relation, destinations of a hop whose edge count in
+    a relation is not ``min(deg, fanout)`` (or that got edges without
+    being a hop's frontier), repeated node ids of a type, and whether
+    the seeds' type starts with the seeds.  All host arrays, keyed as
+    the sampler's outputs; ``seeds`` maps a type to its inputs."""
+    bounds = {t: [seeds[t].shape[0] if t in seeds else 0] for t in nodes}
+    for h in range(n_hops - 1):
+        for t in nodes:
+            bounds[t].append(bounds[t][-1])
+        for rel in rows:
+            src_t, _, dst_t = rel.split("__")
+            lo = bounds[dst_t][h - 1] if h else 0
+            hop = (cols[rel] >= lo) & (cols[rel] < bounds[dst_t][h])
+            if hop.any():
+                bounds[src_t][h + 1] = max(bounds[src_t][h + 1],
+                                           int(rows[rel][hop].max()) + 1)
+    bad_edges = wrong_size = 0
+    for rel in rows:
+        src_t, _, dst_t = rel.split("__")
+        cp, rw = colptr[rel], row[rel]
+        e, c = eids[rel], cols[rel]
+        dst_node = nodes[dst_t][c]
+        bad_edges += int((~((e >= cp[dst_node]) & (e < cp[dst_node + 1])
+                            & (rw[np.clip(e, 0, max(rw.shape[0] - 1, 0))]
+                               == nodes[src_t][rows[rel]]))).sum())
+        got = np.bincount(c, minlength=nodes[dst_t].shape[0])
+        want = np.zeros_like(got)
+        front = nodes[dst_t][:bounds[dst_t][-1]]
+        want[:front.shape[0]] = np.minimum(cp[front + 1] - cp[front], fanout)
+        wrong_size += int((got != want).sum())
+    return dict(
+        bad_edges=bad_edges, wrong_size_destinations=wrong_size,
+        repeated_ids=sum(int(v.shape[0] - np.unique(v).shape[0])
+                         for v in nodes.values()),
+        seeds_first=all(np.array_equal(nodes[t][:s.shape[0]], s)
+                        for t, s in seeds.items()))
+
+
+def induced_faults(sp, colptr, row, n_nodes, nodes, rows, cols, eids):
+    """Per relation, whether the sampled edges are exactly the relation's
+    edges between the sampled nodes, with their multiplicity: scipy's
+    ``A[dst_ids][:, src_ids]`` of the relation's (dst x src) CSR, against
+    the same matrix of the sampled (col, row) pairs; and whether every
+    edge id is the edge it stands for.  Returns the relations that
+    differ."""
+    bad = []
+    for rel in rows:
+        src_t, _, dst_t = rel.split("__")
+        cp, rw = colptr[rel], row[rel]
+        A = sp.csr_matrix((np.ones(rw.shape[0], np.float32), rw, cp),
+                          shape=(n_nodes[dst_t], n_nodes[src_t]))
+        want = A[nodes[dst_t]][:, nodes[src_t]]
+        got = sp.csr_matrix(
+            (np.ones(rows[rel].shape[0], np.float32), (cols[rel], rows[rel])),
+            shape=want.shape)
+        e, c = eids[rel], cols[rel]
+        dst_node = nodes[dst_t][c]
+        ids_ok = bool(((e >= cp[dst_node]) & (e < cp[dst_node + 1])).all()
+                      and (rw[e] == nodes[src_t][rows[rel]]).all())
+        if (got != want).nnz or not ids_ok:
+            bad.append(rel)
+    return bad
+
+
+def temporal_faults(nodes, rows, cols, n_inputs, times):
+    """The faults of a temporal typed sample (``directed=True``).  Each
+    input is a root (numbered over the types in the order of
+    ``nodes``); a sampled node belongs to the root of the destination
+    that drew it.  Counts edges whose endpoints belong to different
+    roots, nodes no edge reaches, ``(node, root)`` pairs repeated within
+    a type (the trees must be disjoint), and sources of a type in
+    ``times`` later than their root (a root without a time admits
+    all)."""
+    root, root_time, base = {}, [], 0
+    for t, v in nodes.items():
+        k = n_inputs.get(t, 0)
+        root[t] = np.full(v.shape[0], -1, np.int64)
+        root[t][:k] = base + np.arange(k)
+        base += k
+        root_time.append(times[t][v[:k]] if t in times
+                         else np.full(k, np.iinfo(np.int64).max))
+    root_time = np.concatenate(root_time)
+    changed = True
+    while changed:
+        changed = False
+        for rel in rows:
+            src_t, _, dst_t = rel.split("__")
+            r = root[dst_t][cols[rel]]
+            new = (r >= 0) & (root[src_t][rows[rel]] < 0)
+            if new.any():
+                root[src_t][rows[rel][new]] = r[new]
+                changed = True
+    crossing = late = 0
+    for rel in rows:
+        src_t, _, dst_t = rel.split("__")
+        rs, rd = root[src_t][rows[rel]], root[dst_t][cols[rel]]
+        crossing += int((rs != rd).sum())
+        if src_t in times:
+            late += int((times[src_t][nodes[src_t][rows[rel]]]
+                         > root_time[rd]).sum())
+    repeated = sum(
+        int(v.shape[0] - np.unique(v * max(base, 1) + root[t]).shape[0])
+        for t, v in nodes.items())
+    return dict(cross_root_edges=crossing, later_sources=late,
+                repeated_pairs=repeated,
+                unreached=sum(int((r < 0).sum()) for r in root.values()))
+
+
+def ego_faults(sp, rowptr, col, roots, adj_rowptr, adj_col, n_id, e_id,
+               ptr, root_n_id):
+    """The faults of a stitched ego batch: ``ptr`` not delimiting one net
+    a root, a net's ``n_id`` not sorted and distinct, ``root_n_id`` not
+    at its root, a net not equal to scipy's induced subgraph on its
+    nodes, edge ids not the edges they stand for."""
+    n = rowptr.shape[0] - 1
+    A = sp.csr_matrix((np.ones(col.shape[0], np.float32), col, rowptr),
+                      shape=(n, n))
+    sizes = np.diff(ptr)
+    ptr_ok = bool(ptr.shape[0] == roots.shape[0] + 1 and ptr[0] == 0
+                  and ptr[-1] == n_id.shape[0] and (sizes > 0).all())
+    owner = np.repeat(np.arange(roots.shape[0]), sizes)
+    step = np.diff(n_id)
+    sorted_ok = bool((step[owner[1:] == owner[:-1]] > 0).all())
+    root_ok = bool((root_n_id >= ptr[:-1]).all()
+                   and (root_n_id < ptr[1:]).all()
+                   and np.array_equal(n_id[root_n_id], roots))
+    # Each net's induced subgraph, from scipy's induced subgraph on the
+    # union of the nets' nodes (a small matrix to index per net).
+    uniq = np.unique(n_id)
+    U = A[uniq][:, uniq]
+    pos = np.searchsorted(uniq, n_id)
+    want = sp.block_diag([U[pos[a:b]][:, pos[a:b]]
+                          for a, b in zip(ptr[:-1], ptr[1:])], format="csr")
+    got = sp.csr_matrix((np.ones(adj_col.shape[0], np.float32), adj_col,
+                         adj_rowptr), shape=want.shape)
+    arow = np.repeat(np.arange(adj_rowptr.shape[0] - 1), np.diff(adj_rowptr))
+    src = n_id[arow]
+    ids_ok = bool(((e_id >= rowptr[src]) & (e_id < rowptr[src + 1])).all()
+                  and (col[e_id] == n_id[adj_col]).all())
+    return dict(ptr_ok=ptr_ok, n_id_sorted=sorted_ok, root_ok=root_ok,
+                nets_equal_induced=not (got != want).nnz, e_id_ok=ids_ok)
+
+
+def hetero_sage(torch, rels, dims, seed, device):
+    """The parameters of PyG's ``to_hetero(GNN, aggr="sum")`` over
+    ``SAGEConv((-1, -1), d)`` layers of widths ``dims`` (every type's
+    input ``dims[0]`` wide): per layer and relation ``lin_l``'s weight
+    and bias and ``lin_r``'s weight, Glorot-uniform from ``seed``, as a
+    ``ParameterDict`` keyed ``l<layer>__<rel>__<name>``."""
+    gen = torch.Generator().manual_seed(seed)
+    params = {}
+    for i, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+        bound = (6.0 / (din + dout)) ** 0.5
+        for rel in rels:
+            for name in ("w_l", "b_l", "w_r"):
+                t = (torch.zeros(dout) if name == "b_l" else
+                     (torch.rand((din, dout), generator=gen) * 2 - 1) * bound)
+                params[f"l{i}__{rel}__{name}"] = torch.nn.Parameter(
+                    t.to(device))
+    return torch.nn.ParameterDict(params)
+
+
+def hetero_sage_forward(model, rels, n_layers, adjs, xs, agg, relu):
+    """``to_hetero``'s forward: each layer, per relation ``lin_l(agg(adj,
+    x_src)) + lin_r(x_dst)`` (``adjs[rel]`` is the (dst x src) adjacency),
+    summed into the destination type, ReLU between layers.  Returns the
+    last layer's output per type."""
+    for i in range(n_layers):
+        out = {}
+        for rel in rels:
+            src_t, _, dst_t = rel.split("__")
+            w_l, b_l, w_r = (model[f"l{i}__{rel}__{n}"]
+                             for n in ("w_l", "b_l", "w_r"))
+            h = agg(adjs[rel], xs[src_t]) @ w_l + b_l + xs[dst_t] @ w_r
+            out[dst_t] = h if dst_t not in out else out[dst_t] + h
+        if i < n_layers - 1:
+            out = {t: relu(h) for t, h in out.items()}
+        xs = out
+    return xs
+
+
 def random_walk_touched(rowptr, walks, rand):
     """The ``rowptr`` and ``col`` entries that the walks ``walks`` (``(n,
     L+1)``, drawn with ``rand``) read: ``rowptr[u]`` and ``rowptr[u+1]``
@@ -1688,6 +1971,8 @@ def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 20's graph, batches and roots")
     args = ap.parse_args(argv)
 
     import torch
@@ -2923,6 +3208,7 @@ def main(argv=None) -> int:
         "17 gather probe": ("smem_gather", "edge_scan_loop", "tiled_spmm"),
         "18 the structural op set": ("csr_spmm",),
         "19 Cluster-GCN on the products partition": ("csr_spmm",),
+        "20 typed and ego sampling": ("csr_spmm",),
     }
     phase_launches = {}
 
@@ -3412,6 +3698,154 @@ def main(argv=None) -> int:
         res["epoch_ms"] = sum(q["step_ms"] for q in res["parts"])
         return res
 
+    # Phase 20: typed and ego sampling.
+    def typed_sampling():
+        """Phase 20: the ogbn-mag graph built (host arrays, features and
+        labels on the card); (a) three NeighborLoader batches through
+        ``hetero_neighbor_sample``, each with one Adam step of
+        ``to_hetero`` GraphSAGE; (b) ``hgt_sample`` on the same seeds,
+        a step each on the induced typed adjacency (a fresh model); (c)
+        ``hetero_temporal_neighbor_sample`` on batch 0 with the papers'
+        years, one step; (d) ``ego_k_hop_sample_adj`` on the products
+        graph from 512 roots of a seeded permutation and one step of
+        phase 13's GraphSAGE with the loss on the roots.  Each sampler's
+        host wall a batch (outputs on the card), each step's ms (CUDA
+        events) and the views' host ms are kept."""
+        t_phase = time.time()
+        mag_in, mag_hid, mag_out = MAG_WIDTHS
+        batch, fanouts, n_batches = MAG_BATCH
+        n_hgt, hgt_hops = HGT_SAMPLES
+        res = {}
+        t1 = time.time()
+        n_nodes, rels = mag_graph(torch, MAG_SCALE, args.seed, device)
+        gen = torch.Generator(device=device).manual_seed(args.seed + 20)
+        feats = {t: torch.randn((n, mag_in), device=device, generator=gen)
+                 for t, n in n_nodes.items()}
+        labels_m = torch.randint(0, mag_out, (n_nodes["paper"],),
+                                 device=device, generator=gen)
+        years = np.random.RandomState(args.seed + 21).randint(
+            MAG_YEARS[0], MAG_YEARS[1] + 1, n_nodes["paper"])
+        sync()
+        res.update(build_s=time.time() - t1, n_nodes=n_nodes,
+                   edges={k: int(v[1].shape[0]) for k, v in rels.items()},
+                   feature_bytes=sum(f.numel() * 4 for f in feats.values()))
+        colptr = {k: v[0] for k, v in rels.items()}
+        row = {k: v[1] for k, v in rels.items()}
+        rel_keys, node_types = list(rels), list(n_nodes)
+        seeds = np.random.RandomState(args.seed + 22).permutation(
+            n_nodes["paper"])[:n_batches * batch].reshape(n_batches, batch)
+
+        def views(out):
+            nid, rws, cls, _ = out
+            adjs = {}
+            for rel in rel_keys:
+                src_t, _, dst_t = rel.split("__")
+                adjs[rel] = ts.SparseTensor(
+                    row=cls[rel], col=rws[rel], sparse_sizes=(
+                        nid[dst_t].shape[0], nid[src_t].shape[0]),
+                    device=device)
+            return adjs, {t: feats[t][nid[t]] for t in node_types}
+
+        def make_typed():
+            return hetero_sage(torch, rel_keys, MAG_WIDTHS, 0, device)
+
+        def typed_logits(m, vw, relu, agg=None):
+            adjs, xs = vw
+            return hetero_sage_forward(
+                m, rel_keys, len(MAG_WIDTHS) - 1, adjs, xs,
+                agg or (lambda a_, h_: ts.matmul(a_, h_, reduce="mean")),
+                relu)["paper"]
+
+        def timed_step(m, opt, lossfn, keep):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            opt.zero_grad()
+            loss = lossfn(m)
+            loss.backward()
+            if keep is not None:
+                keep["grads0"] = [None if q.grad is None
+                                  else q.grad.detach().clone()
+                                  for q in m.parameters()]
+            opt.step()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end), loss.item()
+
+        def run(name, sample, inputs, n_steps):
+            """``n_steps`` batches of ``sample(b)``, a step each."""
+            m = make_typed()
+            opt = torch.optim.Adam(m.parameters(), lr=0.01)
+            r = dict(host_ms=[], views_ms=[], step_ms=[], losses=[],
+                     outs=[], nodes=[], edges=[])
+            for b in range(n_steps):
+                t1 = time.time()
+                out = sample(b)
+                sync()
+                r["host_ms"].append((time.time() - t1) * 1e3)
+                t1 = time.time()
+                vw = views(out)
+                sync()
+                r["views_ms"].append((time.time() - t1) * 1e3)
+                y = labels_m[out[0]["paper"][:inputs]]
+                ms, loss = timed_step(
+                    m, opt, lambda m_: nll_loss(
+                        typed_logits(m_, vw, torch.relu)[:inputs], y),
+                    r if b == 0 else None)
+                r["step_ms"].append(ms)
+                r["losses"].append(loss)
+                r["outs"].append(out)
+                r["nodes"].append({t: int(v.shape[0])
+                                   for t, v in out[0].items()})
+                r["edges"].append({k: int(v.shape[0])
+                                   for k, v in out[1].items()})
+                if b == 0:
+                    r["views0"], r["y0"] = vw, y
+            res[name] = r
+
+        run("neighbor", lambda b: ts.hetero_neighbor_sample(
+            node_types, rel_keys, colptr, row, {"paper": seeds[b]},
+            {k: list(fanouts) for k in rel_keys}, len(fanouts),
+            replace=False, directed=True, seed=args.seed + 100 + b,
+            device=device), batch, n_batches)
+        run("hgt", lambda b: ts.hgt_sample(
+            colptr, row, {"paper": seeds[b]},
+            {t: [n_hgt] * hgt_hops for t in node_types}, hgt_hops,
+            seed=args.seed + 200 + b, device=device), batch, n_batches)
+        run("temporal", lambda b: ts.hetero_temporal_neighbor_sample(
+            node_types, rel_keys, colptr, row, {"paper": seeds[b]},
+            {k: list(fanouts) for k in rel_keys}, {"paper": years},
+            len(fanouts), replace=False, directed=True,
+            seed=args.seed + 300 + b, device=device), batch, 1)
+        res["mag"] = dict(colptr=colptr, row=row, seeds=seeds, years=years,
+                          rel_keys=rel_keys, make=make_typed,
+                          logits=typed_logits)
+        del feats
+
+        # (d) ShaDow ego batches on the products graph.
+        n_roots, depth, k_ = SHADOW
+        roots = np.random.RandomState(args.seed + 23).permutation(Mp)[
+            :n_roots]
+        t1 = time.time()
+        ego = ts.ego_k_hop_sample_adj(A_p, torch.from_numpy(roots).to(device),
+                                      depth, k_, replace=False,
+                                      seed=args.seed + 400)
+        sync()
+        ego_ms = (time.time() - t1) * 1e3
+        adj, n_id, _, _, root_n_id = ego
+        x_e, y_e = x_p[n_id], labels_p[torch.from_numpy(roots).to(device)]
+        m = make_sage_p()
+        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+        d = {}
+        ms, loss = timed_step(m, opt, lambda m_: nll_loss(sage_forward(
+            m_, lambda h_, _: ts.spmm_mean(adj, h_), x_e,
+            torch.relu)[root_n_id], y_e), d)
+        res["ego"] = dict(host_ms=ego_ms, step_ms=ms, loss=loss,
+                          grads0=d["grads0"], out=ego, roots=roots, x=x_e,
+                          y=y_e)
+        res["phase_s"] = time.time() - t_phase
+        return res
+
     outs = drive("4 forward legs", forward_legs) or []
     bwd_grads = drive("4b backward legs", backward_legs) or []
     mm_res = drive("4c min/max legs", minmax_legs) or []
@@ -3664,6 +4098,7 @@ def main(argv=None) -> int:
     struct18 = drive("18 the structural op set", structural_ops)
     cluster19 = drive("19 Cluster-GCN on the products partition",
                       cluster_gcn)
+    typed20 = drive("20 typed and ego sampling", typed_sampling)
     launches = {n: sum(c[n] for c in phase_launches.values())
                 for n in counted}
     record("main_path", seconds=round(time.time() - t0, 2),
@@ -4279,11 +4714,14 @@ def main(argv=None) -> int:
                               h) / deg
 
     def first_step_against_plain(loss_k, grads_k, fwd_kernel, fwd_plain,
-                                 labels_):
-        """A fresh model's first step: the loss and every gradient of the
-        plain CSR version with this run's ReLU decisions, against the
-        kernel run's; and the ReLU flips between the two runs."""
-        rm_ = make_sage_p()
+                                 labels_, make=None):
+        """A fresh model's first step (``make()``, by default phase 13's
+        GraphSAGE): the loss and every gradient of the plain CSR version
+        with this run's ReLU decisions, against the kernel run's; and the
+        ReLU flips between the two runs.  A parameter that the loss does
+        not reach has no gradient in either run (an infinite error where
+        only one run has one)."""
+        rm_ = (make or make_sage_p)()
         kmasks, pmasks = [], []
         with torch.no_grad():
             fwd_kernel(rm_, relu_recorder(torch, kmasks))
@@ -4292,7 +4730,10 @@ def main(argv=None) -> int:
         max_flips = int(RELU_FLIP_SHARE * sum(k_.numel() for k_ in kmasks))
         ref = nll_loss(fwd_plain(rm_, relu_replay(kmasks)), labels_)
         ref.backward()
-        grad_errs = [errors(g, p_.grad)[1]
+        grad_errs = [errors(g, p_.grad)[1] if g is not None
+                     and p_.grad is not None else (
+                         0.0 if g is None and p_.grad is None
+                         else float("inf"))
                      for g, p_ in zip(grads_k, rm_.parameters())]
         loss_err = abs(loss_k - ref.item()) / abs(ref.item())
         ok = (np.isfinite(loss_k) and loss_err <= KERNEL_GATE
@@ -4875,6 +5316,120 @@ def main(argv=None) -> int:
                             f"{[q['route'] for q in parts]}, launches "
                             f"{launches19}")
 
+    def check_typed20(r):
+        import scipy.sparse as sp
+
+        mag = r["mag"]
+        colptr, row, seeds = mag["colptr"], mag["row"], mag["seeds"]
+        n_nodes = r["n_nodes"]
+        batch, fanouts, _ = MAG_BATCH
+        n_hgt, hgt_hops = HGT_SAMPLES
+
+        def host(out):
+            return [{k: v.cpu().numpy() for k, v in d.items()} for d in out]
+
+        def on_card(out):
+            return all(v.device.type == "cuda" and v.dtype == torch.int64
+                       for d in out for v in d.values())
+
+        bad = []
+        nb, hg, tp, eg = r["neighbor"], r["hgt"], r["temporal"], r["ego"]
+        neighbor_faults = [typed_sample_faults(
+            colptr, row, *host(out), {"paper": seeds[b]}, fanouts[0],
+            len(fanouts)) for b, out in enumerate(nb["outs"])]
+        for f_ in neighbor_faults:
+            if (f_["bad_edges"] or f_["wrong_size_destinations"]
+                    or f_["repeated_ids"] or not f_["seeds_first"]):
+                bad.append(f"(a) neighbour sample {f_}")
+        hgt_over, hgt_induced = [], []
+        for b, out in enumerate(hg["outs"]):
+            nid, rws, cls, eids = host(out)
+            limit = {t: (batch if t == "paper" else 0) + hgt_hops * n_hgt
+                     for t in nid}
+            hgt_over += [t for t in nid if nid[t].shape[0] > limit[t]
+                         or np.unique(nid[t]).shape[0] != nid[t].shape[0]]
+            hgt_induced += induced_faults(sp, colptr, row, n_nodes, nid, rws,
+                                          cls, eids)
+            if not np.array_equal(nid["paper"][:batch], seeds[b]):
+                bad.append(f"(b) batch {b}: papers do not start with seeds")
+        if hgt_over or hgt_induced:
+            bad.append(f"(b) HGT: over the budget or repeated {hgt_over}, "
+                       f"induced edges differ {hgt_induced}")
+        nid, rws, cls, eids = host(tp["outs"][0])
+        temporal = temporal_faults(nid, rws, cls, {"paper": batch},
+                                   {"paper": mag["years"]})
+        if any(temporal.values()):
+            bad.append(f"(c) temporal {temporal}")
+        adj, n_id, e_id, ptr, root_n_id = eg["out"]
+        ego = ego_faults(sp, A_p.storage.numpy_view("rowptr"),
+                         A_p.storage.numpy_view("col"), eg["roots"],
+                         adj.storage.numpy_view("rowptr"),
+                         adj.storage.numpy_view("col"),
+                         *(t_.cpu().numpy() for t_ in (n_id, e_id, ptr,
+                                                       root_n_id)))
+        if not all(ego.values()):
+            bad.append(f"(d) ego {ego}")
+        placed = (all(on_card(x_["outs"][0]) for x_ in (nb, hg, tp))
+                  and all(t_.device.type == "cuda" and t_.dtype == torch.int64
+                          for t_ in (n_id, e_id, ptr, root_n_id))
+                  and adj.storage.col().device.type == "cuda")
+        if not placed:
+            bad.append("outputs not on the card (or an index not int64)")
+        steps = {}
+        for name, x_ in (("neighbor", nb), ("hgt", hg), ("temporal", tp)):
+            vw, y0 = x_["views0"], x_["y0"]
+            ok, errs = first_step_against_plain(
+                x_["losses"][0], x_["grads0"],
+                lambda m, relu: mag["logits"](m, vw, relu)[:batch],
+                lambda m, relu: mag["logits"](m, vw, relu,
+                                              plain_mean)[:batch],
+                y0, make=mag["make"])
+            steps[name] = errs
+            if not ok or not all(np.isfinite(x_["losses"])):
+                bad.append(f"({name}) step vs plain {errs}")
+        adj_e, x_e, y_e = adj, eg["x"], eg["y"]
+        ok, errs = first_step_against_plain(
+            eg["loss"], eg["grads0"],
+            lambda m, relu: sage_forward(
+                m, lambda h_, _: ts.spmm_mean(adj_e, h_), x_e,
+                relu)[root_n_id],
+            lambda m, relu: sage_forward(
+                m, lambda h_, _: plain_mean(adj_e, h_), x_e,
+                relu)[root_n_id], y_e)
+        steps["ego"] = errs
+        if not ok:
+            bad.append(f"(d) step vs plain {errs}")
+        launches20 = phase_launches["20 typed and ego sampling"]
+        # The share of a typed call that is the wrapper's concatenation
+        # of every relation's arrays (the library's flat encoding).
+        from pytorch_sparse_tpu_torch.sample import _native as s_native
+        t1 = time.time()
+        s_native._relations(list(n_nodes), mag["rel_keys"], colptr, row)
+        concat_ms = (time.time() - t1) * 1e3
+
+        def summary(x_):
+            return {k_: x_[k_] for k_ in ("host_ms", "views_ms", "step_ms",
+                                          "losses", "nodes", "edges")}
+
+        record("typed_sampling", graph="ogbn-mag (synthetic, undirected)",
+               nodes=n_nodes, relation_edges=r["edges"],
+               feature_bytes=r["feature_bytes"], build_s=r["build_s"],
+               phase_s=r["phase_s"], wrapper_concat_ms=concat_ms,
+               batch=batch, fanouts=list(fanouts),
+               hgt=list(HGT_SAMPLES), widths=list(MAG_WIDTHS),
+               neighbor=summary(nb), hgt_sample=summary(hg),
+               temporal=summary(tp), neighbor_faults=neighbor_faults,
+               temporal_faults=temporal,
+               ego=dict(graph="products", roots=SHADOW[0], depth=SHADOW[1],
+                        num_neighbors=SHADOW[2], host_ms=eg["host_ms"],
+                        step_ms=eg["step_ms"], loss=eg["loss"],
+                        nodes=int(n_id.shape[0]), edges=adj.nnz(),
+                        **ego),
+               steps_vs_plain=steps, gate=KERNEL_GATE, launches=launches20,
+               card=card)
+        if bad:
+            failures.append(f"phase 20 (typed and ego sampling): {bad}")
+
     for label, res, check in (("9", gcn9, check_gcn9),
                               ("10", gat10, check_gat10),
                               ("11", models11, check_models11),
@@ -4885,7 +5440,8 @@ def main(argv=None) -> int:
                               ("17", probe17, check_probe17),
                               ("18", struct18, check_struct18),
                               ("19 (partition)", part19, check_partition19),
-                              ("19", cluster19, check_cluster19)):
+                              ("19", cluster19, check_cluster19),
+                              ("20", typed20, check_typed20)):
         if res is not None:
             try:
                 check(res)

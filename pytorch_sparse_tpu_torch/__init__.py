@@ -16,8 +16,9 @@ CSR kernel on the card, reverse Cuthill-McKee, scipy and ``torch.sparse``
 conversions, torch-style dtype and device methods, the legacy tuple
 API); and the samplers: random walks (a hand-written walk
 kernel), with-replacement ``sample``, and on the host ``sample_adj``,
-``saint_subgraph``, ``relabel``, ``relabel_one_hop`` and the
-homogeneous ``neighbor_sample``, whose draws equal the JAX package's
+``saint_subgraph``, ``relabel``, ``relabel_one_hop``, the homogeneous
+``neighbor_sample``, and on the port's host C++ library the typed,
+temporal, HGT and ego samplers, whose draws equal the JAX package's
 native sampler's; and the distribution layer (``parallel``): row shards
 over ``torch.distributed`` process groups with the all-gather, ring and
 halo SpMM schedules, also on a ``(data, feat)`` grid, and the
@@ -48,8 +49,9 @@ from .ops import (  # noqa
     __narrow_diag__, select, cat, permute, reverse_cuthill_mckee,
 )
 from .sample import (  # noqa
-    random_walk, sample, sample_adj, saint_subgraph, relabel,
-    relabel_one_hop, neighbor_sample,
+    random_walk, sample, sample_adj, saint_subgraph, ego_k_hop_sample_adj,
+    relabel, relabel_one_hop, neighbor_sample, hetero_neighbor_sample,
+    hetero_temporal_neighbor_sample, hgt_sample,
 )
 from .utils import ind2ptr, ptr2ind, index_sort, save_npz, load_npz  # noqa
 from .partition import (  # noqa
@@ -121,9 +123,13 @@ __all__ = [
     "sample",
     "sample_adj",
     "saint_subgraph",
+    "ego_k_hop_sample_adj",
     "relabel",
     "relabel_one_hop",
     "neighbor_sample",
+    "hetero_neighbor_sample",
+    "hetero_temporal_neighbor_sample",
+    "hgt_sample",
     "ind2ptr",
     "ptr2ind",
     "index_sort",

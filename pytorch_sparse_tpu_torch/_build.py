@@ -9,11 +9,13 @@ loaded.  :func:`build` starts one ``nvcc`` per
 source, all at once, and waits for them; :func:`load` returns the
 ``ctypes`` handle.  A missing ``nvcc`` or a failed build raises.
 
-The host library (``HOST_SOURCES``: ``csrc/host_partition.cpp``, the
-partitioner) is plain C++ for the CPU, compiled by ``$CXX`` (else ``c++``
-from ``PATH``) with :func:`host_flags` into ``build/`` under the same
-hash naming, at first use, beside the kernels.  It needs no GPU: the CPU
-tests build it too.  A missing compiler or a failed build raises.
+The host libraries (``HOST_SOURCES``: ``csrc/host_partition.cpp``, the
+partitioner, and ``csrc/host_sample.cpp``, the typed, temporal, HGT and
+ego samplers) are plain C++ for the CPU, compiled by ``$CXX`` (else
+``c++`` from ``PATH``) with :func:`host_flags` into ``build/`` under the
+same hash naming, at first use, beside the kernels.  They need no GPU:
+the CPU tests build them too.  A missing compiler or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -34,11 +36,11 @@ SOURCES = ("csr_spmm", "block_spmm", "edge_dot", "spmm_minmax",
            "shard_spmm", "smem_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_SOURCES = ("host_partition",)
+HOST_SOURCES = ("host_partition", "host_sample")
 # The JAX package's native build flags (its ``csrc/build.sh``), so that
-# the partitioner does the same arithmetic; ISO C++ already keeps FMA
-# contraction off in GCC, and ``-ffp-contract=off`` says so to any
-# other compiler.
+# the partitioner and the samplers do the same arithmetic; ISO C++
+# already keeps FMA contraction off in GCC, and ``-ffp-contract=off``
+# says so to any other compiler.
 HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-fPIC", "-shared",
               "-std=c++17", "-ffp-contract=off")
 
@@ -65,7 +67,7 @@ def cxx_path() -> str:
     if found is None:
         raise RuntimeError(
             f"the host C++ compiler {cxx!r} was not found ($CXX, else c++ "
-            "from PATH); the partitioner's host library cannot be built")
+            "from PATH); the host libraries cannot be built")
     return found
 
 

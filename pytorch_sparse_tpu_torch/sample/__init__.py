@@ -5,11 +5,17 @@ Two tiers, as in the JAX package:
 * Device tier (torch on the graph's device, over a pre-drawn uniform
   matrix): ``random_walk`` (the ``random_walk`` CUDA kernel) and the
   with-replacement ``sample``.
-* Host tier (numpy, by design): the samplers whose output sizes depend on
-  the data, ``sample_adj``, ``saint_subgraph``, ``relabel``,
-  ``relabel_one_hop`` and the homogeneous ``neighbor_sample``.  Their
-  draws equal the JAX package's native sampler's for the same ``seed``;
-  their outputs go to the device.
+* Host tier: the samplers whose output sizes depend on the data.
+  ``sample_adj``, ``saint_subgraph``, ``relabel``, ``relabel_one_hop``
+  and the homogeneous ``neighbor_sample`` are numpy, whose per-row
+  streams reproduce the native draws.  ``hetero_neighbor_sample``,
+  ``hetero_temporal_neighbor_sample``, ``hgt_sample`` and
+  ``ego_k_hop_sample_adj`` draw from sequential streams or walk hash
+  maps, and run the port's host C++ library (``csrc/host_sample.cpp``,
+  built at first use; a failed build raises).  Every host sampler's
+  draws equal the JAX package's native sampler's for the same ``seed``
+  (an ``int``; other types raise ``TypeError``); the outputs go to the
+  device.
 
 Importing this package attaches ``random_walk``, ``sample``,
 ``sample_adj`` and ``saint_subgraph`` to ``SparseTensor``.
@@ -19,5 +25,10 @@ from .rw import random_walk  # noqa
 from .sample import sample, sample_adj  # noqa
 from .saint import saint_subgraph  # noqa
 from .relabel import relabel, relabel_one_hop  # noqa
-from .neighbor import neighbor_sample  # noqa
+from .ego import ego_k_hop_sample_adj  # noqa
+from .neighbor import (  # noqa
+    neighbor_sample, hetero_neighbor_sample,
+    hetero_temporal_neighbor_sample,
+)
+from .hgt import hgt_sample  # noqa
 from .loader import MinibatchPrefetcher  # noqa

@@ -1,24 +1,30 @@
-"""Multi-hop neighbour sampling, CSC-driven (counterpart of the
-homogeneous ``neighbor_sample`` of
-``pytorch_sparse_tpu/sample/neighbor.py``): the loader primitive behind
+"""Multi-hop neighbour sampling, CSC-driven (counterpart of
+``pytorch_sparse_tpu/sample/neighbor.py``): the loader primitives behind
 PyG's ``NeighborLoader``.  An edge (src -> dst) is stored with
 ``colptr`` over dst and ``row`` holding src, so sampling walks the
 incoming edges of the frontier.
 
-Host numpy, as in the JAX package.  Each hop draws the frontier's edges
-with the native sampler's stream ``hop + 1`` (``_draws``) and appends
-unseen sources in the order they are drawn.
+* ``neighbor_sample`` (homogeneous) is host numpy.  Each hop draws the
+  frontier's edges with the native sampler's stream ``hop + 1``
+  (``_draws``) and appends unseen sources in the order they are drawn.
+* ``hetero_neighbor_sample`` (typed nodes and relations, per-relation
+  budgets) and ``hetero_temporal_neighbor_sample`` (sources no later
+  than their root, one computation tree a root) run the port's host
+  library (``csrc/host_sample.cpp``): their draws come from one
+  sequential stream whose length depends on the data, as in the JAX
+  package's native library.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..typing import DeviceLike, resolve_device
 from ._common import expand_ranges, host_index, to_index
+from . import _native
 from ._draws import draw_candidates, native_seed
 
 
@@ -78,3 +84,121 @@ def neighbor_sample(colptr, row, input_node, num_neighbors: List[int],
                                    [edges[keep]])
     return (to_index(all_samples, dev), to_index(_cat(rows_l), dev),
             to_index(_cat(cols_l), dev), to_index(_cat(edges_l), dev))
+
+
+def rel_key(edge_type) -> str:
+    """The ``'src__rel__dst'`` key of an ``(src, rel, dst)`` edge type."""
+    if isinstance(edge_type, str):
+        return edge_type
+    return "__".join(edge_type)
+
+
+def by_rel(d: dict) -> dict:
+    """``d`` keyed by ``'src__rel__dst'`` strings (tuple keys joined)."""
+    return {rel_key(k): v for k, v in d.items()}
+
+
+def typed_graph(colptr_dict: Dict, row_dict: Dict, input_node_dict: Dict,
+                rels: Optional[List[str]] = None, times: Optional[Dict] = None):
+    """``(colptr, row, inputs)``: host int64 arrays keyed by relation key
+    and by type, checked where the host library would read out of
+    bounds, which raises ``ValueError``: a relation of ``rels`` (default
+    all) whose ``colptr`` does not run within ``[0, len(row)]`` from 0
+    to ``len(row)``, or a node (an input or a ``row`` entry) of a type
+    past the ``colptr`` of a relation into that type or past the type's
+    ``times``."""
+    colptr = {k: host_index(v) for k, v in by_rel(colptr_dict).items()}
+    row = {k: host_index(v) for k, v in by_rel(row_dict).items()}
+    inputs = {nt: host_index(v) for nt, v in input_node_dict.items()}
+    rels = list(colptr) if rels is None else rels
+    bound = {}
+    for rel in rels:
+        dst = rel.split("__")[2]
+        bound[dst] = min(bound.get(dst, colptr[rel].shape[0] - 1),
+                         colptr[rel].shape[0] - 1)
+    for nt, tm in (times or {}).items():
+        if tm.size:
+            bound[nt] = min(bound.get(nt, tm.size), tm.size)
+
+    def check(nodes, nt, what):
+        if nodes.size and (nodes.min() < 0 or nodes.max() >= bound.get(
+                nt, np.iinfo(np.int64).max)):
+            raise ValueError(f"{what} holds a node of type {nt!r} outside "
+                             "its relations' colptr or its times")
+
+    for rel in rels:
+        cp, n_edges = colptr[rel], row[rel].shape[0]
+        if (cp.shape[0] < 1 or cp[0] != 0 or cp[-1] != n_edges
+                or cp.min() < 0 or cp.max() > n_edges):
+            raise ValueError(f"colptr of {rel!r} does not run from 0 to "
+                             "the relation's edge count")
+        check(row[rel], rel.split("__")[0], f"row of {rel!r}")
+    for nt, arr in inputs.items():
+        check(arr, nt, "input_node_dict")
+    return colptr, row, inputs
+
+
+def typed_outputs(out, device) -> Tuple[Dict[str, torch.Tensor], ...]:
+    """The library's numpy dicts as int64 tensors on ``device``."""
+    return tuple({k: torch.from_numpy(v).to(device) for k, v in d.items()}
+                 for d in out)
+
+
+def hetero_neighbor_sample(
+    node_types: List[str], edge_types: List, colptr_dict: Dict,
+    row_dict: Dict, input_node_dict: Dict, num_neighbors_dict: Dict,
+    num_hops: int, replace: bool = False, directed: bool = True,
+    seed: Optional[int] = None, device: DeviceLike = None,
+) -> Tuple[Dict[str, torch.Tensor], ...]:
+    """Typed multi-hop sampling.  Returns ``(node_id, row, col, edge_id)``
+    dicts of int64 tensors on ``device``: ``node_id`` per node type (its
+    inputs first, then sources in the order they were drawn), the
+    others per relation key ``'src__rel__dst'`` (a source's local id, its
+    target's local id, the edge's position in the relation's ``row``).
+
+    Edge types are ``(src, rel, dst)`` tuples or their keys; the dicts
+    of relations may be keyed either way.  Relations are visited in the
+    order of ``edge_types`` each hop, node types in the order of
+    ``node_types``: that order fixes the draws, which equal the JAX
+    package's native sampler's for ``seed`` (an ``int``; None means 0).
+    With ``directed=False`` the edges are every edge between sampled
+    nodes."""
+    seed = native_seed(seed)
+    dev = resolve_device(device)
+    rels = [rel_key(et) for et in edge_types]
+    colptr, row, inputs = typed_graph(colptr_dict, row_dict,
+                                      input_node_dict, rels)
+    budgets = by_rel(num_neighbors_dict)
+    out = _native.hetero_neighbor_sample(
+        list(node_types), rels, colptr, row, inputs,
+        {k: list(budgets[k]) for k in rels}, num_hops, replace, directed,
+        seed)
+    return typed_outputs(out, dev)
+
+
+def hetero_temporal_neighbor_sample(
+    node_types: List[str], edge_types: List, colptr_dict: Dict,
+    row_dict: Dict, input_node_dict: Dict, num_neighbors_dict: Dict,
+    node_time_dict: Dict, num_hops: int, replace: bool = False,
+    directed: bool = True, seed: Optional[int] = None,
+    device: DeviceLike = None,
+) -> Tuple[Dict[str, torch.Tensor], ...]:
+    """The temporal variant of :func:`hetero_neighbor_sample`: a sampled
+    source must satisfy ``time[src] <= time[root]`` (types absent from
+    ``node_time_dict`` carry no time and always pass), and the trees of
+    different roots stay disjoint, so a node appears once per root that
+    reaches it.  Roots are numbered over all input nodes in type order.
+    With ``directed=False`` no edge is returned, as in the JAX package
+    (its temporal sampler keeps sampled edges only when directed)."""
+    seed = native_seed(seed)
+    dev = resolve_device(device)
+    rels = [rel_key(et) for et in edge_types]
+    times = {nt: host_index(v) for nt, v in node_time_dict.items()}
+    colptr, row, inputs = typed_graph(colptr_dict, row_dict,
+                                      input_node_dict, rels, times)
+    budgets = by_rel(num_neighbors_dict)
+    out = _native.hetero_temporal_neighbor_sample(
+        list(node_types), rels, colptr, row, inputs,
+        {k: list(budgets[k]) for k in rels}, times, num_hops, replace,
+        directed, seed)
+    return typed_outputs(out, dev)
