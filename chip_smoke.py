@@ -10,14 +10,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    is held to full-f32 results.
 2. Build: ``nvcc`` compiles every kernel of ``pytorch_sparse_tpu_torch/
    csrc`` for ``sm_90a``, and the host C++ compiler the host libraries
-   (``csrc/host_partition.cpp``, the partitioner, and
-   ``csrc/host_sample.cpp``, the typed, temporal, HGT and ego samplers),
-   one process per source, all in parallel.
+   (``csrc/host_partition.cpp``, the partitioner;
+   ``csrc/host_sample.cpp``, the typed, temporal, HGT and ego samplers;
+   ``csrc/host_spgemm.cpp``, the Gustavson SpGEMM), one process per
+   source, all in parallel.
 3. Kernels against their plain PyTorch versions on the card:
    ``csr_spmm`` on the ogbn-arxiv-scale uniform graph (M=169,343,
    E=1,166,243) at K=128, 256, 40, 8 and 1, with values and implicit
    ones, on a matrix with empty rows, and on the community hybrid graph
-   at K=128 (each case names the instance of the CSR walk that ran); ``block_spmm`` and ``block_spmm_t`` on
+   at K=128 (each case names the instance of the CSR walk that ran);
+   ``block_spmm`` and ``block_spmm_t`` on
    the community hybrid graph with f32 and bf16 stores, and each with
    the f32 store at K=47, phase 15's last width, and with the last row
    block's slots (``block_spmm``) or column block's slots
@@ -327,15 +329,39 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    run's ReLU decisions (as phase 6), and every output must be int64 on
    the card.  Each sampler's host ms a batch, the nodes and edges per
    type and relation, and each step's ms (the ``typed_sampling`` line).
+21. The Reddit pipeline at Reddit's scale (the JAX package's
+   ``benchmarks/reddit_pipeline.py``, BASELINE's Reddit config:
+   "SpSpMM 2-hop adjacency (A.A) + transpose/diag/spadd pipeline"): its
+   synthetic graph (232,965 nodes, 160,462,248 draws, 300 planted
+   communities, 90% of the draws inside one) through the public API:
+   construction from numpy and ``coalesce("add")`` (structure only),
+   ``t()``, ``A + A.t()``, ``remove_diag().set_diag(ones)``,
+   ``spspmm_diag(A, A)``, ``expansion_terms(A, A)``, then ``A.A`` over
+   the pipeline's 64 scattered blocks of ``M // 4096`` rows through the
+   host library's ``spgemm`` with the pipeline's ``RandomState(7)``
+   values (float32 on the card, pulled once), and a ``count_only`` pass
+   over the same blocks; then one ``csr_spmm`` (K1) launch of ``A`` times
+   a seeded ``(M, 128)`` operand.  Checks: A's keys equal ``torch.unique``
+   of the raw keys on the card; ``A.t()``'s keys A's swapped and sorted
+   by ``torch.sort``; ``A + A.t()``'s keys ``torch.unique`` of both;
+   exactly one diagonal entry a row after the diagonal edit;
+   ``diag(A.A)`` summing to the reciprocated edges counted on the card
+   (``torch.searchsorted``) and equal to a host set intersection on head,
+   tail and 512 random rows; each ``A.A`` block equal to scipy's
+   ``A[lo:hi] @ A`` (structure exactly, values 1e-6 of max |ref|); K1
+   against the host oracle (1e-5).  Each step's host seconds, the nnz,
+   terms, terms/s, the extrapolated ``A.A`` time, the host's peak memory
+   and K1's ms beside its bound (the ``reddit_pipeline`` line).
 
-The main path is phases 4 to 20, each driven once with every launch
+The main path is phases 4 to 21, each driven once with every launch
 count set to 0 just before it and read just after it.  Each phase must
 launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
 those and ``block_spmm_t`` and ``edge_dot``; 4c: ``csr_spmm_minmax``,
 ``minmax_edge_dot`` and ``minmax_spmm_t``, and no block kernel; 5 and 6:
 ``csr_spmm``; 7: ``edge_softmax`` twice and ``csr_spmm`` once per head
 plus once; 8: ``plan_numeric`` three times in 8a and in 8c's cross
-terms, ``block_spgemm_window`` in 8c and not in 8a; 9: ``block_spmm``,
+terms, ``block_spgemm_window`` in 8c and not in 8a, ``csr_spmm`` once
+in 8b (``A + A.t()`` sums its float32 duplicates on the card); 9: ``block_spmm``,
 ``block_spmm_t`` and ``csr_spmm``, ``block_spmm_dblocks`` three times,
 all in the second step, and no ``edge_dot``; 10: ``edge_softmax`` and
 ``edge_softmax_bwd`` twice each, ``csr_spmm`` 18 times and ``edge_dot``
@@ -349,7 +375,8 @@ in the same processes from 0 at the phase's start; 17:
 ``smem_gather``, ``edge_scan_loop`` and ``tiled_spmm``; 18:
 ``csr_spmm``, through the row and column sums and the legacy ``spmm``;
 19: ``csr_spmm``, and ``block_spmm`` and ``block_spmm_t`` where a part
-takes the hybrid route; 20: ``csr_spmm``), and the
+takes the hybrid route; 20: ``csr_spmm``; 21: ``csr_spmm`` once and
+nothing else), and the
 ``kernels`` line reports each kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -455,6 +482,13 @@ MAG_YEARS = (2010, 2019)
 MAG_BATCH = (1024, (10, 10), 3)            # seed papers, fanouts, batches
 HGT_SAMPLES = (1024, 4)                    # nodes a type and hop, hops
 SHADOW = (512, 2, 5)                       # roots, depth, neighbours
+# Phase 21: the JAX package's benchmarks/reddit_pipeline.py at scale 1
+# (nodes, Reddit's nnz, oversampling of the draws, communities), its
+# A.A row sample (blocks of M // 4096 rows, 64 of them) and K1's width.
+REDDIT_FULL = (232_965, 114_615_892, 1.4, 300)
+REDDIT_SCALE = 1.0
+REDDIT_AA_BLOCKS = (4096, 64)
+REDDIT_K = 128
 REPS = 20
 PLAIN_REPS = 5                 # the slower plain versions of slice 3
 
@@ -1149,6 +1183,33 @@ def products_graph(scale, seed=0):
     dst = rng.randint(0, M, E).astype(np.int64)
     dst[intra] = dst_intra
     return M, src, dst
+
+
+def reddit_graph(scale=1.0, seed=0):
+    """The Reddit-scale synthetic graph of the JAX package's
+    ``benchmarks/reddit_pipeline.py:37-60`` (a copy, same seed and
+    draws): at scale 1, 232,965 nodes, ``int(114,615,892 * 1.4)`` =
+    160,462,248 draws (oversampled against the duplicates inside the
+    communities), 300 planted communities, 90% of the draws inside the
+    source's.  Returns ``(M, src, dst)``."""
+    nodes, nnz, over, comm_n = REDDIT_FULL
+    rng = np.random.RandomState(seed)
+    M_ = int(nodes * scale)
+    E = int(nnz * scale * over)
+    n_comm = max(int(comm_n * scale), 4)
+    comm = rng.randint(0, n_comm, M_).astype(np.int32)
+    order = np.argsort(comm, kind="stable")
+    comm_ptr = np.searchsorted(comm[order], np.arange(n_comm + 1))
+    src = rng.randint(0, M_, E).astype(np.int64)
+    intra = rng.rand(E) < 0.9
+    c = comm[src[intra]]
+    lo, hi = comm_ptr[c], comm_ptr[c + 1]
+    dst_intra = order[(lo + (rng.rand(int(intra.sum())) * (hi - lo))
+                       .astype(np.int64))]
+    del c, lo, hi
+    dst = rng.randint(0, M_, E).astype(np.int64)
+    dst[intra] = dst_intra
+    return M_, src, dst
 
 
 def mag_graph(torch, scale, seed, device):
@@ -3209,6 +3270,7 @@ def main(argv=None) -> int:
         "18 the structural op set": ("csr_spmm",),
         "19 Cluster-GCN on the products partition": ("csr_spmm",),
         "20 typed and ego sampling": ("csr_spmm",),
+        "21 Reddit pipeline at Reddit's scale": ("csr_spmm",),
     }
     phase_launches = {}
 
@@ -3846,6 +3908,150 @@ def main(argv=None) -> int:
         res["phase_s"] = time.time() - t_phase
         return res
 
+    def reddit_pipeline():
+        """Phase 21: the JAX package's ``benchmarks/reddit_pipeline.py``
+        at Reddit's scale through the public API; each step's host
+        seconds (the card synchronised after it).  What the checks
+        compare is computed here beside the steps, untimed; the scipy
+        comparison of the ``A.A`` blocks and K1's oracle run after the
+        main path (``check_reddit21``)."""
+        from pytorch_sparse_tpu_torch.storage import _to_numpy
+        from pytorch_sparse_tpu_torch.utils import _native
+
+        r = {"host_s": {}, "checks": {}}
+        t_phase = time.time()
+
+        def step(name, t1):
+            sync()
+            r["host_s"][name] = time.time() - t1
+
+        def keys_of(T, swap=False):
+            row, col = T.storage.row().long(), T.storage.col().long()
+            return (col * M + row) if swap else (row * M + col)
+
+        t1 = time.time()
+        M, src, dst = reddit_graph(REDDIT_SCALE)
+        step("build_graph", t1)
+        r["nodes"], r["draws"] = M, int(src.size)
+        uniq = torch.unique(torch.from_numpy(src).to(device) * M
+                            + torch.from_numpy(dst).to(device))
+        t1 = time.time()
+        A = ts.SparseTensor(row=src, col=dst, sparse_sizes=(M, M),
+                            device=device).coalesce("add")
+        A.storage.rowptr()
+        step("construct_coalesce", t1)
+        del src, dst
+        r["nnz"] = A.nnz()
+        kA = keys_of(A)
+        r["checks"]["coalesced"] = (A.storage.value() is None
+                                    and bool(torch.equal(kA, uniq)))
+        del uniq
+
+        t1 = time.time()
+        At = A.t()
+        At.storage.rowptr()
+        step("transpose", t1)
+        kAt = keys_of(At)
+        r["checks"]["transpose"] = bool(torch.equal(
+            kAt, torch.sort(keys_of(A, swap=True))[0]))
+
+        t1 = time.time()
+        S = A + At
+        S.storage.rowptr()
+        step("spadd", t1)
+        r["spadd_nnz"] = S.nnz()
+        r["checks"]["spadd"] = bool(torch.equal(
+            keys_of(S), torch.unique(torch.cat([kA, kAt]))))
+        del S, kAt
+
+        t1 = time.time()
+        Ad = A.remove_diag().set_diag(torch.ones(M, device=device))
+        Ad.storage.col()
+        step("remove_set_diag", t1)
+        rd, cd = Ad.storage.row(), Ad.storage.col()
+        n_diag = int((A.storage.row() == A.storage.col()).sum())
+        r["checks"]["one_diagonal_a_row"] = bool(
+            (torch.bincount(rd[rd == cd].long(), minlength=M) == 1).all()
+        ) and Ad.nnz() == A.nnz() - n_diag + M
+        del Ad, rd, cd
+
+        t1 = time.time()
+        d2 = ts.spspmm_diag(A, A)
+        step("diag_AA", t1)
+        rev = keys_of(A, swap=True)
+        pos = torch.searchsorted(kA, rev).clamp_(max=kA.numel() - 1)
+        r["reciprocated_edges"] = int((kA[pos] == rev).sum())
+        r["diag_AA_sum"] = float(d2.double().sum())
+        del rev, pos, kA
+        rpA, cA = A.storage.numpy_view("rowptr"), A.storage.numpy_view("col")
+        rpT = At.storage.numpy_view("rowptr")
+        cT = At.storage.numpy_view("col")
+        rows, _, _ = walk_rows(A, 512, 121)
+        ref = np.array([np.intersect1d(
+            cA[rpA[i]:rpA[i + 1]], cT[rpT[i]:rpT[i + 1]],
+            assume_unique=True).size for i in rows])
+        r["checks"]["diag_AA_total"] = (r["diag_AA_sum"]
+                                        == r["reciprocated_edges"])
+        r["checks"]["diag_AA_rows"] = bool(np.array_equal(
+            d2.cpu().numpy()[rows], ref))
+        del At, d2, rpT, cT
+
+        t1 = time.time()
+        r["AA_terms_total"] = ts.expansion_terms(A, A)
+        step("expansion_terms", t1)
+        # A.A over the pipeline's scattered row blocks, on its values
+        # (float32 on the card, pulled once as float64).
+        v = torch.from_numpy(np.random.RandomState(7).rand(
+            A.nnz()).astype(np.float32)).to(device)
+        t1 = time.time()
+        val = _to_numpy(v).astype(np.float64)
+        step("AA_values_pull", t1)
+        n_rows, n_blocks = REDDIT_AA_BLOCKS
+        stride = max(M // min(n_rows, M), 1)
+        starts = np.arange(0, M - stride, stride)[:n_rows]
+        starts = starts[::max(len(starts) // n_blocks, 1)]
+        blocks = []
+        t1 = time.time()
+        for lo in starts.tolist():
+            hi = min(lo + stride, M)
+            blocks.append((lo, hi, *_native.spgemm(
+                rpA, cA, val, rpA, cA, val, M, row_lo=lo, row_hi=hi)))
+        r["AA_s"] = time.time() - t1
+        t1 = time.time()
+        counts = [_native.spgemm(rpA, cA, None, rpA, cA, None, M,
+                                 row_lo=lo, row_hi=hi, count_only=True)[0]
+                  for lo, hi, *_ in blocks]
+        r["AA_count_only_s"] = time.time() - t1
+        r["checks"]["count_only"] = all(
+            np.array_equal(c_, b_[2]) for c_, b_ in zip(counts, blocks))
+        deg = np.diff(rpA)
+        r["AA_blocks"] = len(blocks)
+        r["AA_rows_a_block"] = stride
+        r["AA_sampled_terms"] = int(sum(
+            deg[cA[rpA[lo]:rpA[hi]]].sum() for lo, hi, *_ in blocks))
+        r["AA_sampled_nnz"] = int(sum(b_[2][-1] for b_ in blocks))
+        r["AA_terms_per_s"] = r["AA_sampled_terms"] / r["AA_s"]
+        r["AA_extrapolated_full_s"] = (r["AA_terms_total"]
+                                       / r["AA_terms_per_s"])
+        r["AA_extrapolated_nnz"] = int(r["AA_sampled_nnz"] * (
+            r["AA_terms_total"] / max(r["AA_sampled_terms"], 1)))
+        r["AA_count_only_terms_per_s"] = (r["AA_sampled_terms"]
+                                          / r["AA_count_only_s"])
+        del deg, counts
+
+        # One K1 launch over the whole matrix, the first at Reddit's size.
+        x = operand(torch, M, REDDIT_K, 122, device)
+        Av = A.set_value(v, layout="coo")
+        csr = Av.csr()
+        t1 = time.time()
+        out = csr_spmm(*csr, x)
+        step("k1_spmm", t1)
+        r["host_peak_bytes"] = host_peak_bytes()
+        r["phase_s"] = time.time() - t_phase
+        r.update(Av=Av, csr=csr, x=x, out=out, blocks=blocks, val=val,
+                 rpA=rpA, cA=cA)
+        return r
+
     outs = drive("4 forward legs", forward_legs) or []
     bwd_grads = drive("4b backward legs", backward_legs) or []
     mm_res = drive("4c min/max legs", minmax_legs) or []
@@ -4099,6 +4305,7 @@ def main(argv=None) -> int:
     cluster19 = drive("19 Cluster-GCN on the products partition",
                       cluster_gcn)
     typed20 = drive("20 typed and ego sampling", typed_sampling)
+    reddit21 = drive("21 Reddit pipeline at Reddit's scale", reddit_pipeline)
     launches = {n: sum(c[n] for c in phase_launches.values())
                 for n in counted}
     record("main_path", seconds=round(time.time() - t0, 2),
@@ -5430,6 +5637,62 @@ def main(argv=None) -> int:
         if bad:
             failures.append(f"phase 20 (typed and ego sampling): {bad}")
 
+    def check_reddit21(r):
+        import scipy.sparse as sp
+
+        t1 = time.time()
+        checks = dict(r["checks"])
+        # Each sampled A.A block against scipy's product of the same
+        # float64 values (structure exactly, values 1e-6 of max |ref|).
+        S = sp.csr_matrix((r["val"], r["cA"], r["rpA"]),
+                          shape=(r["nodes"], r["nodes"]))
+        same, err = True, 0.0
+        for lo, hi, rp, cc, vv in r["blocks"]:
+            ref = S[lo:hi] @ S
+            ref.sort_indices()
+            same = same and bool(np.array_equal(ref.indptr, rp)
+                                 and np.array_equal(ref.indices, cc))
+            if same and ref.nnz:
+                err = max(err, float(np.abs(vv - ref.data).max()
+                                     / np.abs(ref.data).max()))
+        checks["AA_blocks_structure"] = same
+        checks["AA_blocks_values"] = same and err <= 1e-6
+        del S
+        ok_k1, err_k1 = oracle_check(r["Av"], r["x"], r["out"], KERNEL_GATE)
+        checks["k1_oracle"] = ok_k1 and bool(torch.isfinite(r["out"]).all())
+        k1_ms = uncounted(lambda: timer(lambda: csr_spmm(*r["csr"], r["x"])))
+        k1_bound, k1_by = csr_bounds(r["nodes"], r["nnz"], REDDIT_K,
+                                     r["nodes"], True)
+        launches21 = phase_launches["21 Reddit pipeline at Reddit's scale"]
+        checks["launches"] = {n: c_ for n, c_ in launches21.items()
+                              if c_} == {"csr_spmm": 1}
+        record("reddit_pipeline", config="BASELINE.json configs[2] (the "
+               "JAX package's benchmarks/reddit_pipeline.py, scale 1)",
+               nodes=r["nodes"], draws=r["draws"], nnz=r["nnz"],
+               spadd_nnz=r["spadd_nnz"], host_s=r["host_s"],
+               phase_s=r["phase_s"], diag_AA_sum=r["diag_AA_sum"],
+               reciprocated_edges=r["reciprocated_edges"],
+               AA_terms_total=r["AA_terms_total"],
+               AA_blocks=r["AA_blocks"], AA_rows_a_block=r["AA_rows_a_block"],
+               AA_sampled_terms=r["AA_sampled_terms"],
+               AA_sampled_nnz=r["AA_sampled_nnz"], AA_s=r["AA_s"],
+               AA_terms_per_s=r["AA_terms_per_s"],
+               AA_extrapolated_full_s=r["AA_extrapolated_full_s"],
+               AA_extrapolated_nnz=r["AA_extrapolated_nnz"],
+               AA_count_only_s=r["AA_count_only_s"],
+               AA_count_only_terms_per_s=r["AA_count_only_terms_per_s"],
+               AA_value_rel_err=err, AA_gate=1e-6,
+               host_threads="one (the host library is built without "
+               "OpenMP where the compiler cannot link it)"
+               if "-fopenmp" not in _build.host_flags() else "OpenMP",
+               host_peak_bytes=r["host_peak_bytes"], k1_ms=k1_ms,
+               k1_bound_ms=k1_bound, k1_bound_by=k1_by, k1_oracle_rel_err=err_k1,
+               k1_gate=KERNEL_GATE, launches=launches21, checks=checks,
+               check_s=time.time() - t1, card=card)
+        bad = [k_ for k_, v_ in checks.items() if not v_]
+        if bad:
+            failures.append(f"phase 21 (Reddit pipeline): failed {bad}")
+
     for label, res, check in (("9", gcn9, check_gcn9),
                               ("10", gat10, check_gat10),
                               ("11", models11, check_models11),
@@ -5441,7 +5704,8 @@ def main(argv=None) -> int:
                               ("18", struct18, check_struct18),
                               ("19 (partition)", part19, check_partition19),
                               ("19", cluster19, check_cluster19),
-                              ("20", typed20, check_typed20)):
+                              ("20", typed20, check_typed20),
+                              ("21", reddit21, check_reddit21)):
         if res is not None:
             try:
                 check(res)

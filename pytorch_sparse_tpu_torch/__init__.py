@@ -9,7 +9,8 @@ format, differentiable in the operand and in its block store (a
 hand-written block-gradient kernel); GCN, GAT (hand-written edge-softmax
 kernels, forward and backward), GraphSAGE and GIN inference and
 training; SpSpMM (a hand-written plan-numeric kernel and block-pair
-kernel) with its chunked, streaming and block-split paths; the
+kernel) with its chunked, streaming and block-split paths and the host
+library's Gustavson SpGEMM past the plan's limit; the
 structural op set (transpose, add, mul, diagonal edits, select, narrow,
 index and mask selection, cat, permute, reductions whose sums run the
 CSR kernel on the card, reverse Cuthill-McKee, scipy and ``torch.sparse``
@@ -38,8 +39,9 @@ from .storage import SparseStorage  # noqa
 from .tensor import SparseTensor  # noqa
 from .ops import (  # noqa
     spmm_sum, spmm_add, spmm_mean, spmm_min, spmm_max, spspmm_sum, matmul,
-    expansion_terms, spspmm_chunked, spspmm_stream, spspmm_diag,
-    spspmm_stream_device, HybridFormat, DenseFormat, build_hybrid,
+    expansion_terms, spspmm_chunked, spspmm_native, spspmm_stream,
+    spspmm_diag, spspmm_stream_device, HybridFormat, DenseFormat,
+    build_hybrid,
     build_hybrid_from_tensor, build_dense, hybrid_spmm, dense_spmm, t,
     transpose, coalesce, eye, spmm, spspmm, spadd, to_torch_sparse,
     from_torch_sparse, to_scipy, from_scipy, add, add_, add_nnz, add_nnz_,
@@ -69,6 +71,7 @@ __all__ = [
     "spspmm_sum",
     "expansion_terms",
     "spspmm_chunked",
+    "spspmm_native",
     "spspmm_stream",
     "spspmm_diag",
     "spspmm_stream_device",

@@ -10,12 +10,13 @@ source, all at once, and waits for them; :func:`load` returns the
 ``ctypes`` handle.  A missing ``nvcc`` or a failed build raises.
 
 The host libraries (``HOST_SOURCES``: ``csrc/host_partition.cpp``, the
-partitioner, and ``csrc/host_sample.cpp``, the typed, temporal, HGT and
-ego samplers) are plain C++ for the CPU, compiled by ``$CXX`` (else
-``c++`` from ``PATH``) with :func:`host_flags` into ``build/`` under the
-same hash naming, at first use, beside the kernels.  They need no GPU:
-the CPU tests build them too.  A missing compiler or a failed build
-raises.
+partitioner; ``csrc/host_sample.cpp``, the typed, temporal, HGT and ego
+samplers; and ``csrc/host_spgemm.cpp``, the Gustavson SpGEMM) are plain
+C++ for the CPU, copies of parts of the JAX package's
+``csrc/native.cpp``, compiled by ``$CXX`` (else ``c++`` from ``PATH``)
+with :func:`host_flags` into ``build/`` under the same hash naming, at
+first use, beside the kernels.  They need no GPU: the CPU tests build
+them too.  A missing compiler or a failed build raises.
 """
 
 from __future__ import annotations
@@ -36,9 +37,9 @@ SOURCES = ("csr_spmm", "block_spmm", "edge_dot", "spmm_minmax",
            "shard_spmm", "smem_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_SOURCES = ("host_partition", "host_sample")
+HOST_SOURCES = ("host_partition", "host_sample", "host_spgemm")
 # The JAX package's native build flags (its ``csrc/build.sh``), so that
-# the partitioner and the samplers do the same arithmetic; ISO C++
+# the host libraries do the same arithmetic as its native library; ISO C++
 # already keeps FMA contraction off in GCC, and ``-ffp-contract=off``
 # says so to any other compiler.
 HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-fPIC", "-shared",

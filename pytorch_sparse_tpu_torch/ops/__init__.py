@@ -14,7 +14,7 @@ from .matmul import (  # noqa
 from .matmul import spspmm as spspmm_tensor  # noqa
 from .spgemm import (  # noqa
     expansion_terms, spspmm_chunked, spspmm_diag, spspmm_large,
-    spspmm_stream, spspmm_stream_device,
+    spspmm_native, spspmm_stream, spspmm_stream_device,
 )
 from .kernels.hybrid import (  # noqa
     DenseFormat, HybridFormat, build_dense, build_hybrid,

@@ -36,7 +36,9 @@ no backward of their own).
 SpSpMM (``A @ B`` with a sparse ``B``) runs an eager host structure pass
 and a numeric pass on the ``plan_numeric`` kernel, whose backward gives
 both values their gradients with the same kernel; products past
-``ops.spgemm.PLAN_MAX_TERMS`` terms take the chunked plan.
+``ops.spgemm.PLAN_MAX_TERMS`` terms take the host library's Gustavson
+SpGEMM on the CPU, and the chunked plan on the card or where a value
+requires grad.
 """
 
 from __future__ import annotations
@@ -445,8 +447,8 @@ def check_pair(A: SparseTensor, B: SparseTensor) -> None:
 
 def spspmm_sum(A: SparseTensor, B: SparseTensor) -> SparseTensor:
     """``A @ B`` as a SparseTensor on the operands' device.  Products of
-    more than ``ops.spgemm.PLAN_MAX_TERMS`` terms take the chunked plan
-    (:func:`~pytorch_sparse_tpu_torch.ops.spgemm.spspmm_large`)."""
+    more than ``ops.spgemm.PLAN_MAX_TERMS`` terms take
+    :func:`~pytorch_sparse_tpu_torch.ops.spgemm.spspmm_large`."""
     check_pair(A, B)
     from . import spgemm
 

@@ -9,18 +9,24 @@ sort.  Past ``PLAN_MAX_TERMS`` terms:
 * :func:`spspmm_chunked` splits A's rows into chunks of bounded
   expansion, runs the plan per chunk and concatenates; the values stay
   on the device and the product stays differentiable.
-* :func:`spspmm_large` is what ``spspmm_sum`` calls past the limit.
-  The JAX package takes host C++ Gustavson (``spspmm_native``) there
-  when its native library is built; the port has no such library and
-  always takes the chunked plan, which is what the JAX package runs
-  without it.
+* :func:`spspmm_native` runs the Gustavson row merge of the port's host
+  library (``csrc/host_spgemm.cpp``, a copy of the JAX package's
+  ``native.cpp`` SpGEMM): O(terms) time, O(P) scratch a thread, no sort
+  of the term list, each entry summed in float64.  Its values are
+  computed off the autograd graph.
+* :func:`spspmm_large` is what ``spspmm_sum`` calls past the limit:
+  for operands on the CPU :func:`spspmm_native`, unless a value
+  requires grad while grad is enabled (the JAX package takes its native
+  library for concrete values and the chunked plan under ``jax.grad``);
+  otherwise, and for operands on the card, the chunked plan, whose
+  numeric pass is the ``plan_numeric`` kernel there.
 * :func:`spspmm_stream` yields C in row blocks for products whose
-  output need not be held at once.
+  output need not be held at once, by the same rule.
 * :func:`spspmm_diag` computes ``diag(A @ B)`` without forming C.
 * :func:`spspmm_stream_device` splits both operands into dense (Bb, Bb)
   blocks and a remainder, computes the block x block share with the
-  ``block_spgemm_window`` kernel and the cross terms through the plan
-  stream.
+  ``block_spgemm_window`` kernel and the cross terms through
+  :func:`spspmm_stream`.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import torch
 
 from ..storage import _to_numpy
 from ..tensor import SparseTensor
+from ..utils import _native
+from ..utils.host_sort import stable_argsort
 from .kernels.block_spgemm import block_spgemm_stream
 from .kernels.block_spmm import padded_store, store_pitch
 from .kernels.hybrid import StoreIndex, _block_store
@@ -112,9 +120,57 @@ def spspmm_chunked(A: SparseTensor, B: SparseTensor,
         device=A.device())
 
 
+def _host_f64(value: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    """One host float64 copy of a value array (one pull from the card)."""
+    return None if value is None else _to_numpy(value).astype(np.float64)
+
+
+def _takes_native(A: SparseTensor, B: SparseTensor) -> bool:
+    """The host Gustavson serves a product of operands on the CPU unless
+    a value requires grad while grad is enabled (its values are computed
+    off the graph).  Operands on the card take the plan, whose numeric
+    pass is the ``plan_numeric`` kernel."""
+    grad = torch.is_grad_enabled() and any(
+        v is not None and v.requires_grad
+        for v in (A.storage.value(), B.storage.value()))
+    return A.device().type == "cpu" and not grad
+
+
+def _native_value(valC: Optional[np.ndarray], dtype: Optional[torch.dtype],
+                  device) -> Optional[torch.Tensor]:
+    """The float64 sums cast to the product's dtype, on ``device``
+    (torch rounds float64 to bfloat16 and float16 through float32, as
+    numpy's ``astype`` does in the JAX package)."""
+    if valC is None:
+        return None
+    return torch.from_numpy(valC).to(dtype).to(device)
+
+
+def spspmm_native(A: SparseTensor, B: SparseTensor) -> SparseTensor:
+    """``A @ B`` by the host library's Gustavson SpGEMM: values are
+    pulled once as float64 host copies and each output entry is summed
+    in float64 in A's row order, then cast to the product's dtype.  The
+    result lies on ``A``'s device; its values carry no gradient.
+    :func:`spspmm_large` calls it for operands on the CPU only."""
+    check_pair(A, B)
+    M, P = A.sparse_size(0), B.sparse_size(1)
+    rowptrC, colC, valC = _native.spgemm(
+        A.storage.numpy_view("rowptr"), A.storage.numpy_view("col"),
+        _host_f64(A.storage.value()),
+        B.storage.numpy_view("rowptr"), B.storage.numpy_view("col"),
+        _host_f64(B.storage.value()), P)
+    return SparseTensor(
+        rowptr=rowptrC, col=colC,
+        value=_native_value(valC, _value_dtype(A, B), A.device()),
+        sparse_sizes=(M, P), is_sorted=True, trust_data=True,
+        device=A.device())
+
+
 def spspmm_large(A: SparseTensor, B: SparseTensor) -> SparseTensor:
-    """Products above ``PLAN_MAX_TERMS``: always the chunked plan (the
-    port has no native Gustavson library; see the module docstring)."""
+    """Products above ``PLAN_MAX_TERMS``: :func:`spspmm_native` or the
+    chunked plan, as :func:`_takes_native` chooses."""
+    if _takes_native(A, B):
+        return spspmm_native(A, B)
     return spspmm_chunked(A, B)
 
 
@@ -127,39 +183,52 @@ def spspmm_stream(
     local row ids on the operands' device, holding at most ``max_terms``
     expansion terms.
 
+    The blocks come from the host Gustavson or from the plan (the
+    ``plan_numeric`` kernel on CUDA), as :func:`spspmm_large` chooses.
     ``raw=True`` yields ``(lo, hi, (rowptr, col, value))`` host numpy
-    arrays instead: the values are computed on the operands' device (the
-    ``plan_numeric`` kernel on CUDA, detached from autograd) and then
-    pulled to the host.  int64 indices, and values in the product's
-    promoted dtype (numpy has no bfloat16: a bfloat16 product comes as
-    float32 holding the bfloat16 values), or None for implicit ones."""
+    arrays instead, detached from autograd: int64 indices, and values in
+    the product's promoted dtype (numpy has no bfloat16: a bfloat16
+    product comes as float32 holding the bfloat16 values), or None for
+    implicit ones."""
     check_pair(A, B)
     P = B.sparse_size(1)
     valueA, valueB = A.storage.value(), B.storage.value()
+    native = _takes_native(A, B)
     if raw:
         valueA = None if valueA is None else valueA.detach()
         valueB = None if valueB is None else valueB.detach()
     rowptrA, chunks = _row_chunks(A, B, max_terms)
+    if native:
+        dtype = _value_dtype(A, B)
+        colA, va = A.storage.numpy_view("col"), _host_f64(valueA)
+        rowptrB, colB = (B.storage.numpy_view("rowptr"),
+                         B.storage.numpy_view("col"))
+        vb = _host_f64(valueB)
     for lo, hi in chunks:
-        plan = _Plan(A, B, int(rowptrA[lo]), int(rowptrA[hi]))
-        value = plan.numeric(valueA, valueB)
-        if raw:
+        if native:
+            rp, col, valC = _native.spgemm(rowptrA, colA, va, rowptrB, colB,
+                                           vb, P, row_lo=lo, row_hi=hi)
+            value = _native_value(valC, dtype, A.device())
+        else:
+            plan = _Plan(A, B, int(rowptrA[lo]), int(rowptrA[hi]))
+            value = plan.numeric(valueA, valueB)
+            col = plan.colC
             rp = np.searchsorted(plan.rowC - lo, np.arange(hi - lo + 1))
-            yield lo, hi, (rp, plan.colC,
+        if raw:
+            yield lo, hi, (rp, col,
                            None if value is None else _to_numpy(value))
             continue
         yield lo, hi, SparseTensor(
-            row=plan.rowC - lo, col=plan.colC, value=value,
-            sparse_sizes=(hi - lo, P), is_sorted=True, trust_data=True,
-            device=A.device())
+            rowptr=rp, col=col, value=value, sparse_sizes=(hi - lo, P),
+            is_sorted=True, trust_data=True, device=A.device())
 
 
 def spspmm_diag(A: SparseTensor, B: SparseTensor) -> torch.Tensor:
     """``diag(A @ B)`` without forming the product: for each A entry
     (i, k), find B[k, i] by binary search in B's sorted (row, col) keys
-    and add valA * valB (in float64) into ``diag[i]``.  Host work,
-    O(nnz(A) log nnz(B)); the result lies on the operands' device in
-    the product's dtype (float32 for implicit ones)."""
+    and add valA * valB (in float64) into ``diag[i]``, in A's order.
+    Host work, O(nnz(A) log nnz(B)); the result lies on the operands'
+    device in the product's dtype (float32 for implicit ones)."""
     check_pair(A, B)
     M, P = A.sparse_size(0), B.sparse_size(1)
     D = min(M, P)
@@ -175,7 +244,14 @@ def spspmm_diag(A: SparseTensor, B: SparseTensor) -> torch.Tensor:
     keyB = rowB * P + colB  # sorted ascending (COO invariant)
     sel = rowA < P  # only (i, k) with i a valid B column reach the diagonal
     q = colA[sel] * P + rowA[sel]
-    pos = np.searchsorted(keyB, q)
+    # The searches run in ascending order of the queries (one stable
+    # sort): the positions a search in A's order finds, without the cache
+    # misses of random probes (on phase 21's 115M-edge graph 24-26 s
+    # against 221-222 s on an H100 machine's host, including the sort;
+    # ``tools/time_spspmm_diag.py``).
+    order = stable_argsort(q)
+    pos = np.empty_like(q)
+    pos[order] = np.searchsorted(keyB, q[order])
     pos_c = np.minimum(pos, keyB.shape[0] - 1)
     hit = (pos < keyB.shape[0]) & (keyB[pos_c] == q)
     va, vb = A.storage.value(), B.storage.value()
@@ -275,7 +351,7 @@ def spspmm_stream_device(
     built with other parameters keeps the partition exact (the JAX
     package rebuilds it from this call's ``Bb``/``min_density``, which
     then disagrees).  Both splits must use one ``Bb``.  Operands with no
-    dense block stream through the plan path alone."""
+    dense block stream through :func:`spspmm_stream` alone."""
     check_pair(A, B)
     if split_A is None:
         split_A = _block_split(A, Bb, min_density, block_dtype)

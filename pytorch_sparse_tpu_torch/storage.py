@@ -26,6 +26,9 @@ from .utils.convert import INDEX_DTYPE
 from .utils.host_sort import lexsort2, lexsort2_decode
 
 layouts = ["coo", "csr", "csc"]
+# The JAX package's ``_NATIVE_MIN``: from this many edges up its native
+# library sums the duplicates of a float32/float64 coalesce left to right.
+_ORDERED_SUM_MIN = 32768
 
 _CACHE_KEYS = ("rowcount", "colptr", "colcount", "csr2csc", "csc2csr")
 
@@ -571,8 +574,10 @@ class SparseStorage:
         return h
 
     # ------------------------------------------------------------------
-    # Coalescing: dedupe sorted (row, col) pairs on the host; values that
-    # require grad are reduced on the device, the rest on the host.
+    # Coalescing: dedupe sorted (row, col) pairs on the host.  Values that
+    # require grad are reduced on the device; float32/float64 sums from
+    # ``_ORDERED_SUM_MIN`` edges up too, in the JAX package's order; the
+    # rest on the host.
     # ------------------------------------------------------------------
     def is_coalesced(self) -> bool:
         hrow = self.numpy_view("row")
@@ -597,19 +602,29 @@ class SparseStorage:
         new_row, new_col = hrow[keep], hcol[keep]
         new_value = None
         value = self._value
-        if value is not None and value.requires_grad:
-            # Reduce on the device so that the gradient reaches ``value``;
-            # sums add each run of duplicates in edge order (Runs), so
-            # the card gives the same bits on every run.
+        grad = value is not None and value.requires_grad
+        # The JAX package's library sums float32/float64 runs left to
+        # right from ``_ORDERED_SUM_MIN`` edges up (its mean in float64).
+        ordered = (value is not None and not grad
+                   and reduce in ("add", "sum", "mean")
+                   and value.dtype in (torch.float32, torch.float64)
+                   and _ORDERED_SUM_MIN <= E < 2**31)
+        if grad or ordered:
+            # Sums add each run of duplicates in edge order (Runs) on the
+            # value's device, so the card gives the same bits on every run
+            # and a gradient reaches ``value``.
             starts = np.flatnonzero(keep)
             if reduce in ("add", "sum", "mean"):
                 ptr = np.concatenate([starts, [E]])
-                new_value = Runs(ptr, value.device).sum(value)
+                data = value.double() if ordered and reduce == "mean" \
+                    else value
+                new_value = Runs(ptr, value.device).sum(data)
                 if reduce == "mean":
                     cnt = torch.from_numpy(np.diff(ptr)).to(
                         device=value.device, dtype=new_value.dtype)
-                    new_value = new_value / cnt.reshape(
-                        (-1,) + (1,) * (new_value.dim() - 1))
+                    new_value = (new_value / cnt.reshape(
+                        (-1,) + (1,) * (new_value.dim() - 1))).to(
+                            value.dtype)
             else:
                 seg = torch.from_numpy(np.cumsum(keep) - 1).to(value.device)
                 reducer = segment_min if reduce == "min" else segment_max

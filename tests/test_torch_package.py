@@ -54,10 +54,10 @@ def test_port_exports_the_jax_names():
 
 
 def test_the_jax_names_the_port_lacks():
-    """Only the native Gustavson SpGEMM (still to port) and the JAX
-    sparse conversions (not ported by design) are missing."""
+    """Only the JAX sparse conversions (not ported by design) are
+    missing."""
     missing = {n for n in jts.__all__ if not hasattr(pts, n)}
-    assert missing == {"spspmm_native", "to_jax_sparse", "from_jax_sparse"}
+    assert missing == {"to_jax_sparse", "from_jax_sparse"}
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -339,26 +339,34 @@ def test_chunked_matches_single_shot_and_jax(weighted):
 
 
 def test_expansion_terms_and_large_dispatch(monkeypatch):
-    """Past ``PLAN_MAX_TERMS`` the port always takes the chunked plan,
-    where the JAX package takes its native library when built; both give
-    the same product."""
+    """Past ``PLAN_MAX_TERMS`` the port takes the host Gustavson, as the
+    JAX package takes its native library, and gives JAX's bits; values
+    that require grad while grad is enabled take the chunked plan."""
     Sa, Sb, Ja, Jb, Pa, Pb = _pair("f32", seed=12)
     assert pts.expansion_terms(Pa, Pb) == jts.expansion_terms(Ja, Jb) == \
         int(np.diff(Sb.indptr)[Sa.tocoo().col].sum())
     full = Pa @ Pb
     calls = []
-    real = pspgemm.spspmm_chunked
-    monkeypatch.setattr(pspgemm, "spspmm_chunked",
-                        lambda a, b, max_terms=pspgemm.PLAN_MAX_TERMS:
-                        calls.append(max_terms) or real(a, b, max_terms))
+    for name in ("spspmm_chunked", "spspmm_native"):
+        real = getattr(pspgemm, name)
+        monkeypatch.setattr(pspgemm, name,
+                            lambda a, b, *rest, _n=name, _f=real:
+                            calls.append(_n) or _f(a, b, *rest))
     monkeypatch.setattr(pspgemm, "PLAN_MAX_TERMS", 100)
     monkeypatch.setattr(jspgemm, "PLAN_MAX_TERMS", 100)
     C = Pa @ Pb
-    assert len(calls) == 1
+    assert calls == ["spspmm_native"]
     Jc = Ja @ Jb
     _assert_structure_equal(Jc, C)
     _assert_structure_equal(full, C)
-    assert rel_err(_np(C.storage.value()), _np(Jc.storage.value())) <= 1e-6
+    np.testing.assert_array_equal(_np(C.storage.value()),
+                                  _np(Jc.storage.value()))
+    va = Pa.storage.value().clone().requires_grad_(True)
+    Cg = Pa.set_value(va, layout="coo") @ Pb
+    assert calls == ["spspmm_native", "spspmm_chunked"]
+    assert Cg.storage.value().requires_grad
+    _assert_structure_equal(Cg, C)
+    assert rel_err(_np(Cg.storage.value()), _np(C.storage.value())) <= 1e-6
 
 
 def test_stream_blocks_concatenate():
