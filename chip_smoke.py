@@ -11,9 +11,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 2. Build: ``nvcc`` compiles every kernel of ``pytorch_sparse_tpu_torch/
    csrc`` for ``sm_90a``, and the host C++ compiler the host libraries
    (``csrc/host_partition.cpp``, the partitioner;
-   ``csrc/host_sample.cpp``, the typed, temporal, HGT and ego samplers;
-   ``csrc/host_spgemm.cpp``, the Gustavson SpGEMM), one process per
-   source, all in parallel.
+   ``csrc/host_sample.cpp``, every host sampler: ``sample_adj``,
+   ``neighbor_sample``, ``saint_subgraph``, ``relabel_one_hop`` and the
+   typed, temporal, HGT and ego samplers; ``csrc/host_spgemm.cpp``, the
+   Gustavson SpGEMM), one process per source, all in parallel.
 3. Kernels against their plain PyTorch versions on the card:
    ``csr_spmm`` on the ogbn-arxiv-scale uniform graph (M=169,343,
    E=1,166,243) at K=128, 256, 40, 8 and 1, with values and implicit
@@ -352,8 +353,29 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    against the host oracle (1e-5).  Each step's host seconds, the nnz,
    terms, terms/s, the extrapolated ``A.A`` time, the host's peak memory
    and K1's ms beside its bound (the ``reddit_pipeline`` line).
+22. The training recipes (``pytorch_sparse_tpu_torch.examples``, the
+   JAX package's ``examples/train_*.py``) through their ``main`` on the
+   card at the JAX recipes' defaults: ``train_gcn`` (Cora's widths, 50
+   epochs), ``train_gat`` (4 heads, 30 epochs), ``train_cluster_gcn`` (8
+   parts, 5 epochs) and ``train_sage_minibatch`` (20 steps)
+   synchronously and with ``--workers 4``; and, in phase 14's four gloo
+   processes after phase 16, ``train_gcn --distributed`` flat (ring) and
+   with ``--slices 2`` at ``RECIPE_DIST_EPOCHS`` epochs.  Checks (after
+   the main path): each recipe's first steps against the same recipe at
+   ``--device cpu`` (the plain versions, the same seeds; every step's
+   loss within 1e-4 of |loss|), the distributed losses against the
+   single-card recipe's at the same steps (1e-4), the SAGE batches
+   (``n_id``, ``e_id``, ``rowptr`` of every hop) and losses equal
+   without and with the prefetcher; and, on phases 12-13's products
+   graph and batches, the host library's ``sample_adj`` (every hop of
+   phase 13's batches) and ``saint_subgraph`` (phase 12's node sets)
+   equal to their numpy plain versions, each timed beside them in
+   alternating pairs.  Each recipe's losses, accuracy, ms a step and
+   route (the ``entry_point`` lines), the samplers' host ms (the
+   ``host_samplers`` line) and the script's total seconds (the
+   ``script`` line).
 
-The main path is phases 4 to 21, each driven once with every launch
+The main path is phases 4 to 22, each driven once with every launch
 count set to 0 just before it and read just after it.  Each phase must
 launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
 those and ``block_spmm_t`` and ``edge_dot``; 4c: ``csr_spmm_minmax``,
@@ -376,7 +398,9 @@ in the same processes from 0 at the phase's start; 17:
 ``csr_spmm``, through the row and column sums and the legacy ``spmm``;
 19: ``csr_spmm``, and ``block_spmm`` and ``block_spmm_t`` where a part
 takes the hybrid route; 20: ``csr_spmm``; 21: ``csr_spmm`` once and
-nothing else), and the
+nothing else; 22: ``csr_spmm``, ``edge_softmax``, ``edge_softmax_bwd``
+and ``edge_dot`` in this process, ``shard_spmm`` in the four ranks),
+and the
 ``kernels`` line reports each kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -444,6 +468,12 @@ HIER_GRID = (2, 2)
 K2D, K2D_SLICE = 256, 20
 PRODUCTS_GCN = (100, 256, 47, 3)           # in, hidden, out, layers
 DIST_STEPS = 3
+# Phase 22: the training recipes.  Their first steps are held against
+# the same recipe at --device cpu; the distributed one runs in phase 14's
+# processes at fewer epochs, flat and on (2, 2).
+RECIPE_CPU_STEPS = 3
+RECIPE_DIST_EPOCHS = 5
+RECIPE_DIST_SLICES = 2
 # Phase 18: the structural op set.  OGB's ogbn-products train split has
 # 196,615 nodes; the products matrix is cut into 8 row blocks and the
 # uniform graph into 128 diagonal blocks; the (E, 8) values of the
@@ -1527,24 +1557,6 @@ def sampled_hop_faults(rowptr, col, frontier, adj, e_id, n_id, k):
                     n_id[:frontier.shape[0]], frontier)))
 
 
-def sage_bipartite_forward(model, adjs, x, agg, relu):
-    """GraphSAGE over sampled bipartite hops, innermost hop first in
-    ``adjs`` (the form of the JAX package's
-    ``examples/train_sage_minibatch.py:69-80``, without its padding):
-    layer ``i`` aggregates over ``adjs[n-1-i]`` with ``agg(adj, x)`` and
-    keeps the hop's target rows of ``x``.  Uses the ``GraphSAGE``
-    module's parameters."""
-    n = len(model.b)
-    for i in range(n):
-        adj = adjs[n - 1 - i]
-        n_tgt = adj.sparse_size(0)
-        x = x[:n_tgt] @ model.w_self[i] + agg(adj, x) @ model.w_neigh[i] \
-            + model.b[i]
-        if i < n - 1:
-            x = relu(x)
-    return x
-
-
 def shard_bounds(R, E, K_, n_rows_read, out_rows, has_value, accumulate,
                  has_map, minmax=False, has_pos=False):
     """K11a's (and, with ``minmax``, K11b's) bound: each input read once
@@ -1680,15 +1692,6 @@ def host_peak_bytes():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
-def route_name(h):
-    """The route a view takes: ``csr`` (no view), ``hybrid[dtype]`` or
-    ``dense[dtype]`` of its store."""
-    if h is None:
-        return "csr"
-    store = getattr(h, "blocks", getattr(h, "dense", None))
-    return f"{type(h).__name__.replace('Format', '').lower()}[{store.dtype}]"
-
-
 def dist_gcn_forward(model, x, agg, relu):
     """``DistGCN``'s forward written out, with the aggregation
     ``agg(h)`` and the ReLU given."""
@@ -1715,9 +1718,12 @@ def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
     gradient).  The results are gathered to rank 0, which holds them
     against the single-card CSR kernel (K1) and K6 on the whole matrix
     and float64 host oracles, and each DistGCN step against the
-    single-card GCN step on the CSR route.  Every rank returns each
-    phase's kernel launches (counts set to 0 at the phase's start, rank
-    0's reference launches excluded) and its staged bytes."""
+    single-card GCN step on the CSR route.  Phase 22, after them: the
+    distributed GCN recipe (``train_gcn --distributed`` on the default
+    group) flat and with ``--slices RECIPE_DIST_SLICES``, its losses a
+    step returned by every rank.  Every rank returns each phase's kernel
+    launches (counts set to 0 at the phase's start, rank 0's reference
+    launches excluded) and its staged bytes."""
     import torch
 
     import pytorch_sparse_tpu_torch as ts
@@ -2019,6 +2025,23 @@ def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
                            "2d": mesh2d.staged_bytes}
     res["phase16"] = r16
     res["backend"] = mesh.backend
+
+    # ---- phase 22: the distributed GCN recipe, flat and hierarchical ----
+    from pytorch_sparse_tpu_torch.examples import train_gcn
+
+    reset_counts()
+    t0 = time.time()
+    r22 = {}
+    for slices in (1, RECIPE_DIST_SLICES):
+        out = train_gcn.main(["--distributed", "--epochs",
+                              str(RECIPE_DIST_EPOCHS), "--slices",
+                              str(slices)])
+        r22[out["schedule"]] = {k_: out[k_] for k_ in (
+            "losses", "accuracy", "ms_per_step", "step_ms", "world",
+            "slices", "backend", "device")}
+    r22["seconds"] = time.time() - t0
+    r22["launches"] = read_counts()
+    res["phase22"] = r22
     if rank == 0:
         return res
     return {"rank": rank, "launches": res["launches"],
@@ -2026,7 +2049,8 @@ def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
             "phase16": {"launches": r16["launches"],
                         "launches_hier": r16["launches_hier"],
                         "staged_bytes": r16["staged_bytes"],
-                        "hier_tables_s": r16["hier_tables_s"]}}
+                        "hier_tables_s": r16["hier_tables_s"]},
+            "phase22": r22}
 
 
 def main(argv=None) -> int:
@@ -2035,6 +2059,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase 20's graph, batches and roots")
     args = ap.parse_args(argv)
+    t_script = time.time()
 
     import torch
 
@@ -2064,6 +2089,11 @@ def main(argv=None) -> int:
     from pytorch_sparse_tpu_torch.ops.kernels import (
         random_walk as random_walk_kernel)
     from pytorch_sparse_tpu_torch.sample import MinibatchPrefetcher
+    from pytorch_sparse_tpu_torch.examples import (
+        train_cluster_gcn, train_gat, train_gcn, train_sage_minibatch)
+    from pytorch_sparse_tpu_torch.examples._common import route_name
+    from pytorch_sparse_tpu_torch.examples.train_sage_minibatch import (
+        sage_forward as sage_hops_forward)
     from pytorch_sparse_tpu_torch.ops.matmul import _CsrSum, _Plan
     from pytorch_sparse_tpu_torch.ops.spgemm import (
         PLAN_MAX_TERMS, _block_split, _dense_part, _row_chunks)
@@ -3271,6 +3301,9 @@ def main(argv=None) -> int:
         "19 Cluster-GCN on the products partition": ("csr_spmm",),
         "20 typed and ego sampling": ("csr_spmm",),
         "21 Reddit pipeline at Reddit's scale": ("csr_spmm",),
+        "22 the training recipes": ("csr_spmm", "edge_softmax",
+                                    "edge_softmax_bwd", "edge_dot",
+                                    "shard_spmm"),
     }
     phase_launches = {}
 
@@ -3534,7 +3567,7 @@ def main(argv=None) -> int:
                     x=x_p[frontier.long()], y=labels_p[targets])
 
     def sage_mb_logits(m, batch, agg=None, relu=torch.relu):
-        return sage_bipartite_forward(
+        return sage_hops_forward(
             m, batch["adjs"], batch["x"],
             agg or (lambda a_, h_: ts.spmm_mean(a_, h_)), relu)
 
@@ -4306,6 +4339,32 @@ def main(argv=None) -> int:
                       cluster_gcn)
     typed20 = drive("20 typed and ego sampling", typed_sampling)
     reddit21 = drive("21 Reddit pipeline at Reddit's scale", reddit_pipeline)
+
+    # Phase 22: the training recipes through their entry points, at the
+    # JAX recipes' defaults; the distributed one ran in phase 14's
+    # processes, whose launches join this phase's.
+    recipes22 = (("train_gcn", train_gcn, []),
+                 ("train_gat", train_gat, []),
+                 ("train_cluster_gcn", train_cluster_gcn, []),
+                 ("train_sage_minibatch", train_sage_minibatch, []),
+                 ("train_sage_minibatch --workers 4", train_sage_minibatch,
+                  ["--workers", "4"]))
+
+    def entry_points():
+        t1 = time.time()
+        out = {}
+        for label, mod, argv_ in recipes22:
+            t2 = time.time()
+            out[label] = mod.main(argv_)
+            out[label]["wall_s"] = time.time() - t2
+        out["seconds"] = time.time() - t1
+        return out
+
+    entry22 = drive("22 the training recipes", entry_points)
+    if p14 is not None:
+        for rank_res in p14[0]:
+            for n, c_ in rank_res["phase22"]["launches"].items():
+                phase_launches["22 the training recipes"][n] += c_
     launches = {n: sum(c[n] for c in phase_launches.values())
                 for n in counted}
     record("main_path", seconds=round(time.time() - t0, 2),
@@ -5693,6 +5752,157 @@ def main(argv=None) -> int:
         if bad:
             failures.append(f"phase 21 (Reddit pipeline): failed {bad}")
 
+    # ---- 22. the training recipes: checks and times -----------------------
+    def check_entry22(r):
+        from pytorch_sparse_tpu_torch.sample import _native as sample_native
+        from pytorch_sparse_tpu_torch.sample.saint import (
+            saint_subgraph_plain)
+        from pytorch_sparse_tpu_torch.sample.sample import sample_adj_plain
+
+        t1 = time.time()
+        bad = []
+
+        def rel_errs(got, want):
+            return [abs(a_ - b_) / abs(b_) for a_, b_ in zip(got, want)]
+
+        # Each recipe's first steps against the same recipe on the CPU.
+        cpu_argv = {"train_gcn": ["--epochs", str(RECIPE_CPU_STEPS)],
+                    "train_gat": ["--epochs", str(RECIPE_CPU_STEPS)],
+                    "train_cluster_gcn": ["--epochs", "1"],
+                    "train_sage_minibatch": ["--steps",
+                                             str(RECIPE_CPU_STEPS)]}
+        cpu = {}
+        for label, mod, argv_ in recipes22:
+            base = label.split()[0]
+            if base not in cpu:
+                cpu[base] = mod.main(cpu_argv[base] + ["--device", "cpu"])
+            res, ref = r[label], cpu[base]
+            errs = rel_errs(res["losses"], ref["losses"])
+            ok = (len(errs) == len(ref["losses"]) and max(errs) <= 1e-4
+                  and bool(np.isfinite(res["losses"]).all()))
+            line = dict(recipe=label, device=res["device"],
+                        steps=len(res["losses"]),
+                        losses=res["losses"], accuracy=res["accuracy"],
+                        ms_per_step=res["ms_per_step"],
+                        wall_s=res["wall_s"],
+                        route=res.get("route", res.get("routes")),
+                        cpu_losses=ref["losses"],
+                        loss_rel_errs_vs_cpu=errs, gate=1e-4)
+            for k_ in ("steps_per_s", "sample_ms_per_batch", "build_s",
+                       "part_sizes", "nnz", "first_step_ms"):
+                if k_ in res:
+                    line[k_] = res[k_]
+            if base == "train_sage_minibatch" and label != base:
+                sync_, pre_ = r[base], res
+                same = len(sync_["batches"]) == len(pre_["batches"]) and all(
+                    np.array_equal(a_["targets"], b_["targets"]) and all(
+                        np.array_equal(np.asarray(x_), np.asarray(y_))
+                        for k_ in ("n_id", "e_id", "rowptr")
+                        for x_, y_ in zip(a_[k_], b_[k_]))
+                    for a_, b_ in zip(sync_["batches"], pre_["batches"]))
+                line.update(batches_equal_sync=same,
+                            losses_equal_sync=sync_["losses"]
+                            == pre_["losses"],
+                            steps_per_s_sync=sync_["steps_per_s"])
+                ok = ok and same and line["losses_equal_sync"]
+            record("entry_point", **line, ok=ok, card=card)
+            if not ok:
+                bad.append(label)
+
+        # The distributed recipe (phase 14's four processes) against the
+        # single-card recipe's steps.
+        if p14 is None:
+            bad.append("train_gcn --distributed (phase 14 failed)")
+        else:
+            single = r["train_gcn"]["losses"]
+            dist_errs = {}
+            for rank_res in p14[0]:
+                for sched in ("ring", "hier"):
+                    dist_errs.setdefault(sched, []).append(max(rel_errs(
+                        rank_res["phase22"][sched]["losses"], single)))
+            r0 = p14[0][0]["phase22"]
+            ok = all(max(v_) <= 1e-4 for v_ in dist_errs.values())
+            record("entry_point", recipe="train_gcn --distributed",
+                   ran_in="phase 14's four gloo processes on the card",
+                   runs={s_: {k_: r0[s_][k_] for k_ in (
+                       "losses", "accuracy", "ms_per_step", "world",
+                       "slices", "backend", "device")}
+                       for s_ in ("ring", "hier")},
+                   seconds=r0["seconds"],
+                   loss_rel_errs_vs_single_card_by_rank=dist_errs,
+                   gate=1e-4, launches_rank0=r0["launches"], ok=ok,
+                   card=card)
+            if not ok:
+                bad.append("train_gcn --distributed")
+
+        # The host library's samplers against their numpy plain versions
+        # on phases 12-13's products graph and batches, timed in turn
+        # (plain, library, library, plain).
+        rowptr_h = A_p.storage.numpy_view("rowptr")
+        col_h = A_p.storage.numpy_view("col")
+
+        def pair(plain_fn, lib_fn):
+            ms, outs = {"plain": [], "library": []}, {}
+            for which in ("plain", "library", "library", "plain"):
+                t2 = time.perf_counter()
+                outs[which] = (plain_fn if which == "plain" else lib_fn)()
+                ms[which].append((time.perf_counter() - t2) * 1e3)
+            same_ = all(np.array_equal(a_, b_) for a_, b_ in zip(
+                outs["plain"], outs["library"]))
+            return ms, same_, outs["library"]
+
+        hops = []
+        if nb13 is None:
+            bad.append("host samplers (phase 13 failed)")
+        else:
+            for it, bt in enumerate(nb13["sync_batches"]):
+                frontier = bt["targets"].cpu().numpy().astype(np.int64)
+                for h, (k_, (_, n_id)) in enumerate(zip(fanouts_p,
+                                                        bt["hops"])):
+                    seed = 1000 + it * 10 + h
+                    ms, same_, out = pair(
+                        lambda: sample_adj_plain(rowptr_h, col_h, frontier,
+                                                 k_, False, seed),
+                        lambda: sample_native.sample_adj(
+                            rowptr_h, col_h, frontier, k_, False, seed))
+                    same_ = same_ and np.array_equal(
+                        out[3], n_id.cpu().numpy())
+                    hops.append(dict(batch=it, hop=h,
+                                     frontier=int(frontier.shape[0]),
+                                     sampled=int(out[1].shape[0]),
+                                     library_ms=ms["library"],
+                                     plain_ms=ms["plain"], equal=same_))
+                    frontier = out[3]
+        saints = []
+        if saint12 is None:
+            bad.append("host samplers (phase 12 failed)")
+        else:
+            for b_, bt in enumerate(saint12["batches"]):
+                idx = bt["node_idx"].cpu().numpy().astype(np.int64)
+                ms, same_, out = pair(
+                    lambda: saint_subgraph_plain(rowptr_h, col_h, idx, Mp),
+                    lambda: sample_native.saint_subgraph(rowptr_h, col_h,
+                                                         idx, Mp))
+                saints.append(dict(batch=b_, nodes=int(idx.shape[0]),
+                                   edges=int(out[0].shape[0]),
+                                   library_ms=ms["library"],
+                                   plain_ms=ms["plain"], equal=same_))
+        samplers_ok = all(h_["equal"] for h_ in hops + saints)
+        record("host_samplers", graph="products", nodes=Mp, nnz=A_p.nnz(),
+               sample_adj_hops=hops, saint_subgraph=saints,
+               host_threads="one (the host library is built without "
+               "OpenMP where the compiler cannot link it)"
+               if "-fopenmp" not in _build.host_flags() else "OpenMP",
+               equal_to_plain=samplers_ok, card=card)
+        if not samplers_ok:
+            bad.append("host samplers against their plain versions")
+        record("entry_points_checks", phase_s=r["seconds"],
+               check_s=time.time() - t1,
+               launches=phase_launches["22 the training recipes"],
+               failed=bad, card=card)
+        if bad:
+            failures.append(f"phase 22 (training recipes): failed {bad}")
+
     for label, res, check in (("9", gcn9, check_gcn9),
                               ("10", gat10, check_gat10),
                               ("11", models11, check_models11),
@@ -5705,7 +5915,8 @@ def main(argv=None) -> int:
                               ("19 (partition)", part19, check_partition19),
                               ("19", cluster19, check_cluster19),
                               ("20", typed20, check_typed20),
-                              ("21", reddit21, check_reddit21)):
+                              ("21", reddit21, check_reddit21),
+                              ("22", entry22, check_entry22)):
         if res is not None:
             try:
                 check(res)
@@ -5713,6 +5924,7 @@ def main(argv=None) -> int:
                 failures.append(f"phase {label} checks: "
                                 + traceback.format_exc())
 
+    record("script", seconds=time.time() - t_script, card=card)
     results.update(kernels=kernels, launches=launches, failures=failures,
                    card=card)
     if args.out:

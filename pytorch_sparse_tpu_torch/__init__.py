@@ -16,9 +16,9 @@ index and mask selection, cat, permute, reductions whose sums run the
 CSR kernel on the card, reverse Cuthill-McKee, scipy and ``torch.sparse``
 conversions, torch-style dtype and device methods, the legacy tuple
 API); and the samplers: random walks (a hand-written walk
-kernel), with-replacement ``sample``, and on the host ``sample_adj``,
-``saint_subgraph``, ``relabel``, ``relabel_one_hop``, the homogeneous
-``neighbor_sample``, and on the port's host C++ library the typed,
+kernel), with-replacement ``sample``, ``relabel``, and on the port's
+host C++ library ``sample_adj``, ``saint_subgraph``,
+``relabel_one_hop``, the homogeneous ``neighbor_sample`` and the typed,
 temporal, HGT and ego samplers, whose draws equal the JAX package's
 native sampler's; and the distribution layer (``parallel``): row shards
 over ``torch.distributed`` process groups with the all-gather, ring and

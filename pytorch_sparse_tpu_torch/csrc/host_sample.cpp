@@ -1,24 +1,29 @@
-// The port's host library: the typed, temporal, HGT and ego samplers.
+// The port's host library: every host sampler of the JAX package.
 //
-// Replaces the samplers of pytorch_sparse_tpu/csrc/native.cpp (the JAX
-// package's native host library) that draw from one sequential stream
-// or walk hash maps: its RNG, `rng_unit`, `hgt_sample`, `ego_k_hop`,
-// `hetero_neighbor_sample` and `hetero_temporal_neighbor_sample`, copied
-// line for line so that the same inputs and seed give the same outputs
-// (the same draws in the same order, the same container types and
-// insertion sequences, hence the same hash-map iteration order, and the
-// same double arithmetic).  Host code, not a kernel: it runs on the CPU
-// of the machine that holds the card, before any launch.
+// Copies the samplers of pytorch_sparse_tpu/csrc/native.cpp (the JAX
+// package's native host library) line for line, so that the same inputs
+// and seed give the same outputs (the same draws in the same order, the
+// same container types and insertion sequences, hence the same hash-map
+// iteration order, and the same double arithmetic): its RNG,
+// `rng_seed_at`, `rng_unit`, `draw_candidates` and `sample_size_of`; the
+// homogeneous `sample_adj`, `neighbor_sample`, `saint_subgraph` and
+// `relabel_one_hop`; and `hgt_sample`, `ego_k_hop`,
+// `hetero_neighbor_sample` and `hetero_temporal_neighbor_sample`.  Host
+// code, not a kernel: it runs on the CPU of the machine that holds the
+// card, before any launch.
 //
 // Plain C ABI, loaded with ctypes (pytorch_sparse_tpu_torch/sample/
 // _native.py) after `_build.load` compiles it with the host C++
 // compiler: -O3 -march=native -fopenmp -fPIC -shared -std=c++17 and
-// -ffp-contract=off.  All index arrays are int64.  Every entry is
-// two-phase: a call with null outputs fills `counts`, a second call with
-// buffers of those sizes fills them; both phases draw identically.
-// `ego_k_hop` runs its seeds in parallel where OpenMP is built in, each
-// on a stream of its own, so its output does not depend on the thread
-// count (nor on OpenMP being there at all).
+// -ffp-contract=off.  All index arrays are int64.  `sample_adj` and
+// `relabel_one_hop` fill outputs that the caller sizes exactly; every
+// other entry is two-phase: a call with null outputs fills `counts`, a
+// second call with buffers of those sizes fills them; both phases draw
+// identically.  The homogeneous samplers draw each frontier row from a
+// stream of its own (`rng_seed_at`) and `ego_k_hop` each seed, so that
+// where OpenMP is built in their rows and seeds run in parallel and the
+// output does not depend on the thread count (nor on OpenMP being there
+// at all).
 
 #include <algorithm>
 #include <cmath>
@@ -76,6 +81,70 @@ static inline int64_t rng_below(Rng *r, int64_t n) {
 
 inline double rng_unit(Rng *r) {  // uniform in (0, 1)
   return ((double)(rng_next(r) >> 11) + 1.0) * 1.1102230246251564e-16;
+}
+
+// Per-(stream, element) RNG stream: the draws for one frontier row are
+// a function of (seed, stream, element) alone, so (a) OpenMP workers
+// need no shared RNG state, (b) results are identical at any thread
+// count, and (c) the count-pass/fill-pass two-phase protocol samples
+// identically by construction.
+static inline void rng_seed_at(Rng *r, uint64_t seed, uint64_t stream,
+                               uint64_t element) {
+  rng_seed(&r[0], seed ^ (0x9e3779b97f4a7c15ULL * (stream + 1)) ^
+                      (0xbf58476d1ce4e5b9ULL * (element + 1)));
+}
+
+// Candidate-generation pass shared by sample_adj / neighbor_sample:
+// fills buf[offs[i]..offs[i+1]) with the drawn edge ids for frontier
+// position i (absolute into the index arrays).  offs must hold the
+// exact per-row sample sizes:
+//   deg          if num < 0 or (!replace and num >= deg)
+//   num          if replace and deg > 0
+//   num          otherwise (Robert-Floyd without replacement)
+// Row-internal order matches the serial formulation's per-branch order.
+static void draw_candidates(const int64_t *ptr, const int64_t *frontier,
+                            int64_t n_front, int64_t num, int32_t replace,
+                            uint64_t seed, uint64_t stream,
+                            const int64_t *offs, int64_t *buf) {
+  const int par = n_front >= 64 && offs[n_front] >= 4096;
+#pragma omp parallel for schedule(dynamic, 64) if (par)
+  for (int64_t i = 0; i < n_front; i++) {
+    const int64_t w = frontier[i];
+    const int64_t start = ptr[w], deg = ptr[w + 1] - ptr[w];
+    const int64_t ni = offs[i + 1] - offs[i];
+    if (ni == 0) continue;
+    int64_t *dst = buf + offs[i];
+    if (num < 0 || (!replace && num >= deg)) {
+      for (int64_t j = 0; j < deg; j++) dst[j] = start + j;
+      continue;
+    }
+    Rng rng;
+    rng_seed_at(&rng, seed, stream, (uint64_t)i);
+    if (replace) {
+      for (int64_t j = 0; j < num; j++)
+        dst[j] = start + rng_below(&rng, deg);
+    } else {
+      // Robert Floyd sampling without replacement.
+      std::unordered_set<int64_t> perm;
+      perm.reserve(num * 2);
+      int64_t k = 0;
+      for (int64_t j = deg - num; j < deg; j++) {
+        int64_t rnd = rng_below(&rng, j);
+        if (!perm.insert(rnd).second) {
+          rnd = j;
+          perm.insert(j);
+        }
+        dst[k++] = start + rnd;
+      }
+    }
+  }
+}
+
+static inline int64_t sample_size_of(int64_t deg, int64_t num,
+                                     int32_t replace) {
+  if (deg == 0) return 0;
+  if (num < 0 || (!replace && num >= deg)) return deg;
+  return num;
 }
 
 }  // namespace
@@ -603,6 +672,218 @@ void hetero_temporal_neighbor_sample(
       epos += (int64_t)rows[r].size();
     }
   }
+}
+
+// ---------------------------------------------------------------------
+// sample_adj: one-hop sampled bipartite adjacency
+// (reference cpu/sample_cpu.cpp:10-137).
+//
+// Caller sizes outputs exactly:
+//   E_out = sum over idx of (deg            if num_neighbors < 0
+//                            num*(deg>0)    if replace
+//                            min(deg, num)  otherwise)
+//   n_id buffer capacity: n_idx + E_out.
+// Outputs: out_rowptr (n_idx+1), out_col/out_eid (E_out), n_id.
+// Per-row cols sorted by local id. Returns the n_id count.
+int64_t sample_adj(const int64_t *rowptr, const int64_t *col, int64_t n_nodes,
+                   const int64_t *idx, int64_t n_idx, int64_t num_neighbors,
+                   int32_t replace, uint64_t seed, int64_t *out_rowptr,
+                   int64_t *out_col, int64_t *out_eid, int64_t *n_id) {
+  (void)n_nodes;
+  std::unordered_map<int64_t, int64_t> n_id_map;
+  n_id_map.reserve(2 * n_idx);
+  int64_t n_count = 0;
+  for (int64_t i = 0; i < n_idx; i++) {
+    n_id_map[idx[i]] = i;
+    n_id[n_count++] = idx[i];
+  }
+
+  // Parallel candidate draw (per-seed RNG streams), then a sequential
+  // relabel merge in frontier order (the hash-map growth is inherently
+  // ordered; the reference parallelizes the same way in its ego
+  // sampler, cpu/ego_sample_cpu.cpp:34).
+  std::vector<int64_t> offs(n_idx + 1, 0);
+  for (int64_t i = 0; i < n_idx; i++) {
+    const int64_t deg = rowptr[idx[i] + 1] - rowptr[idx[i]];
+    offs[i + 1] = offs[i] + sample_size_of(deg, num_neighbors, replace);
+  }
+  std::vector<int64_t> buf(offs[n_idx]);
+  draw_candidates(rowptr, idx, n_idx, num_neighbors, replace, seed,
+                  /*stream=*/0, offs.data(), buf.data());
+
+  std::vector<std::pair<int64_t, int64_t>> row_buf;  // (local col, e_id)
+  int64_t out_pos = 0;
+  out_rowptr[0] = 0;
+  for (int64_t i = 0; i < n_idx; i++) {
+    row_buf.clear();
+    for (int64_t t = offs[i]; t < offs[i + 1]; t++) {
+      const int64_t e = buf[t];
+      const int64_t c = col[e];
+      auto it = n_id_map.find(c);
+      int64_t local;
+      if (it == n_id_map.end()) {
+        local = n_count;
+        n_id_map.emplace(c, local);
+        n_id[n_count++] = c;
+      } else {
+        local = it->second;
+      }
+      row_buf.emplace_back(local, e);
+    }
+    std::sort(row_buf.begin(), row_buf.end());
+    for (const auto &pr : row_buf) {
+      out_col[out_pos] = pr.first;
+      out_eid[out_pos] = pr.second;
+      out_pos++;
+    }
+    out_rowptr[i + 1] = out_pos;
+  }
+  return n_count;
+}
+
+// ---------------------------------------------------------------------
+// neighbor_sample (homogeneous, CSC-driven, reference
+// cpu/neighbor_sample_cpu.cpp:16-118).
+//
+// Two-phase: call with out_* = nullptr to get counts packed into
+// counts[0]=n_samples, counts[1]=n_edges; then call again with buffers.
+// Deterministic for a fixed seed, so both phases sample identically.
+// ---------------------------------------------------------------------
+void neighbor_sample(const int64_t *colptr, const int64_t *row,
+                     int64_t n_nodes, const int64_t *input_node,
+                     int64_t n_input, const int64_t *num_neighbors,
+                     int64_t num_hops, int32_t replace, int32_t directed,
+                     uint64_t seed, int64_t *counts, int64_t *out_nodes,
+                     int64_t *out_rows, int64_t *out_cols,
+                     int64_t *out_edges) {
+  (void)n_nodes;
+  std::vector<int64_t> samples(input_node, input_node + n_input);
+  std::unordered_map<int64_t, int64_t> to_local;
+  to_local.reserve(4 * n_input);
+  for (int64_t i = 0; i < n_input; i++) to_local[input_node[i]] = i;
+
+  std::vector<int64_t> rows, cols, edges;
+
+  auto visit = [&](int64_t e, int64_t i) {
+    const int64_t v = row[e];
+    auto res = to_local.emplace(v, (int64_t)samples.size());
+    if (res.second) samples.push_back(v);
+    if (directed) {
+      rows.push_back(res.first->second);
+      cols.push_back(i);
+      edges.push_back(e);
+    }
+  };
+
+  // Per hop: parallel candidate draw over the frontier (per-(hop, row)
+  // RNG streams — thread-count invariant), then a sequential relabel
+  // merge in frontier order so the to_local growth stays deterministic.
+  int64_t begin = 0, end = (int64_t)samples.size();
+  std::vector<int64_t> offs, buf;
+  for (int64_t ell = 0; ell < num_hops; ell++) {
+    const int64_t num = num_neighbors[ell];
+    const int64_t n_front = end - begin;
+    offs.assign(n_front + 1, 0);
+    for (int64_t i = 0; i < n_front; i++) {
+      const int64_t w = samples[begin + i];
+      const int64_t deg = colptr[w + 1] - colptr[w];
+      offs[i + 1] = offs[i] + sample_size_of(deg, num, replace);
+    }
+    buf.resize(offs[n_front]);
+    draw_candidates(colptr, samples.data() + begin, n_front, num,
+                    replace, seed, /*stream=*/(uint64_t)(ell + 1),
+                    offs.data(), buf.data());
+    for (int64_t i = 0; i < n_front; i++)
+      for (int64_t t = offs[i]; t < offs[i + 1]; t++)
+        visit(buf[t], begin + i);
+    begin = end;
+    end = (int64_t)samples.size();
+  }
+
+  if (!directed) {
+    for (int64_t i = 0; i < (int64_t)samples.size(); i++) {
+      const int64_t w = samples[i];
+      for (int64_t e = colptr[w]; e < colptr[w + 1]; e++) {
+        auto it = to_local.find(row[e]);
+        if (it != to_local.end()) {
+          rows.push_back(it->second);
+          cols.push_back(i);
+          edges.push_back(e);
+        }
+      }
+    }
+  }
+
+  counts[0] = (int64_t)samples.size();
+  counts[1] = (int64_t)rows.size();
+  if (out_nodes) {
+    std::memcpy(out_nodes, samples.data(), samples.size() * sizeof(int64_t));
+    std::memcpy(out_rows, rows.data(), rows.size() * sizeof(int64_t));
+    std::memcpy(out_cols, cols.data(), cols.size() * sizeof(int64_t));
+    std::memcpy(out_edges, edges.data(), edges.size() * sizeof(int64_t));
+  }
+}
+
+// ---------------------------------------------------------------------
+// saint_subgraph: node-induced subgraph (reference cpu/saint_cpu.cpp).
+// Two-phase via counts[0] = number of kept edges.
+// ---------------------------------------------------------------------
+void saint_subgraph(const int64_t *rowptr, const int64_t *col,
+                    int64_t n_nodes, const int64_t *idx, int64_t n_idx,
+                    int64_t *counts, int64_t *out_row, int64_t *out_col,
+                    int64_t *out_eid) {
+  std::vector<int64_t> assoc(n_nodes, -1);
+  for (int64_t i = 0; i < n_idx; i++) assoc[idx[i]] = i;
+
+  int64_t k = 0;
+  for (int64_t i = 0; i < n_idx; i++) {
+    const int64_t v = idx[i];
+    for (int64_t e = rowptr[v]; e < rowptr[v + 1]; e++) {
+      const int64_t w = assoc[col[e]];
+      if (w >= 0) {
+        if (out_row) {
+          out_row[k] = i;
+          out_col[k] = w;
+          out_eid[k] = e;
+        }
+        k++;
+      }
+    }
+  }
+  counts[0] = k;
+}
+
+// ---------------------------------------------------------------------
+// relabel_one_hop (reference cpu/relabel_cpu.cpp:45-143).
+// E_out = sum(deg[idx]) (caller-computed); n_id capacity n_idx + E_out.
+// Returns n_id count.
+// ---------------------------------------------------------------------
+int64_t relabel_one_hop(const int64_t *rowptr, const int64_t *col,
+                        const int64_t *idx, int64_t n_idx,
+                        int64_t *out_rowptr, int64_t *out_col,
+                        int64_t *out_eid, int64_t *n_id) {
+  std::unordered_map<int64_t, int64_t> n_id_map;
+  n_id_map.reserve(4 * n_idx);
+  int64_t n_count = 0;
+  for (int64_t i = 0; i < n_idx; i++) {
+    n_id_map[idx[i]] = i;
+    n_id[n_count++] = idx[i];
+  }
+  int64_t pos = 0;
+  out_rowptr[0] = 0;
+  for (int64_t i = 0; i < n_idx; i++) {
+    const int64_t v = idx[i];
+    for (int64_t e = rowptr[v]; e < rowptr[v + 1]; e++) {
+      const int64_t w = col[e];
+      auto res = n_id_map.emplace(w, n_count);
+      if (res.second) n_id[n_count++] = w;
+      out_col[pos] = res.first->second;
+      out_eid[pos] = e;
+      pos++;
+    }
+    out_rowptr[i + 1] = pos;
+  }
+  return n_count;
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
 """Shared host helpers of the samplers (counterpart of
 ``pytorch_sparse_tpu/sample/_common.py``).
 
-The native samplers' insertion-ordered hash maps become vectorized
-numpy: first-seen ids from ``np.unique`` and first positions, and CSR
-row walks from one ``np.repeat``.  The results go to the device as
-int32 index tensors, as the JAX package's ``to_index_array`` gives.
+The checks that the host library's callers make before it indexes with
+their node ids, and the plain versions' numpy: the native samplers'
+insertion-ordered hash maps become first-seen ids from ``np.unique`` and
+first positions, and CSR row walks one ``np.repeat``.  The results go to
+the device as int32 index tensors, as the JAX package's
+``to_index_array`` gives.
 """
 
 from __future__ import annotations
@@ -20,6 +22,21 @@ def host_index(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     return np.ascontiguousarray(x, np.int64)
+
+
+def check_nodes(nodes: np.ndarray, n: int, what: str) -> None:
+    """Raise ``ValueError`` unless every id of ``nodes`` is in ``[0, n)``."""
+    if nodes.size and (nodes.min() < 0 or nodes.max() >= n):
+        raise ValueError(f"{what} holds a node outside [0, {n})")
+
+
+def check_pointer(ptr: np.ndarray, n_entries: int, what: str) -> None:
+    """Raise ``ValueError`` unless ``ptr`` runs from 0 to ``n_entries``
+    and never falls."""
+    if (ptr.ndim != 1 or ptr.shape[0] < 1 or ptr[0] != 0
+            or ptr[-1] != n_entries or np.any(np.diff(ptr) < 0)):
+        raise ValueError(f"{what} does not run from 0 to {n_entries} "
+                         "without falling")
 
 
 def to_index(arr: np.ndarray, device: torch.device) -> torch.Tensor:

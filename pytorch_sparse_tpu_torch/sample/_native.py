@@ -1,15 +1,21 @@
 """``ctypes`` wrappers over the port's sampling host library
-(``csrc/host_sample.cpp``): the counterparts of the typed, temporal, HGT
-and ego samplers' wrappers in ``pytorch_sparse_tpu/csrc/bindings.py``
-(``:183-430``), with the same flattened encodings.  Each entry runs the
-library's two phases: a count pass with null outputs, then a fill pass
-into buffers of those sizes.  The library is built with the host C++
-compiler at first use (``_build.load``); without a compiler they raise.
+(``csrc/host_sample.cpp``): the counterparts of the samplers' wrappers
+in ``pytorch_sparse_tpu/csrc/bindings.py`` (``:115-430``), with the same
+flattened encodings and output sizes.  The homogeneous ``sample_adj``
+and ``relabel_one_hop`` fill buffers sized exactly from the degrees;
+every other entry runs the library's two phases: a count pass with null
+outputs, then a fill pass into buffers of those sizes.  The library is
+built with the host C++ compiler at first use (``_build.load``); without
+a compiler they raise.  Its calls are ``ctypes`` foreign calls, which
+release the interpreter lock while the library runs.
 
-Relations are ``'src__rel__dst'`` keys.  Relation ``r``'s ``colptr`` and
-``row`` are concatenated at ``colptr_off[r]`` and ``row_off[r]``, its
-per-hop budgets at ``r * num_hops + hop``, each type's inputs (and node
-times) at its offset in type order.  Outputs are numpy int64 arrays:
+The callers check the inputs (node ids within the graph, valid
+pointers): the library indexes with them unchecked.  Relations are
+``'src__rel__dst'`` keys.  Relation ``r``'s ``colptr`` and ``row`` are
+concatenated at ``colptr_off[r]`` and ``row_off[r]``, its per-hop
+budgets at ``r * num_hops + hop``, each type's inputs (and node times)
+at its offset in type order.  Outputs are numpy int64 arrays: the
+homogeneous samplers' arrays as their plain versions give them,
 ``(samples per type, rows, cols, eids per relation)`` for the typed
 samplers, the stitched arrays for ``ego_k_hop``.
 """
@@ -31,6 +37,18 @@ _i64, _i32, _u64 = ctypes.c_int64, ctypes.c_int32, ctypes.c_uint64
 _TYPED = [_i64, _i64, _i64] + [_i64p] * 8
 _OUT = [_i64p] * 5  # counts, nodes, rows, cols, eids
 _SIGNATURES = {
+    # rowptr, col, n_nodes, idx, n_idx, num_neighbors, replace, seed,
+    # out_rowptr, out_col, out_eid, n_id
+    "sample_adj": [_i64p, _i64p, _i64, _i64p, _i64, _i64, _i32, _u64]
+    + [_i64p] * 4,
+    # colptr, row, n_nodes, input_node, n_input, num_neighbors, num_hops,
+    # replace, directed, seed, counts, nodes, rows, cols, edges
+    "neighbor_sample": [_i64p, _i64p, _i64, _i64p, _i64, _i64p, _i64, _i32,
+                        _i32, _u64] + [_i64p] * 5,
+    # rowptr, col, n_nodes, idx, n_idx, counts, row, col, eid
+    "saint_subgraph": [_i64p, _i64p, _i64, _i64p, _i64] + [_i64p] * 4,
+    # rowptr, col, idx, n_idx, out_rowptr, out_col, out_eid, n_id
+    "relabel_one_hop": [_i64p, _i64p, _i64p, _i64] + [_i64p] * 4,
     "hetero_neighbor_sample": _TYPED + [_i64p, _i32, _i32, _u64] + _OUT,
     "hetero_temporal_neighbor_sample": (
         _TYPED + [_i64p, _i64p, _i64p, _i32p, _i32, _i32, _u64] + _OUT),
@@ -41,6 +59,9 @@ _SIGNATURES = {
                   _u64] + [_i64p] * 7,
 }
 
+# The entries that return a count (the others return nothing).
+_RESTYPES = {"sample_adj": _i64, "relabel_one_hop": _i64}
+
 Typed = Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray],
               Dict[str, np.ndarray], Dict[str, np.ndarray]]
 
@@ -49,7 +70,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("host_sample")
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, None
+        fn.argtypes, fn.restype = argtypes, _RESTYPES.get(name)
     return lib
 
 
@@ -192,3 +213,83 @@ def ego_k_hop(rowptr: np.ndarray, col: np.ndarray, seeds: np.ndarray,
     lib.ego_k_hop(*args, _p(counts), _p(row), _p(colc), _p(e_id), _p(n_id),
                   _p(ptr), _p(root))
     return row, colc, e_id, n_id, ptr, root
+
+
+def sample_adj(rowptr: np.ndarray, col: np.ndarray, idx: np.ndarray,
+               num_neighbors: int, replace: bool, seed: int
+               ) -> Tuple[np.ndarray, ...]:
+    """One-hop sampling of the rows ``idx`` (``native.cpp:151``):
+    ``(rowptr, local col, e_id, n_id)`` of the bipartite adjacency, each
+    frontier row drawn from stream 0 at its position."""
+    lib = _lib()
+    rowptr, col, idx = _i64_array(rowptr), _i64_array(col), _i64_array(idx)
+    deg = rowptr[idx + 1] - rowptr[idx]
+    if num_neighbors < 0:
+        e_out = int(deg.sum())
+    elif replace:
+        e_out = int(num_neighbors * (deg > 0).sum())
+    else:
+        e_out = int(np.minimum(deg, num_neighbors).sum())
+    out_rowptr = np.empty(idx.shape[0] + 1, np.int64)
+    out_col, out_eid = np.empty(e_out, np.int64), np.empty(e_out, np.int64)
+    n_id = np.empty(idx.shape[0] + e_out, np.int64)
+    n = lib.sample_adj(_p(rowptr), _p(col), rowptr.shape[0] - 1, _p(idx),
+                       idx.shape[0], num_neighbors, int(replace), seed,
+                       _p(out_rowptr), _p(out_col), _p(out_eid), _p(n_id))
+    return out_rowptr, out_col, out_eid, n_id[:n]
+
+
+def neighbor_sample(colptr: np.ndarray, row: np.ndarray,
+                    input_node: np.ndarray, num_neighbors: Sequence[int],
+                    replace: bool, directed: bool, seed: int
+                    ) -> Tuple[np.ndarray, ...]:
+    """Homogeneous multi-hop sampling over a CSC graph
+    (``native.cpp:215``), hop ``h`` on stream ``h + 1``: ``(nodes, rows,
+    cols, edges)``."""
+    lib = _lib()
+    colptr, row = _i64_array(colptr), _i64_array(row)
+    input_node = _i64_array(input_node)
+    nums = _i64_array(list(num_neighbors))
+    counts = np.zeros(2, np.int64)
+    args = (_p(colptr), _p(row), colptr.shape[0] - 1, _p(input_node),
+            input_node.shape[0], _p(nums), nums.shape[0], int(replace),
+            int(directed), seed, _p(counts))
+    lib.neighbor_sample(*args, None, None, None, None)
+    nodes = np.empty(counts[0], np.int64)
+    rows, cols, edges = (np.empty(counts[1], np.int64) for _ in range(3))
+    lib.neighbor_sample(*args, _p(nodes), _p(rows), _p(cols), _p(edges))
+    return nodes, rows, cols, edges
+
+
+def saint_subgraph(rowptr: np.ndarray, col: np.ndarray, idx: np.ndarray,
+                   n_nodes: int) -> Tuple[np.ndarray, ...]:
+    """The edges among the nodes ``idx`` (``native.cpp:294``), relabelled
+    by position, in the order the rows of ``idx`` are walked: ``(row,
+    col, e_id)``.  ``n_nodes`` bounds every node id of ``col``."""
+    lib = _lib()
+    rowptr, col, idx = _i64_array(rowptr), _i64_array(col), _i64_array(idx)
+    counts = np.zeros(1, np.int64)
+    args = (_p(rowptr), _p(col), n_nodes, _p(idx), idx.shape[0],
+            _p(counts))
+    lib.saint_subgraph(*args, None, None, None)
+    out_row, out_col, out_eid = (np.empty(counts[0], np.int64)
+                                 for _ in range(3))
+    lib.saint_subgraph(*args, _p(out_row), _p(out_col), _p(out_eid))
+    return out_row, out_col, out_eid
+
+
+def relabel_one_hop(rowptr: np.ndarray, col: np.ndarray, idx: np.ndarray
+                    ) -> Tuple[np.ndarray, ...]:
+    """The whole one-hop neighbourhood of ``idx``, relabelled in
+    first-seen order (``native.cpp:324``): ``(rowptr, local col,
+    positions, n_id)``."""
+    lib = _lib()
+    rowptr, col, idx = _i64_array(rowptr), _i64_array(col), _i64_array(idx)
+    e_out = int((rowptr[idx + 1] - rowptr[idx]).sum())
+    out_rowptr = np.empty(idx.shape[0] + 1, np.int64)
+    out_col, out_eid = np.empty(e_out, np.int64), np.empty(e_out, np.int64)
+    n_id = np.empty(idx.shape[0] + e_out, np.int64)
+    n = lib.relabel_one_hop(_p(rowptr), _p(col), _p(idx), idx.shape[0],
+                            _p(out_rowptr), _p(out_col), _p(out_eid),
+                            _p(n_id))
+    return out_rowptr, out_col, out_eid, n_id[:n]

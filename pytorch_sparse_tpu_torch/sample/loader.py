@@ -1,10 +1,13 @@
 """Prefetching minibatch loader: overlap host-side sampling with device
 training (counterpart of ``pytorch_sparse_tpu/sample/loader.py``).
 
-The samplers are host numpy, whose large array operations release the
-interpreter lock, so ``num_workers`` threads sample concurrently on a
-multi-core host, and the device's step overlaps the host's sampling of
-the next batch (CUDA work is enqueued and runs on its own).
+The host samplers run in the port's host library through ``ctypes``
+foreign calls, which release the interpreter lock while the library
+runs, so ``num_workers`` threads sample concurrently on a multi-core
+host; the Python around each call (checks, the batch's tensors and
+their copies to the card) holds the lock.  The device's step overlaps
+the host's sampling of the next batch (CUDA work is enqueued and runs
+on its own).
 
 Determinism contract: ``make_batch(it)`` receives the batch index and
 must derive all randomness from it (per-call seeds); batches are

@@ -4,9 +4,12 @@ PyG's ``NeighborLoader``.  An edge (src -> dst) is stored with
 ``colptr`` over dst and ``row`` holding src, so sampling walks the
 incoming edges of the frontier.
 
-* ``neighbor_sample`` (homogeneous) is host numpy.  Each hop draws the
-  frontier's edges with the native sampler's stream ``hop + 1``
-  (``_draws``) and appends unseen sources in the order they are drawn.
+* ``neighbor_sample`` (homogeneous) runs on the port's host library
+  (``csrc/host_sample.cpp``, a copy of the JAX package's native
+  ``neighbor_sample``).  Each hop draws the frontier's edges from stream
+  ``hop + 1`` and appends unseen sources in the order they are drawn;
+  :func:`neighbor_sample_plain` is its plain version in numpy
+  (``_draws``).
 * ``hetero_neighbor_sample`` (typed nodes and relations, per-relation
   budgets) and ``hetero_temporal_neighbor_sample`` (sources no later
   than their root, one computation tree a root) run the port's host
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 
 from ..typing import DeviceLike, resolve_device
-from ._common import expand_ranges, host_index, to_index
+from ._common import (check_nodes, check_pointer, expand_ranges, host_index,
+                      to_index)
 from . import _native
 from ._draws import draw_candidates, native_seed
 
@@ -45,22 +49,42 @@ def neighbor_sample(colptr, row, input_node, num_neighbors: List[int],
     id, its target's local id, the edge id); with ``directed=False`` they
     are every edge between sampled nodes.  The draws are those of the
     JAX package's native sampler for ``seed`` (an ``int``; None means
-    0)."""
+    0).  ``colptr`` must run from 0 to ``len(row)`` without falling, and
+    ``row`` and ``input_node`` hold nodes of ``[0, len(colptr) - 1)``;
+    others raise ``ValueError``."""
     seed = native_seed(seed)
     dev = resolve_device(device)
     colptr_np, row_np = host_index(colptr), host_index(row)
     inp = host_index(input_node)
-    local_of = np.full(colptr_np.shape[0] - 1, -1, np.int64)
+    n = colptr_np.shape[0] - 1
+    check_pointer(colptr_np, row_np.shape[0], "colptr")
+    check_nodes(row_np, n, "row")
+    check_nodes(inp, n, "input_node")
+    out = _native.neighbor_sample(colptr_np, row_np, inp,
+                                  [int(k) for k in num_neighbors], replace,
+                                  directed, seed)
+    return tuple(to_index(a, dev) for a in out)
+
+
+def neighbor_sample_plain(colptr: np.ndarray, row: np.ndarray,
+                          inp: np.ndarray, num_neighbors: List[int],
+                          replace: bool, directed: bool, seed: int
+                          ) -> Tuple[np.ndarray, ...]:
+    """The plain version of the library's ``neighbor_sample``, in numpy:
+    ``(nodes, rows, cols, edges)`` host int64 arrays, equal to
+    ``_native.neighbor_sample``'s for the same ``uint64`` ``seed``.  The
+    tests hold the library against it; no sampler calls it."""
+    local_of = np.full(colptr.shape[0] - 1, -1, np.int64)
     local_of[inp] = np.arange(inp.shape[0])
     samples = [inp]
     n_samples = inp.shape[0]
     rows_l, cols_l, edges_l = [], [], []
     frontier, frontier_base = inp, 0
     for hop, num in enumerate(num_neighbors):
-        starts = colptr_np[frontier]
-        rix, edges = draw_candidates(starts, colptr_np[frontier + 1] - starts,
+        starts = colptr[frontier]
+        rix, edges = draw_candidates(starts, colptr[frontier + 1] - starts,
                                      int(num), replace, seed, stream=hop + 1)
-        v = row_np[edges]
+        v = row[edges]
         vi = v[local_of[v] < 0]
         uniq, first = np.unique(vi, return_index=True)
         new_nodes = uniq[np.argsort(first, kind="stable")]
@@ -76,14 +100,13 @@ def neighbor_sample(colptr, row, input_node, num_neighbors: List[int],
 
     all_samples = _cat(samples)
     if not directed:
-        starts = colptr_np[all_samples]
-        rix, edges = expand_ranges(starts, colptr_np[all_samples + 1] - starts)
-        v = row_np[edges]
+        starts = colptr[all_samples]
+        rix, edges = expand_ranges(starts, colptr[all_samples + 1] - starts)
+        v = row[edges]
         keep = local_of[v] >= 0
         rows_l, cols_l, edges_l = ([local_of[v[keep]]], [rix[keep]],
                                    [edges[keep]])
-    return (to_index(all_samples, dev), to_index(_cat(rows_l), dev),
-            to_index(_cat(cols_l), dev), to_index(_cat(edges_l), dev))
+    return all_samples, _cat(rows_l), _cat(cols_l), _cat(edges_l)
 
 
 def rel_key(edge_type) -> str:

@@ -3,8 +3,10 @@
 
 ``sample`` is the with-replacement draw over a pre-drawn uniform matrix,
 in torch on the graph's device.  ``sample_adj`` is GraphSAGE's one-hop
-bipartite sampler: host numpy whose draws equal the JAX package's native
-path (``_draws``), with first-seen relabelling.
+bipartite sampler, on the port's host library (``csrc/host_sample.cpp``,
+a copy of the JAX package's native ``sample_adj``), with first-seen
+relabelling; :func:`sample_adj_plain` is its plain version in numpy,
+whose draws (``_draws``) equal the library's.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 from ..tensor import SparseTensor
 from ..utils.convert import INDEX_DTYPE
 from ..utils.host_sort import lexsort2
-from ._common import first_seen_relabel, host_index, to_index
+from . import _native
+from ._common import check_nodes, first_seen_relabel, host_index, to_index
 from ._draws import draw_candidates, native_seed
 from .rw import uniforms
 
@@ -59,24 +62,17 @@ def sample_adj(src: SparseTensor, subset, num_neighbors: int,
     first-seen order), both on the graph's device; values are carried
     through the sampled edge ids.
 
-    ``subset`` holds distinct nodes.  The draws are those of the JAX
-    package's native sampler for ``seed`` (an ``int``; None means 0)."""
+    ``subset`` holds distinct rows of the graph (others raise
+    ``ValueError``).  The draws are those of the JAX package's native
+    sampler for ``seed`` (an ``int``; None means 0): the port's host
+    library runs a copy of it (``_native.sample_adj``)."""
     seed = native_seed(seed)
     rowptr = src.storage.numpy_view("rowptr")
-    col = src.storage.numpy_view("col")
     subset_np = host_index(subset)
-    # The native sample_adj (native.cpp:151): stream-0 draws per frontier
-    # row, new columns relabelled in first-seen order, each row sorted by
-    # (local id, e_id): stable sorts by e_id, then by (row, local id).
-    starts = rowptr[subset_np]
-    rix, e_id = draw_candidates(starts, rowptr[subset_np + 1] - starts,
-                                num_neighbors, replace, seed, stream=0)
-    n_id, local_col = first_seen_relabel(col[e_id], subset_np)
-    pre = np.argsort(e_id, kind="stable")
-    order = pre[lexsort2(rix[pre], local_col[pre], n_id.shape[0])]
-    local_col, e_id = local_col[order], e_id[order]
-    out_rowptr = np.concatenate(
-        [[0], np.cumsum(np.bincount(rix, minlength=subset_np.shape[0]))])
+    check_nodes(subset_np, rowptr.shape[0] - 1, "subset")
+    out_rowptr, local_col, e_id, n_id = _native.sample_adj(
+        rowptr, src.storage.numpy_view("col"), subset_np, num_neighbors,
+        replace, seed)
     dev = src.device()
     value = src.storage.value()
     if value is not None:
@@ -86,6 +82,27 @@ def sample_adj(src: SparseTensor, subset, num_neighbors: int,
         sparse_sizes=(subset_np.shape[0], n_id.shape[0]),
         is_sorted=True, trust_data=True, device=dev)
     return out, to_index(n_id, dev)
+
+
+def sample_adj_plain(rowptr: np.ndarray, col: np.ndarray, subset: np.ndarray,
+                     num_neighbors: int, replace: bool, seed: int
+                     ) -> Tuple[np.ndarray, ...]:
+    """The plain version of the library's ``sample_adj``, in numpy:
+    ``(rowptr, local col, e_id, n_id)`` host int64 arrays, equal to
+    ``_native.sample_adj``'s for the same ``uint64`` ``seed``.  The
+    tests hold the library against it; no sampler calls it."""
+    # The native sample_adj (native.cpp:151): stream-0 draws per frontier
+    # row, new columns relabelled in first-seen order, each row sorted by
+    # (local id, e_id): stable sorts by e_id, then by (row, local id).
+    starts = rowptr[subset]
+    rix, e_id = draw_candidates(starts, rowptr[subset + 1] - starts,
+                                num_neighbors, replace, seed, stream=0)
+    n_id, local_col = first_seen_relabel(col[e_id], subset)
+    pre = np.argsort(e_id, kind="stable")
+    order = pre[lexsort2(rix[pre], local_col[pre], n_id.shape[0])]
+    out_rowptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(rix, minlength=subset.shape[0]))])
+    return out_rowptr, local_col[order], e_id[order], n_id
 
 
 SparseTensor.sample = (

@@ -60,6 +60,18 @@ def _host_int64(x) -> Optional[np.ndarray]:
     return arr.astype(np.int64)
 
 
+def _negative_zero_runs(runs: Runs, value: torch.Tensor,
+                        total: torch.Tensor) -> torch.Tensor:
+    """``total`` (the run sums of ``value``, added from 0) with -0.0 where
+    every member of a run is -0.0: the JAX package's library starts each
+    sum from the run's first value, and the two orders differ only
+    there.  A second ``Runs`` pass counts the members that are not
+    -0.0."""
+    not_neg_zero = (value != 0) | ~torch.signbit(value)
+    count = runs.sum(not_neg_zero.to(torch.float32))
+    return torch.where(count == 0, torch.full_like(total, -0.0), total)
+
+
 def _dev_index(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(
         np.ascontiguousarray(arr, dtype=np.int32)).to(device)
@@ -618,7 +630,10 @@ class SparseStorage:
                 ptr = np.concatenate([starts, [E]])
                 data = value.double() if ordered and reduce == "mean" \
                     else value
-                new_value = Runs(ptr, value.device).sum(data)
+                runs = Runs(ptr, value.device)
+                new_value = runs.sum(data)
+                if ordered and reduce != "mean":
+                    new_value = _negative_zero_runs(runs, value, new_value)
                 if reduce == "mean":
                     cnt = torch.from_numpy(np.diff(ptr)).to(
                         device=value.device, dtype=new_value.dtype)

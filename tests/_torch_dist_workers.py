@@ -2,8 +2,9 @@
 which runs one on several processes that form a process group.
 
 ``tests/test_torch_dist.py``, ``tests/test_torch_dist_gcn.py``,
-``tests/test_torch_hier.py``, ``tests/test_torch_dist2d.py`` and
-``tests/test_torch_dist_gpu.py`` run them on several gloo (or NCCL)
+``tests/test_torch_hier.py``, ``tests/test_torch_dist2d.py``,
+``tests/test_torch_examples.py`` and ``tests/test_torch_dist_gpu.py``
+run them on several gloo (or NCCL)
 processes.  The spawned processes import this module and nothing of the
 test modules, so it imports neither JAX nor the JAX package (nor the
 ``conftest``).  The graph builders are numpy only, and the tests hand
@@ -408,3 +409,26 @@ def run_served_backward(rank, world_size, M, K, E, seed, grid=None,
         (gx,) = torch.autograd.grad(out, xr, gout)
         grads.append(A.unshard_dense(gx).cpu())
     return grads
+
+
+def run_train_gcn(rank, world_size, argv, layers, slices):
+    """The distributed GCN recipe (``examples.train_gcn --distributed``
+    with ``argv``) on the spawned group, from the given parameters: flat
+    (the ring schedule), then on the hierarchical layout of each
+    ``--slices`` of ``slices``.  Each run's losses a step, its accuracy
+    and its ``shard_spmm`` launches (0 on the CPU), from every rank."""
+    from pytorch_sparse_tpu_torch.examples import train_gcn
+    from pytorch_sparse_tpu_torch.ops.kernels import shard_spmm
+
+    params = {"layers": [{"w": w.numpy(), "b": b.numpy()}
+                         for w, b in layers]}
+    out = {}
+    for s in (1,) + tuple(slices):
+        args = train_gcn.parse_args(list(argv) + ["--slices", str(s)])
+        shard_spmm.launches = 0
+        res = train_gcn.train_distributed(
+            args, make=lambda d: DistGCN.from_jax_params(params, device=d))
+        out[res["schedule"]] = {"losses": torch.tensor(res["losses"]),
+                                "accuracy": res["accuracy"],
+                                "shard_spmm_launches": shard_spmm.launches}
+    return out

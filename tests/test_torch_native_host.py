@@ -139,6 +139,53 @@ def test_add_bits_equal_jax(E):
                                   _bits(want.storage.value()))
 
 
+def _negative_zero_coo(E=60_000, seed=8, shape=()):
+    """``_dup_coo`` float32 edges whose runs of duplicates are, by key,
+    all -0.0 (a seventh of the keys), -0.0 and +0.0 mixed (another
+    seventh), or random normals."""
+    row, col, val = _dup_coo(E, seed=seed, shape=shape)
+    key = (row * 30 + col) % 7
+    val[key == 0] = -0.0
+    mixed = key == 1
+    val[mixed] = np.where(np.arange(E)[mixed] % 2, 0.0, -0.0)[
+        (slice(None),) + (None,) * len(shape)]
+    return row, col, val
+
+
+@pytest.mark.parametrize("shape", [(), (3,)])
+def test_coalesce_negative_zero_runs_equal_jax(shape):
+    """A run of duplicates whose every value is -0.0 sums to -0.0, as in
+    the JAX package's library (each sum starts from the run's first
+    value); a run that mixes -0.0 and +0.0 sums to +0.0 in both."""
+    row, col, val = _negative_zero_coo(shape=shape)
+    jv = np.asarray(jts.SparseTensor(
+        row=row, col=col, value=val,
+        sparse_sizes=(40, 30)).coalesce().storage.value())
+    pv = pts.SparseTensor(row=row, col=col, value=torch.from_numpy(val),
+                          sparse_sizes=(40, 30),
+                          device="cpu").coalesce().storage.value()
+    zeros = np.signbit(jv[jv == 0])
+    assert zeros.any() and not zeros.all()
+    np.testing.assert_array_equal(_bits(pv), _bits(jv))
+
+
+def test_add_negative_zero_runs_equal_jax():
+    """``add(A, B)`` of two halves of those edges: JAX's bits, -0.0 runs
+    included."""
+    row, col, val = _negative_zero_coo(E=2 * 30_000, seed=9)
+    sides = [slice(0, 30_000), slice(30_000, 60_000)]
+    J = [jts.SparseTensor(row=row[s], col=col[s], value=val[s],
+                          sparse_sizes=(40, 30)) for s in sides]
+    P = [pts.SparseTensor(row=row[s], col=col[s],
+                          value=torch.from_numpy(val[s]),
+                          sparse_sizes=(40, 30), device="cpu") for s in sides]
+    got, want = pts.add(*P), jts.add(*J)
+    wv = np.asarray(want.storage.value())
+    assert np.signbit(wv[wv == 0]).any()
+    np.testing.assert_array_equal(_bits(got.storage.value()),
+                                  _bits(want.storage.value()))
+
+
 @pytest.mark.parametrize("reduce", ["add", "mean", "min", "max"])
 def test_coalesce_grad_values_past_the_crossover(reduce):
     """Values that require grad reduce on the device past the crossover

@@ -101,6 +101,34 @@ def test_construction_of_card_tensors_equals_the_cpu(E):
 
 
 @pytest.mark.gpu
+def test_coalesce_negative_zero_runs_on_the_card_equal_the_cpu():
+    """Past the crossover a run whose every value is -0.0 sums to -0.0 on
+    the card too (``csr_spmm`` adds from 0; the second ``Runs`` pass
+    restores the sign), and a mixed run to +0.0: the CPU's bits."""
+    _need_gpu()
+    rng = np.random.RandomState(62)
+    E = 60_000
+    row, col = rng.randint(0, 40, E), rng.randint(0, 30, E)
+    val = rng.randn(E).astype(np.float32)
+    key = (row * 30 + col) % 7
+    val[key == 0] = -0.0
+    val[key == 1] = np.where(np.arange(E)[key == 1] % 2, 0.0, -0.0)
+    bits = []
+    for dev in ("cpu", "cuda"):
+        csr_spmm.launches = 0
+        A = pts.SparseTensor(row=row, col=col, value=torch.from_numpy(
+            val).to(dev), sparse_sizes=(40, 30), device=dev).coalesce()
+        v = A.storage.value()
+        assert v.device.type == dev
+        assert csr_spmm.launches == (2 if dev == "cuda" else 0)
+        bits.append(v.cpu().view(torch.int32).numpy())
+    zeros = np.signbit(bits[0].view(np.float32)[bits[0].view(np.float32)
+                                                == 0])
+    assert zeros.any() and not zeros.all()
+    np.testing.assert_array_equal(bits[0], bits[1])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("grad", [False, True])
 def test_large_products_of_card_operands_take_the_plan(grad, monkeypatch):
     """Past ``PLAN_MAX_TERMS``, operands on the card take the chunked

@@ -38,11 +38,27 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "pytorch_sparse_tpu"), (
+        assert top not in ("jax", "jaxlib", "pytorch_sparse_tpu",
+                           "examples", "benchmarks", "bench"), (
             f"{path.name} imports {mod}")
     text = path.read_text()
     assert "libsparse_tpu_native" not in text
     assert "import_module(\"jax" not in text
+
+
+def test_the_import_check_covers_the_recipes():
+    """The port's recipes (``pytorch_sparse_tpu_torch/examples``) are
+    among the files checked above, each of the four JAX recipes has its
+    counterpart there, and none reads the repo's ``examples/``."""
+    recipes = {p.name for p in PORT_FILES if p.parent.name == "examples"
+               and p.parent.parent == PORT}
+    want = {f"{n}.py" for n in ("train_gcn", "train_gat",
+                                "train_sage_minibatch", "train_cluster_gcn")}
+    assert want <= recipes and "__init__.py" in recipes
+    assert want <= {p.name for p in (ROOT / "examples").glob("*.py")}
+    for name in recipes:
+        text = (PORT / "examples" / name).read_text()
+        assert "sys.path" not in text and "spec_from_file" not in text
 
 
 def test_port_exports_the_jax_names():
