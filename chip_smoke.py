@@ -359,7 +359,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    epochs), ``train_gat`` (4 heads, 30 epochs), ``train_cluster_gcn`` (8
    parts, 5 epochs) and ``train_sage_minibatch`` (20 steps)
    synchronously and with ``--workers 4``; and, in phase 14's four gloo
-   processes after phase 16, ``train_gcn --distributed`` flat (ring) and
+   processes after phase 23, ``train_gcn --distributed`` flat (ring) and
    with ``--slices 2`` at ``RECIPE_DIST_EPOCHS`` epochs.  Checks (after
    the main path): each recipe's first steps against the same recipe at
    ``--device cpu`` (the plain versions, the same seeds; every step's
@@ -374,8 +374,23 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    route (the ``entry_point`` lines), the samplers' host ms (the
    ``host_samplers`` line) and the script's total seconds (the
    ``script`` line).
+23. ``DistGCN`` on ``(data, feat)`` grids (``make_mesh2d``), in phase
+   14's four gloo processes after phase 16: phase 9's ``gcn_norm`` graph
+   at phase 5's widths (128 -> 256 -> 40, 3 layers), one ``Adam(lr=
+   0.01)`` step from the same parameters on the (2, 2) grid for the ring,
+   all-gather and halo schedules on "ell" and the halo schedule on
+   "auto" (the interior blocks), and on the (1, 4) grid for the halo
+   schedule on "auto".  Each rank holds its row block's ``K/Pf``
+   feature columns; each projection gathers the row block's columns over
+   the feature sub-mesh.  Each step's loss and every gradient are held
+   against the single-card GCN step on the CSR route with the run's ReLU
+   decisions (as phase 14's), and the parameters must be identical on
+   every rank.  Per run: ms a step (CUDA events), the staged bytes and
+   the step's launches of each kernel, from every rank (the
+   ``dist_gcn_2d_four_ranks`` lines; ``dist_gcn_2d_phase``: the phase's
+   seconds and launches).
 
-The main path is phases 4 to 22, each driven once with every launch
+The main path is phases 4 to 23, each driven once with every launch
 count set to 0 just before it and read just after it.  Each phase must
 launch the kernels it runs (4: ``csr_spmm`` and ``block_spmm``; 4b:
 those and ``block_spmm_t`` and ``edge_dot``; 4c: ``csr_spmm_minmax``,
@@ -399,8 +414,9 @@ in the same processes from 0 at the phase's start; 17:
 19: ``csr_spmm``, and ``block_spmm`` and ``block_spmm_t`` where a part
 takes the hybrid route; 20: ``csr_spmm``; 21: ``csr_spmm`` once and
 nothing else; 22: ``csr_spmm``, ``edge_softmax``, ``edge_softmax_bwd``
-and ``edge_dot`` in this process, ``shard_spmm`` in the four ranks),
-and the
+and ``edge_dot`` in this process, ``shard_spmm`` in the four ranks;
+23: ``shard_spmm``, ``block_spmm`` and ``block_spmm_t``, counted in the
+four ranks), and the
 ``kernels`` line reports each kernel's launches summed over them.
 The script prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -466,6 +482,14 @@ FRONTIER_DENSE = (16_384, 1_000_000, 16)   # nodes, draws, communities
 # columns a feature rank holds of a 40-wide operand.
 HIER_GRID = (2, 2)
 K2D, K2D_SLICE = 256, 20
+# Phase 23, in the same processes: DistGCN at phase 5's widths on (data,
+# feat) grids, (grid, schedule, local format) a run; each feature rank
+# aggregates 1/Pf of a layer's columns (20, 64 and 10 besides phase 3's
+# 128, 256, 40: phase 3 runs K11a, K2 and K5 at those too).
+GRID_2D_CASES = (((2, 2), "ring", "ell"), ((2, 2), "allgather", "ell"),
+                 ((2, 2), "halo", "ell"), ((2, 2), "halo", "auto"),
+                 ((1, 4), "halo", "auto"))
+GRID_2D_SLICES = (20, 64, 10)
 PRODUCTS_GCN = (100, 256, 47, 3)           # in, hidden, out, layers
 DIST_STEPS = 3
 # Phase 22: the training recipes.  Their first steps are held against
@@ -906,6 +930,24 @@ def relu_recorder(torch, log):
         log.append((x > 0).detach())
         return torch.relu(x)
     return relu
+
+
+@contextlib.contextmanager
+def relu_recorded(torch, log):
+    """Inside the block ``torch.relu`` also appends each call's decisions
+    to ``log`` (a measurement hook: a model's own forward records its
+    ReLU decisions)."""
+    inner = torch.relu
+
+    def relu(x):
+        log.append((x > 0).detach())
+        return inner(x)
+
+    torch.relu = relu
+    try:
+        yield log
+    finally:
+        torch.relu = inner
 
 
 def relu_replay(masks):
@@ -1692,19 +1734,9 @@ def host_peak_bytes():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
-def dist_gcn_forward(model, x, agg, relu):
-    """``DistGCN``'s forward written out, with the aggregation
-    ``agg(h)`` and the ReLU given."""
-    n = len(model.weights)
-    for i, (w, b) in enumerate(zip(model.weights, model.biases)):
-        x = agg(x @ w) + b
-        if i < n - 1:
-            x = relu(x)
-    return x
-
-
-def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
-    """Phases 14 and 16 on one of ``world_size`` gloo processes sharing
+def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid,
+                grid_cases):
+    """Phases 14, 16 and 23 on one of ``world_size`` gloo processes sharing
     the card.  Phase 14, the flat layout: every schedule x reduce with
     both gradients, the hybrid local format and one DistGCN Adam step, on
     the community hybrid graph and its ``gcn_norm``, and the hybrid with
@@ -1718,7 +1750,10 @@ def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
     gradient).  The results are gathered to rank 0, which holds them
     against the single-card CSR kernel (K1) and K6 on the whole matrix
     and float64 host oracles, and each DistGCN step against the
-    single-card GCN step on the CSR route.  Phase 22, after them: the
+    single-card GCN step on the CSR route.  Phase 23: one DistGCN Adam
+    step on the ``gcn_norm`` graph for each ``(grid, schedule, local
+    format)`` of ``grid_cases``, on ``make_mesh2d`` grids, against the
+    same single-card step.  Phase 22, after them: the
     distributed GCN recipe (``train_gcn --distributed`` on the default
     group) flat and with ``--slices RECIPE_DIST_SLICES``, its losses a
     step returned by every rank.  Every rank returns each phase's kernel
@@ -1881,35 +1916,43 @@ def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
     x_g = operand(torch, M, in_dim, 5, device)
     labels = seeded_labels(torch, x_g, out_dim, 6, device)
 
-    def gcn_step(adj, layout, agg, schedule, phase, res):
+    def gcn_step(adj, layout, schedule, phase, res, local_format="auto"):
         """One DistGCN Adam step on ``adj`` (``gcn_norm`` of the graph),
         its loss and gradients against the single-card GCN step on the
-        CSR route with this run's ReLU decisions (rank 0), and the
-        parameters compared across ranks."""
+        CSR route with the ReLU decisions of the model's own forward
+        (rank 0), and the parameters compared across ranks."""
         xs, ls = adj.shard_dense(x_g), adj.shard_dense(labels)
         mask = adj.shard_dense(torch.ones(M, device=device))
         model = DistGCN(in_dim, hid, out_dim, num_layers=nl,
                         generator=torch.Generator().manual_seed(0),
                         device=device)
         kmasks = []
-        with torch.no_grad():
-            dist_gcn_forward(model, xs, agg, relu_recorder(torch, kmasks))
+        with torch.no_grad(), relu_recorded(torch, kmasks):
+            model(adj, xs, schedule, local_format)
         opt = torch.optim.Adam(model.parameters(), lr=1e-2)
         staged0 = layout.staged_bytes
+        before = read_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         sync()
-        t1 = time.time()
-        loss = model.train_step(opt, adj, xs, ls, mask, schedule, "auto")
+        start.record()
+        loss = model.train_step(opt, adj, xs, ls, mask, schedule,
+                                local_format)
+        end.record()
         sync()
-        step_ms = (time.time() - t1) * 1e3
+        step_launches = {n: c_ - before[n] for n, c_ in read_counts().items()
+                         if c_ - before[n]}
         grads = [p.grad.detach().clone() for p in model.parameters()]
         flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
         every = _comm.all_gather(adj.world, flat[None])
         kmasks = [adj.unshard_dense(m_.to(torch.uint8)).bool()
                   for m_ in kmasks]
-        gcn = {"step_ms": step_ms, "staged_bytes": layout.staged_bytes
-               - staged0, "loss": float(loss),
-               "local_format": ("hybrid" if adj.has_interior_blocks()
-                                else "ell"),
+        gcn = {"step_event_ms": start.elapsed_time(end),
+               "step_launches": step_launches,
+               "staged_bytes": layout.staged_bytes - staged0,
+               "loss": float(loss),
+               "local_format": ("hybrid" if local_format != "ell"
+                                and adj.has_interior_blocks() else "ell"),
                "params_identical_on_every_rank": bool(
                    (every == every[:1]).all())}
         if rank == 0:
@@ -1970,9 +2013,7 @@ def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
     res["build_and_cases_s"] = time.time() - t0
     del big, small, cases
     Ahn = ShardedSparseMatrix.from_sparse_tensor(tensor("n_"), mesh)
-    res["dist_gcn"] = gcn_step(
-        Ahn, mesh, lambda h: dist_spmm(Ahn, h, "halo", "sum", "auto"),
-        "halo", 14, res)
+    res["dist_gcn"] = gcn_step(Ahn, mesh, "halo", 14, res)
     del Ahn
     res["launches"] = read_counts()
     res["staged_bytes"] = mesh.staged_bytes
@@ -2008,9 +2049,7 @@ def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
     run_cases(cases, 16, r16)
     del big, small, cases, hb
     Ahn = HierShardedSparseMatrix.from_sparse_tensor(tensor("n_"), hier)
-    r16["dist_gcn"] = gcn_step(
-        Ahn, hier, lambda h: dist_spmm_hier(Ahn, h, "sum", "auto"), "hier",
-        16, r16)
+    r16["dist_gcn"] = gcn_step(Ahn, hier, "hier", 16, r16)
     del Ahn
     r16["launches_hier"] = read_counts()
     g2 = graph("", "community hybrid", mesh2d, k=K2d)
@@ -2025,6 +2064,35 @@ def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
                            "2d": mesh2d.staged_bytes}
     res["phase16"] = r16
     res["backend"] = mesh.backend
+
+    # ---- phase 23: DistGCN on (data, feat) grids ------------------------
+    reset_counts()
+    t0 = time.time()
+    r23 = {"runs": [], "failures": [], "layout_build_s": {}}
+    grids = {tuple(grid): mesh2d}
+    for g_, _, _ in grid_cases:  # every rank makes every grid, in order
+        if g_ not in grids:
+            grids[g_] = make_mesh2d(*g_, device=device)
+    staged0 = {g_: l_.staged_bytes for g_, l_ in grids.items()}
+    A2 = None
+    for g_, schedule, fmt in grid_cases:
+        layout = grids[g_]
+        if A2 is None or A2.grid is not layout:
+            A2 = None  # the last grid's tables go before the next's build
+            t1 = time.time()
+            A2 = ShardedSparseMatrix.from_sparse_tensor(tensor("n_"), layout)
+            r23["layout_build_s"][str(g_)] = time.time() - t1
+        t1 = time.time()
+        gcn = gcn_step(A2, layout, schedule, 23, r23, fmt)
+        gcn.update(grid=list(g_), schedule=schedule, local_format_asked=fmt,
+                   wall_s=time.time() - t1)
+        r23["runs"].append(gcn)
+    del A2
+    r23["seconds"] = time.time() - t0
+    r23["launches"] = read_counts()
+    r23["staged_bytes"] = {str(g_): l_.staged_bytes - staged0[g_]
+                           for g_, l_ in grids.items()}
+    res["phase23"] = r23
 
     # ---- phase 22: the distributed GCN recipe, flat and hierarchical ----
     from pytorch_sparse_tpu_torch.examples import train_gcn
@@ -2050,6 +2118,9 @@ def dist_worker(rank, world_size, coo_path, K_, K2d, widths, grid):
                         "launches_hier": r16["launches_hier"],
                         "staged_bytes": r16["staged_bytes"],
                         "hier_tables_s": r16["hier_tables_s"]},
+            "phase23": {"launches": r23["launches"],
+                        "staged_bytes": r23["staged_bytes"],
+                        "runs": r23["runs"]},
             "phase22": r22}
 
 
@@ -2073,7 +2144,7 @@ def main(argv=None) -> int:
         GAT, GCN, GIN, DistGCN, GraphSAGE, gcn_norm, nll_loss)
     from pytorch_sparse_tpu_torch.parallel import (
         HierShardedSparseMatrix, ShardedSparseMatrix, data_axis, dcn_axis,
-        dist_spmm, make_mesh, make_mesh_hier)
+        make_mesh, make_mesh_hier)
     from pytorch_sparse_tpu_torch.ops.kernels import (
         block_spmm, block_spmm_dblocks, block_spmm_dblocks_plain,
         block_spmm_plain, block_spmm_t, block_spmm_t_plain,
@@ -2434,6 +2505,25 @@ def main(argv=None) -> int:
                                 "is not zero")
             del got, ref, tr
         del g47, gb47, blocks_cut, keep
+        # K2 and K5 at the columns a feature rank aggregates in phase 23.
+        for k in GRID_2D_SLICES:
+            xk = operand(torch, C * B, k, 5, device)
+            gk = operand(torch, R * B, k, 6, device)
+            fwd = (h32.blocks, h32.slot_col, h32.rb_ptr, xk)
+            tr = (h32.blocks, h32.slot_row, h32.order_t, h32.cb_ptr, gk)
+            for name, fn, plain, args_, cases_ in (
+                    ("block_spmm", block_spmm, block_spmm_plain, fwd,
+                     fwd_cases),
+                    ("block_spmm_t", block_spmm_t, block_spmm_t_plain, tr,
+                     t_cases)):
+                got = fn(*args_)
+                ref = plain(*args_)
+                sync()
+                cases_.append(kernel_case(
+                    torch, f"f32 store K={k} (a feature rank's columns)",
+                    got, ref, failures, name))
+                del got, ref
+            del xk, gk, fwd, tr
         shape = f"M={Mh} nb={nb} B={B} K={K} f32 store"
         kernels.append(kernel_entry(
             "block_spmm", "block_spmm.cu", "ops/kernels/hybrid.py:553",
@@ -3002,11 +3092,11 @@ def main(argv=None) -> int:
                                            (R_, n_cols))
 
         sum_cases, mm_cases = [], []
-        for k in (128, 256, 40):
+        for k in (128, 256, 40) + GRID_2D_SLICES[1:]:
             xb0 = operand(torch, Nb0, k, 31, device)
             halo0 = operand(torch, PH0, k, 32, device)
             base = operand(torch, Mb0, k, 33, device)
-            timed = k != 40
+            timed = k in (128, 256)
             specs = [("interior, write", it0, xb0, None, Nb0),
                      ("halo frontier, accumulate", fr0, halo0, base, PH0),
                      ("ring group q=1, accumulate", rg0, xb0, base, Nb0)]
@@ -3304,6 +3394,8 @@ def main(argv=None) -> int:
         "22 the training recipes": ("csr_spmm", "edge_softmax",
                                     "edge_softmax_bwd", "edge_dot",
                                     "shard_spmm"),
+        "23 DistGCN on (data, feat) grids on four ranks (gloo)": (
+            "shard_spmm", "block_spmm", "block_spmm_t"),
     }
     phase_launches = {}
 
@@ -4135,7 +4227,9 @@ def main(argv=None) -> int:
             ranks = spawn_ranks(dist_worker, DIST_WORLD, "gloo",
                                 args=dict(coo_path=path, K_=K, K2d=K2D,
                                           widths=GCN_WIDTHS,
-                                          grid=HIER_GRID), timeout=900)
+                                          grid=HIER_GRID,
+                                          grid_cases=GRID_2D_CASES),
+                                timeout=900)
             return ranks, time.time() - t1
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -4241,11 +4335,8 @@ def main(argv=None) -> int:
                             generator=torch.Generator().manual_seed(0),
                             device=device)
             r["kmasks"] = []
-            with torch.no_grad():
-                dist_gcn_forward(
-                    model, r["x"],
-                    lambda h: dist_spmm(Ash, h, "halo", "sum", "auto"),
-                    relu_recorder(torch, r["kmasks"]))
+            with torch.no_grad(), relu_recorded(torch, r["kmasks"]):
+                model(Ash, r["x"], "halo", "auto")
             opt = torch.optim.Adam(model.parameters(), lr=0.01)
             mask = torch.ones(Mp, device=device)
             r["losses"], r["step_ms"] = [], []
@@ -4321,12 +4412,17 @@ def main(argv=None) -> int:
             part19 = None
     phase_launches["16 hierarchical and 2-D layouts on four ranks (gloo)"] \
         = {n: 0 for n in counted}
+    phase_launches["23 DistGCN on (data, feat) grids on four ranks (gloo)"] \
+        = {n: 0 for n in counted}
     if p14 is not None:
         for rank_res in p14[0]:
             for n, c_ in rank_res["launches"].items():
                 phase_launches["14 four ranks on one card (gloo)"][n] += c_
             for n, c_ in rank_res["phase16"]["launches"].items():
                 phase_launches["16 hierarchical and 2-D layouts on four "
+                               "ranks (gloo)"][n] += c_
+            for n, c_ in rank_res["phase23"]["launches"].items():
+                phase_launches["23 DistGCN on (data, feat) grids on four "
                                "ranks (gloo)"][n] += c_
     dist15 = drive("15 DistGCN on products (world size 1, NCCL)",
                    dist_products)
@@ -5200,6 +5296,27 @@ def main(argv=None) -> int:
         record("dist_gcn_hier_four_ranks", **r16["dist_gcn"],
                grid=list(HIER_GRID), backend=r0["backend"], times=label,
                widths=[in_dim, hid, hid, out_dim], card=card)
+        # Phase 23, from the same processes.
+        r23 = r0["phase23"]
+        failures.extend(r23["failures"])
+        for i, run in enumerate(r23["runs"]):
+            record("dist_gcn_2d_four_ranks", **run, backend=r0["backend"],
+                   times=label, widths=[in_dim, hid, hid, out_dim],
+                   step_event_ms_by_rank=[
+                       r_["phase23"]["runs"][i]["step_event_ms"]
+                       for r_ in ranks],
+                   step_launches_by_rank=[
+                       r_["phase23"]["runs"][i]["step_launches"]
+                       for r_ in ranks],
+                   card=card)
+        record("dist_gcn_2d_phase", seconds=r23["seconds"],
+               layout_build_s=r23["layout_build_s"],
+               staged_bytes_by_rank=[r_["phase23"]["staged_bytes"]
+                                     for r_ in ranks],
+               launches_by_rank=[r_["phase23"]["launches"] for r_ in ranks],
+               launches=phase_launches["23 DistGCN on (data, feat) grids "
+                                       "on four ranks (gloo)"],
+               card=card)
 
     # ---- 15. DistGCN on products: checks and times -------------------------
     def check_dist15(r):

@@ -2,6 +2,7 @@
 which runs one on several processes that form a process group.
 
 ``tests/test_torch_dist.py``, ``tests/test_torch_dist_gcn.py``,
+``tests/test_torch_dist_gcn2d.py``,
 ``tests/test_torch_hier.py``, ``tests/test_torch_dist2d.py``,
 ``tests/test_torch_examples.py`` and ``tests/test_torch_dist_gpu.py``
 run them on several gloo (or NCCL)
@@ -277,6 +278,54 @@ def run_dist_gcn(rank, world_size, M, graph, layers, n_classes, seed,
             "grads": [p.grad.detach().clone() for p in model.parameters()],
             "params": [p.detach().clone() for p in model.parameters()]}
     res["has_interior_blocks"] = A.has_interior_blocks()
+    return res
+
+
+def run_dist_gcn2d(rank, world_size, P, Pf, M, graph, layers, n_classes,
+                   seed, schedules, lr, narrow_out=None, device="cpu"):
+    """``run_dist_gcn`` on a ``(P, Pf)`` data x feature grid: per
+    schedule, the logits of the given parameters (``unshard_dense``)
+    and one ``DistGCN.train_step`` (Adam), from every rank.  With
+    ``narrow_out``, also whether a model whose output width is
+    ``narrow_out`` raised ``ValueError`` saying "divisible" on this
+    rank."""
+    row, col, _ = community_coo(M, *graph)
+    row, col, val = gcn_norm_coo(row, col, M)
+    grid = make_mesh2d(P, Pf, device=device)
+    A = ShardedSparseMatrix.from_sparse_tensor(_tensor(row, col, val, M),
+                                               grid, block_B=8)
+    params = {"layers": [{"w": w.numpy(), "b": b.numpy()}
+                         for w, b in layers]}
+    in_dim = layers[0][0].shape[0]
+    x = A.shard_dense(torch.from_numpy(operand(seed, M, in_dim)))
+    rng = np.random.RandomState(seed + 1)
+    labels = A.shard_dense(torch.from_numpy(rng.randint(0, n_classes, M)))
+    mask = A.shard_dense(torch.from_numpy(
+        (rng.rand(M) < 0.6).astype(np.float32)))
+    res = {"x_cols": x.shape[1]}
+    for schedule, fmt in schedules:
+        model = DistGCN.from_jax_params(params, device=device)
+        with torch.no_grad():
+            logits = A.unshard_dense(model(A, x, schedule, fmt))
+        opt = torch.optim.Adam(model.parameters(), lr=lr)
+        loss = model.train_step(opt, A, x, labels, mask, schedule, fmt)
+        res[f"{schedule}-{fmt}"] = {
+            "logits": logits.cpu(), "loss": loss.cpu(),
+            "grads": [p.grad.detach().cpu() for p in model.parameters()],
+            "params": [p.detach().cpu() for p in model.parameters()]}
+    if narrow_out is not None:
+        w, b = layers[-1]
+        narrow = dict(params, layers=params["layers"][:-1] + [
+            {"w": w[:, :narrow_out].numpy(), "b": b[:narrow_out].numpy()}])
+        model = DistGCN.from_jax_params(narrow, device=device)
+        try:
+            model.train_step(torch.optim.Adam(model.parameters(), lr=lr),
+                             A, x, labels, mask)
+            res["narrow_raises"] = False
+        except ValueError as e:
+            res["narrow_raises"] = "divisible" in str(e)
+    res["has_interior_blocks"] = A.has_interior_blocks()
+    res["staged_bytes"] = grid.staged_bytes
     return res
 
 

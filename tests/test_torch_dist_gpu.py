@@ -4,7 +4,7 @@ schedules on CPU shards (plain versions): the flat schedules at world
 size 1 on NCCL and on 4 processes sharing one card on gloo, which stages
 every collective through the host; the hierarchical schedule on a (1,
 1) grid on NCCL and a (2, 2) grid on gloo; the flat schedules on a (2,
-2) data x feature grid on gloo.
+2) data x feature grid on gloo, and one ``DistGCN`` Adam step on it.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip without them; they
 import neither JAX nor the JAX package:
@@ -340,3 +340,42 @@ def test_served_backward_is_deterministic_on_gpu(grid):
                   args=dict(kw, device="cpu"), timeout=300)[0]
     assert torch.equal(got[0], got[1])
     assert rel_err(got[0], ref[0]) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_dist_gcn2d_on_cuda_matches_the_cpu():
+    """One ``DistGCN`` Adam step on a (2, 2) data x feature grid of four
+    gloo processes on the card (8 -> 16 -> 4, 3 layers: each feature rank
+    projects and aggregates half of a layer's columns) against the same
+    step on CPU shards: the logits, the loss, the all-reduced gradients
+    and the parameters after the step to 1e-5, and the parameters the
+    same bits on every rank."""
+    _need_gpu()
+    from pytorch_sparse_tpu_torch.models import GCN
+
+    model = GCN(8, 16, 4, num_layers=3, device="cpu")
+    layers = [(w.detach().clone(), b.detach().clone())
+              for w, b in zip(model.weights, model.biases)]
+    cases = [("ring", "ell"), ("halo", "auto")]
+
+    def run(device):
+        return W.spawn(W.run_dist_gcn2d, 4, "gloo",
+                       args=dict(P=2, Pf=2, M=118,
+                                 graph=(12, 1600, 150, 3, 0), layers=layers,
+                                 n_classes=4, seed=11, schedules=cases,
+                                 lr=1e-2, narrow_out=3, device=device),
+                       timeout=300)
+
+    got, ref = run("cuda"), run("cpu")
+    assert all(r["narrow_raises"] for r in got)
+    assert got[0]["staged_bytes"] > 0
+    for s, f in cases:
+        g, r = got[0][f"{s}-{f}"], ref[0][f"{s}-{f}"]
+        assert rel_err(g["logits"], r["logits"]) <= 1e-5
+        assert abs(float(g["loss"]) - float(r["loss"])) <= 1e-5 * abs(
+            float(r["loss"]))
+        for a, b in zip(g["grads"] + g["params"], r["grads"] + r["params"]):
+            assert rel_err(a, b) <= 1e-5
+        for rank in range(1, 4):
+            for a, b in zip(g["params"], got[rank][f"{s}-{f}"]["params"]):
+                assert torch.equal(a, b)
